@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each fails loudly, with a non-zero exit):
+
+1. Environment: the card's name and power limit (as ``nvidia-smi`` gives
+   them), torch and CUDA versions, TF32 flags (turned off and checked).
+2. Build: the three CUDA kernels are compiled from ``src/repro_torch/
+   kernels/csrc`` into ``build/repro_torch/`` (at first use).
+3. Main path: the paper's Table 1, Synthetic 1 (N=250, p=10 000, 1000
+   groups of 10, alpha = tan 45 deg, 100 lambdas, tol 1e-6, safety 1e-6,
+   max_iter 6000, check_every 50) through ``SGLSession.path`` in float32 on
+   the card, with the kernels' launch counters reset just before and read
+   just after; the same path in float64 (no kernels) as the reference; the
+   f32 screen's discards checked against the f64 solution; a warm second
+   call that must pay no new compilation; one more warm call under
+   ``torch.profiler`` for the device's busy time and idle share.
+4. Ragged path: the paper's Table 2 shape (N=747, p=100 000, ADNI-like
+   ragged groups, n_max=9, Frobenius group norms, 8 lambdas), counters as
+   in phase 3.
+5. Each kernel against its plain PyTorch version on the card, at the
+   shapes the paths give it, ragged shapes with 1e30 poisoned into every
+   masked slot; timed with CUDA events beside its bound, its plain version
+   and (for ``xtv``) one cuBLAS call.
+6. One JSON line ``{"kernels": [...]}``, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Without a CUDA card, or without the repository around it, it exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
+F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+EPS32 = float(np.finfo(np.float32).eps)
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+SOURCES = {
+    "xtv": ("src/repro_torch/kernels/csrc/xtv.cu",
+            "src/repro/kernels/xtv.py:53"),
+    "screen_norms": ("src/repro_torch/kernels/csrc/screen_norms.cu",
+                     "src/repro/kernels/screen_norms.py:41"),
+    "sgl_prox": ("src/repro_torch/kernels/csrc/sgl_prox.cu",
+                 "src/repro/kernels/sgl_prox.py:46"),
+}
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2: environment and build
+# ---------------------------------------------------------------------------
+
+def environment(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} devices "
+        f"{torch.cuda.device_count()} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    return card
+
+
+def build_kernels():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    path = build.library_path()
+    build.load()
+    built = build.last_build_seconds
+    say(f"[build] {path.relative_to(ROOT)} ready in "
+        f"{time.perf_counter() - t0:.3f} s "
+        f"({'built' if built is not None else 'cached'}"
+        f"{f', nvcc {built:.3f} s' if built is not None else ''})")
+
+
+# ---------------------------------------------------------------------------
+# phase 3-4: the paths
+# ---------------------------------------------------------------------------
+
+def run_path(torch, sess, plan, label):
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sess.path(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = res.stats
+    say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
+        f"{res.screen_time:.3f} + solve {res.solve_time:.3f} s; "
+        f"n_segments {st.n_segments} n_screens {st.n_screens} "
+        f"n_pallas_screens {st.n_pallas_screens} n_compilations "
+        f"{st.n_compilations} n_rejected {st.n_rejected} iters "
+        f"{int(res.iters.sum())} launches {json.dumps(counts)}")
+    require(np.isfinite(res.betas).all(), f"{label}: non-finite betas")
+    return res, counts, wall
+
+
+def require_kernel_route(res, counts, label):
+    for name, n in counts.items():
+        require(n > 0, f"{label}: kernel {name} was not launched")
+    require(res.stats.n_pallas_screens == res.stats.n_screens > 0,
+            f"{label}: not every screen went through the kernels")
+
+
+def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
+                             safety):
+    """Sequential f32 kernel screen at every lambda from the f32 path's
+    certified dual at the previous lambda; every discarded feature must be
+    zero (|beta| <= 1e-6) in the float64 solution."""
+    from repro_torch.core.screening import tlfre_screen_grid
+    X, y, spec = prob32.X, prob32.y, prob32.spec
+    xty = X.T @ y
+    lam_max_t, g_star = T.lambda_max_sgl(spec, xty, alpha)
+    lam_max = float(lam_max_t)
+    col_n, gspec = T.column_norms(X), T.group_spectral_norms(X, spec)
+    lambdas = res32.lambdas
+    worst, n_discarded = 0.0, 0
+    for j in range(1, len(lambdas)):
+        lam_bar = float(lambdas[j - 1])
+        if lam_bar >= lam_max * (1.0 - 1e-12):
+            theta = y / lam_max
+        else:
+            beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
+                                   device=X.device)
+            rho = (y - X @ beta) / lam_bar
+            theta = T.dual_scaling_sgl(spec, X.T @ rho, alpha) * rho
+        n_vec = T.normal_vector_sgl(X, y, spec, lam_bar, lam_max, theta,
+                                    g_star)
+        lam = torch.as_tensor([lambdas[j]], dtype=X.dtype, device=X.device)
+        _, fk, _ = tlfre_screen_grid(X, y, spec, alpha, lam, lam_bar, theta,
+                                     n_vec, col_n, gspec, safety=safety,
+                                     use_kernels=True)
+        dropped = ~fk[0].cpu().numpy()
+        n_discarded += int(dropped.sum())
+        if dropped.any():
+            worst = max(worst, float(np.abs(betas64[j][dropped]).max()))
+    return worst, n_discarded
+
+
+def profile_path(torch, sess, plan, label, warm_wall, top=6):
+    """One more warm call under ``torch.profiler``: the card's busy time
+    (the sum of the kernels' device time; one stream, so kernels never
+    overlap), its share of this call's wall time and of ``warm_wall``, the
+    same call's wall time without the profiler (which slows the host), and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.path(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n_kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    busy = sum(by_name.values()) / 1e6
+    if n_kernels == 0:
+        say(f"[{label}] wall {wall:.3f} s; the profiler saw no device "
+            f"activity: device busy share not measured")
+        return
+    say(f"[{label}] wall {wall:.3f} s (profiler on); device kernels "
+        f"{n_kernels}, device busy {busy:.3f} s; idle share "
+        f"{1 - busy / wall:.4f} of this wall, {1 - busy / warm_wall:.4f} "
+        f"of the unprofiled warm wall {warm_wall:.3f} s")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        say(f"[{label}]   {us / 1e3:10.3f} ms  {name[:100]}")
+
+
+def sgl_objectives(X, y, betas, lambdas, G, n, alpha=1.0):
+    """Primal SGL objective of each row, in float64 on the host, for G
+    uniform groups of n with the paper's weights sqrt(n)."""
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    B = np.asarray(betas, dtype=np.float64)
+    resid = y64[None, :] - B @ X64.T
+    pen = (alpha * np.sqrt(n) * np.linalg.norm(B.reshape(len(B), G, n),
+                                               axis=2).sum(axis=1)
+           + np.abs(B).sum(axis=1))
+    return 0.5 * (resid * resid).sum(axis=1) + np.asarray(lambdas) * pen
+
+
+def main_path(torch, T, N=250, G=1000, n=10):
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    plan = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50)
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
+    require(sess.problem.device.type == "cuda", "problem is not on the card")
+    res, counts, wall = run_path(torch, sess, plan, "synthetic1-f32")
+    require_kernel_route(res, counts, "synthetic1-f32")
+    require(res.betas.shape == (100, n * G), "wrong beta shape")
+
+    sess64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
+                                        y.astype(np.float64), [n] * G,
+                                        dtype=torch.float64))
+    res64, counts64, _ = run_path(torch, sess64, plan, "synthetic1-f64")
+    require(sum(counts64.values()) == 0 and
+            res64.stats.n_pallas_screens == 0,
+            "the float64 path engaged a float32 kernel")
+    # Both paths certify every row: the f64 one at relative gap 1e-6, the
+    # f32 one at its 64-ulp floor (7.6e-6).  So the two primal objectives
+    # (evaluated in float64) differ by at most the sum of the two gaps, and
+    # the betas by O(sqrt(relative gap)) * max|beta| (sqrt(7.6e-6) = 2.8e-3;
+    # the bound keeps a factor 3.6 of headroom).
+    tol32 = max(plan.tol, 64 * EPS32)
+    gap_scale = 0.5 * float(np.dot(y.astype(np.float64), y))
+    dobj = np.abs(sgl_objectives(X, y, res.betas, res.lambdas, G, n)
+                  - sgl_objectives(X, y, res64.betas, res.lambdas, G, n))
+    certified = (res.iters < plan.max_iter) & (res64.iters < plan.max_iter)
+    obj_bound = 1.01 * (tol32 + plan.tol) * gap_scale
+    dbeta = float(np.abs(res.betas - res64.betas).max())
+    dbound = 1e-2 * float(np.abs(res64.betas).max())
+    say(f"[synthetic1] max|P(beta_f32) - P(beta_f64)| = "
+        f"{float(dobj[certified].max()):.3e} over {int(certified.sum())} "
+        f"certified rows (bound (tol32 + tol64) * 0.5|y|^2 = "
+        f"{obj_bound:.3e}); max|beta_f32 - beta_f64| = {dbeta:.3e} (bound "
+        f"1e-2 * max|beta_f64| = {dbound:.3e}); lambda grids max rel diff "
+        f"{float(np.abs(res.lambdas / res64.lambdas - 1).max()):.3e}")
+    require(bool((dobj[certified] <= obj_bound).all()),
+            "f32 kernel path's objectives disagree with the f64 path's")
+    require(dbeta <= dbound, "f32 kernel path disagrees with the f64 path")
+    worst, n_disc = screen_discards_are_zero(torch, T, sess.problem, res,
+                                             res64.betas, 1.0, 1e-6)
+    say(f"[synthetic1] f32 kernel screen discarded {n_disc} feature-lambda "
+        f"pairs; max |beta_f64| over them = {worst:.3e} (must be <= 1e-6)")
+    require(n_disc > 0 and worst <= 1e-6,
+            "the f32 screen discarded a feature active in the f64 solution")
+
+    warm, _, warm_wall = run_path(torch, sess, plan, "synthetic1-f32-warm")
+    require(warm.stats.n_compilations == 0, "warm call paid compilations")
+    profile_path(torch, sess, plan, "synthetic1-f32-profiled", warm_wall)
+    from repro_torch.core.path_engine import _pow2_len
+    # the first screen's grid: the lambdas below lambda_max, padded to a
+    # power of two (99 -> 128); the largest group bucket a sweep used
+    shapes = {"L": _pow2_len(len(res.lambdas) - 1),
+              "g_b": max(b[1] for b in res.stats.buckets)}
+    return sess, res, counts, shapes
+
+
+def ragged_path(torch, T, N=747, p=100_000):
+    from repro_torch.data_synth import ragged_sizes
+    sizes = ragged_sizes(p, avg=4.5, seed=0)
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N, p)).astype(np.float32)
+    beta = np.zeros(p, np.float32)
+    hot = rng.choice(p, 60, replace=False)
+    beta[hot] = rng.standard_normal(60)
+    y = (X @ beta + 0.01 * rng.standard_normal(N)).astype(np.float32)
+    sess = T.SGLSession(T.Problem.sgl(X, y, sizes))
+    require(sess.problem.spec.max_size == 9, "ragged n_max is not 9")
+    plan = T.Plan(alpha=1.0, n_lambdas=8, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50, specnorm_method="frobenius")
+    res, counts, _ = run_path(torch, sess, plan, "table2-ragged-f32")
+    require_kernel_route(res, counts, "table2-ragged-f32")
+    return sess, res, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: each kernel against its plain version, and its time
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps=10, inner=20):
+    """Device time of one call, in ms: ``inner`` calls are captured in one
+    CUDA graph, and the median over ``reps`` replays, timed by CUDA events,
+    is divided by ``inner``.  The replays carry no host work, so a short
+    kernel is timed by what the card spends on it, not by its launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / inner)
+    return float(np.median(out))
+
+
+def eager_ms(torch, fn, reps=10, inner=50):
+    """Time per call of ``inner`` eager back-to-back calls (median over
+    ``reps``, CUDA events): what the path pays per call, host issue
+    included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / inner)
+    return float(np.median(out))
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_xtv(torch, X, label):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.xtv import xtv_cuda
+    N, p = X.shape
+    v = torch.randn(N, device=X.device)
+    got = xtv_cuda(X, v)
+    want = ref.xtv_ref(X, v)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    # per column: N * eps * sum_i |x_ij v_i| (summation order differs)
+    tol = N * EPS32 * (X.abs() * v.abs()[:, None]).sum(dim=0)
+    require(bool(torch.isfinite(got).all()), f"xtv {label}: non-finite")
+    require(bool((err <= 2 * tol + 1e-30).all()),
+            f"xtv {label}: outside N*eps*sum|x v|")
+    ms = time_ms(torch, lambda: xtv_cuda(X, v))
+    eager = eager_ms(torch, lambda: xtv_cuda(X, v))
+    plain = time_ms(torch, lambda: ref.xtv_ref(X, v), inner=5)
+    lib = time_ms(torch, lambda: torch.mv(X.T, v))
+    b, by = bound_ms(4 * (N * p + N + p), 2 * N * p)
+    say(f"[kernel xtv {label}] X {tuple(X.shape)} max_abs_err "
+        f"{float(err.max()):.3e} (tol 2*N*eps*sum|x v|, max "
+        f"{float(tol.max()):.3e}) ms {ms:.5f} eager_ms {eager:.5f} plain_ms "
+        f"{plain:.5f} cublas_ms {lib:.5f} bound_ms {b:.5f} ({by})")
+    return dict(max_abs_err=float(err.max()), ms=ms, eager_ms=eager,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+
+
+def _poisoned(torch, rows, mask_rows, dev, scale=2.0):
+    """float32 (rows, n_max) values with 1e30 in every masked slot, for a
+    mask whose rows repeat every mask_rows.shape[0] rows."""
+    G, n_max = mask_rows.shape
+    vals = torch.randn(rows, n_max, device=dev) * scale
+    return torch.where(mask_rows.repeat(rows // G, 1), vals, 1e30).contiguous()
+
+
+def check_screen_norms(torch, L, mask, label):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.screen_norms import screen_norms_cuda
+    G, n_max = mask.shape
+    R = L * G
+    poison = _poisoned(torch, R, mask, mask.device)
+    got = screen_norms_cuda(poison, mask)
+    want = ref.screen_norms_ref(poison, mask)
+    torch.cuda.synchronize()
+    errs = []
+    for g, w in zip(got, want):
+        require(bool(torch.isfinite(g).all()),
+                f"screen_norms {label}: non-finite (poison leaked)")
+        require(bool(torch.allclose(g, w, **KERNEL_TOL)),
+                f"screen_norms {label}: outside rtol=atol=1e-5")
+        errs.append(float((g - w).abs().max()))
+    ms = time_ms(torch, lambda: screen_norms_cuda(poison, mask))
+    eager = eager_ms(torch, lambda: screen_norms_cuda(poison, mask))
+    plain = time_ms(torch, lambda: ref.screen_norms_ref(poison, mask))
+    b, by = bound_ms(4 * R * n_max + G * n_max + 8 * R, 6 * R * n_max)
+    say(f"[kernel screen_norms {label}] rows {R} (L {L} x G {G}) n_max "
+        f"{n_max} valid {float(mask.float().mean()):.3f} max_abs_err "
+        f"{max(errs):.3e} (tol rtol=atol=1e-5) ms {ms:.5f} eager_ms "
+        f"{eager:.5f} plain_ms {plain:.5f} bound_ms {b:.5f} ({by})")
+    return dict(max_abs_err=max(errs), ms=ms, eager_ms=eager, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def check_sgl_prox(torch, mask, label):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+    G, n_max = mask.shape
+    dev = mask.device
+    poison = _poisoned(torch, G, mask, dev)
+    t_l1 = torch.tensor([0.3], device=dev)
+    t_group = torch.rand(G, device=dev) * 2
+    got = sgl_prox_cuda(poison, mask, t_l1, t_group)
+    want = ref.sgl_prox_ref(poison, mask, t_l1, t_group)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()),
+            f"sgl_prox {label}: non-finite (poison leaked)")
+    require(bool((got[~mask] == 0).all()), f"sgl_prox {label}: masked != 0")
+    require(bool(torch.allclose(got, want, **KERNEL_TOL)),
+            f"sgl_prox {label}: outside rtol=atol=1e-5")
+    err = float((got - want).abs().max())
+    ms = time_ms(torch, lambda: sgl_prox_cuda(poison, mask, t_l1, t_group))
+    eager = eager_ms(torch,
+                     lambda: sgl_prox_cuda(poison, mask, t_l1, t_group))
+    plain = time_ms(torch,
+                    lambda: ref.sgl_prox_ref(poison, mask, t_l1, t_group))
+    b, by = bound_ms(8 * G * n_max + G * n_max + 4 * G + 4, 8 * G * n_max)
+    say(f"[kernel sgl_prox {label}] G {G} n_max {n_max} valid "
+        f"{float(mask.float().mean()):.3f} max_abs_err {err:.3e} (tol "
+        f"rtol=atol=1e-5) ms {ms:.5f} eager_ms {eager:.5f} plain_ms "
+        f"{plain:.5f} bound_ms {b:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def kernel_checks(torch, sess_main, shapes, sess_ragged):
+    spec = sess_main.problem.spec
+    rspec = sess_ragged.problem.spec
+    # the main path's shapes: the full X of the certification GEMV, the
+    # first screen's padded (128 x G, n_max) grid, the largest prox bucket
+    # (kept groups' rows of the full mask, then empty groups and the bin)
+    g_b = shapes["g_b"]
+    bucket_mask = torch.zeros(g_b, spec.max_size, dtype=torch.bool,
+                              device=spec.device)
+    bucket_mask[: min(g_b, spec.num_groups)] = spec.pad_mask[:g_b]
+    rows = {
+        "xtv": check_xtv(torch, sess_main.problem.X, "synthetic1"),
+        "screen_norms": check_screen_norms(torch, shapes["L"], spec.pad_mask,
+                                           "synthetic1"),
+        "sgl_prox": check_sgl_prox(torch, bucket_mask, "synthetic1-bucket"),
+    }
+    # ragged shapes with live masks: Table 2's X and padded layouts
+    check_xtv(torch, sess_ragged.problem.X, "table2")
+    check_screen_norms(torch, 8, rspec.pad_mask, "table2")
+    check_sgl_prox(torch, rspec.pad_mask, "table2")
+    check_sgl_prox(torch, spec.pad_mask, "synthetic1-full")
+    return rows
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are missing under {SRC}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import repro_torch.core as T
+
+    environment(torch)
+    build_kernels()
+    sess, res, counts, shapes = main_path(torch, T)
+    sess_r, res_r, counts_r = ragged_path(torch, T)
+    rows = kernel_checks(torch, sess, shapes, sess_r)
+
+    kernels = []
+    for name, row in rows.items():
+        src, replaces = SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts[name], launches_ragged=counts_r[name],
+            max_err=row["max_abs_err"], **row))
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

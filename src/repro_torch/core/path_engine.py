@@ -1,0 +1,419 @@
+"""Batched lambda-path engine for SGL with TLFre screening (PyTorch port of
+``repro.core.path_engine.sgl_path_batched``).
+
+Each segment of the path does three things:
+
+  1. **Grid screening.**  The whole remaining lambda grid is screened in one
+     shot: the Theorem-12 ball centers share ``theta_bar``, so the L
+     screening GEMVs collapse into one (L, N) x (N, p) GEMM; the group
+     statistics go through the ``screen_norms`` kernel.  Row 0 of the grid
+     (the next lambda) is the segment's safe base set.
+
+  2. **Speculative bucketed sweep with certification.**  The next ``m``
+     lambdas are solved on one feature set S = safe base set + nearby-row
+     union + a margin of top-ranked groups, padded to a power-of-two bucket
+     (``GroupSpec.bucketed_subset``), warm-started row to row.  FISTA runs
+     the fused ``sgl_prox`` kernel every iteration.  Each solved row then
+     certifies itself against the FULL problem: one full-X GEMV (the ``xtv``
+     kernel) recovers the exact dual (Lemma-9 scaling) and the duality gap.
+     The sweep stops at the first failed certificate.
+
+  3. **Host bookkeeping.**  The certified prefix is accepted and the next
+     segment screens against the last accepted row's exact dual.
+
+The reference runs step 2 as one jitted ``lax.scan``/``lax.cond``; here it
+is a Python loop over device tensors that reads the FISTA gap on the host
+every ``check_every`` iterations and each row's certificate once.  Sweep
+shapes are counted with the reference's compile keys, so
+``EngineStats.n_compilations`` reports the same numbers (a warm second call
+reports 0).  The kernels run for float32 on CUDA (``_kernels_active``) and
+never for float64.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .estimation import normal_vector_sgl
+from .fenchel import sgl_penalty
+from .groups import GroupSpec
+from .lambda_max import dual_scaling_sgl, lambda_max_sgl
+from .linalg import (column_norms, group_frobenius_norms,
+                     group_spectral_norms, spectral_norm)
+from .losses import SQUARED, get_loss
+from .path import PathResult, _bucket, default_lambda_grid
+from .screening import _require_f32_for_pallas, tlfre_screen_grid
+from .solver import fista_sgl
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Host-interaction accounting for the batched engine.
+
+    ``n_segments`` counts sweep round-trips, ``n_compilations`` distinct
+    sweep shapes (the reference's jit compilations), ``n_rejected``
+    speculative rows whose certificate failed, ``n_pallas_screens`` grid
+    screens that ran through the fused kernels (always 0 on float64
+    paths)."""
+    n_segments: int = 0
+    n_screens: int = 0
+    n_compilations: int = 0
+    n_rejected: int = 0
+    n_pallas_screens: int = 0
+    buckets: list = dataclasses.field(default_factory=list)  # (p_b, g_b, m, k)
+
+    def merge(self, other: "EngineStats") -> None:
+        """Accumulate another run's counters (not its buckets) into this
+        one."""
+        self.n_segments += other.n_segments
+        self.n_screens += other.n_screens
+        self.n_compilations += other.n_compilations
+        self.n_rejected += other.n_rejected
+        self.n_pallas_screens += other.n_pallas_screens
+
+
+def _kernels_active(use_kernels: Optional[bool], dtype, device) -> bool:
+    """The kernels are float32: never engaged for float64.  ``None`` means
+    float32 on CUDA; ``True`` on the CPU runs their plain versions."""
+    if dtype != torch.float32:
+        return False
+    if use_kernels is None:
+        return torch.device(device).type == "cuda"
+    return bool(use_kernels)
+
+
+def _xtv(X, v, use_kernels: bool):
+    if use_kernels:
+        from ..kernels import ops as _kops
+        return _kops.xtv(X, v)
+    return X.T @ v
+
+
+def _padded_prox(spec: GroupSpec):
+    """Fused SGL prox through the kernel on the padded layout.
+
+    Columns outside the padded view (the garbage bin's columns past its
+    first ``n_max``) have zero gradient and start at zero, so scattering
+    back onto a zero vector is exact; the kernel writes masked slots as 0,
+    so they add nothing."""
+    from ..kernels import ops as _kops
+    mask, idx = spec.pad_mask, spec.pad_index
+    flat_idx = idx.reshape(-1)
+
+    def prox(v, t_l1, t_group):
+        v_pad = torch.where(mask, v[idx], 0.0).to(torch.float32)
+        out = _kops.sgl_prox_padded(v_pad, mask, t_l1.to(torch.float32),
+                                    t_group.to(torch.float32))
+        return torch.zeros_like(v).scatter_add_(
+            0, flat_idx, out.reshape(-1).to(v.dtype))
+
+    return prox
+
+
+def _pow2_len(m: int) -> int:
+    b = 1
+    while b < m:
+        b *= 2
+    return b
+
+
+def _pad_grid(lambdas_rem: np.ndarray, dtype, device):
+    """(padded device grid, real length) with the tail repeating the last
+    lambda — extra rows are computed and discarded on the host slice."""
+    L = len(lambdas_rem)
+    Lp = _pow2_len(L)
+    pad = np.concatenate([lambdas_rem, np.full(Lp - L, lambdas_rem[-1])])
+    return torch.as_tensor(pad, dtype=dtype, device=device), L
+
+
+def _feature_bucket(n_base: int, p: int, min_bucket: int,
+                    margin: float) -> int:
+    """Next power-of-two bucket with at least ``margin`` fractional slack
+    over the safe base set (the slack is filled with speculative groups)."""
+    b = min(_bucket(max(n_base, 1), min_bucket), p)
+    if b < p and b - n_base < margin * b:
+        b = min(b * 2, p)
+    return b
+
+
+def _expand_set(base, fk_np, cap: int):
+    """Union nearby grid-screen rows into the base set while it stays under
+    ``cap`` features — free lookahead from the one-shot grid screen."""
+    S = base.copy()
+    for r in range(1, min(len(fk_np), 8)):
+        trial = S | fk_np[r]
+        if int(trial.sum()) > cap:
+            break
+        S = trial
+    return S
+
+
+def margin_fill_sgl(S, c_prev_np, gid, sizes_np, weights_np, p_b: int,
+                    g_b: int):
+    """Fill spare bucket capacity with whole groups ranked by their dual
+    correlation (Lemma-9 margin at the latest exact dual ``c_prev``).
+    Mutates ``S``."""
+    if S.all():
+        return
+    G = len(sizes_np)
+    shr = np.sign(c_prev_np) * np.maximum(np.abs(c_prev_np) - 1.0, 0.0)
+    score = np.sqrt(np.bincount(gid, weights=shr * shr,
+                                minlength=G)) / weights_np
+    g_S = np.unique(gid[S])
+    in_S = np.zeros(G, dtype=bool)
+    in_S[g_S] = True
+    n_S, n_grp = int(S.sum()), len(g_S)
+    for g in np.argsort(-score):
+        if in_S[g]:
+            continue
+        if n_grp + 1 >= g_b or n_S + int(sizes_np[g]) > p_b:
+            continue
+        S[gid == g] = True
+        in_S[g] = True
+        n_S += int(sizes_np[g])
+        n_grp += 1
+
+
+def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
+                   lipschitz, lams, valid, beta0, tol, gap_scale: float, *,
+                   max_iter: int, check_every: int, use_kernels: bool,
+                   loss=SQUARED):
+    """Solve the rows of ``lams`` (a device grid; ``valid`` marks the real
+    rows) in order, warm-started, each certified against the full problem.
+
+    Returns (betas, thetas, cthetas, good, iters): lists over the rows run.
+    The sweep stops after the first failed certificate or the first invalid
+    row, so the lists may be shorter than the grid; rows not run count as
+    not good."""
+    prox = _padded_prox(sub_spec) if use_kernels else None
+    tol = loss.effective_tol(tol, y.dtype)
+    betas, thetas, cthetas, goods, iters = [], [], [], [], []
+    b = beta0
+    for idx in range(lams.shape[0]):
+        if not valid[idx]:
+            break
+        lam = lams[idx]
+        res = fista_sgl(X_sub, y, sub_spec, lam, alpha, lipschitz, b,
+                        max_iter=max_iter, check_every=check_every, tol=tol,
+                        prox=prox, loss=loss)
+        fit = X_sub @ res.beta
+        resid = loss.residual(y, fit)
+        rho = resid / lam
+        c = _xtv(X, rho, use_kernels).to(b.dtype)          # full-X GEMV
+        s = dual_scaling_sgl(spec, c, alpha)
+        theta = (s * rho).to(b.dtype)
+        pen = sgl_penalty(sub_spec, res.beta, alpha)
+        pval = loss.primal_value(y, fit, resid) + lam * pen
+        dval = loss.dual_value(y, theta, lam)
+        gap = float(pval - dval)                          # one host read
+        # a max_iter-capped solve only certifies on the provably safe row 0
+        good = (gap <= tol * gap_scale * 1.01) or \
+            (idx == 0 and res.iters >= max_iter)
+        b = res.beta
+        betas.append(b)
+        thetas.append(theta)
+        cthetas.append((s * c).to(b.dtype))
+        goods.append(good)
+        iters.append(res.iters)
+        if not good:
+            break
+    return betas, thetas, cthetas, goods, iters
+
+
+def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
+                     n_lambdas: int = 100, min_ratio: float = 0.01,
+                     screen: str = "tlfre", tol=1e-9, max_iter: int = 20000,
+                     safety: float = 0.0, specnorm_method: str = "power",
+                     check_every: int = 10,
+                     use_kernels: Optional[bool] = None,
+                     min_bucket: int = 64, min_group_bucket: int = 16,
+                     margin: float = 0.125, chunk_init: int = 8,
+                     compile_keys: Optional[set] = None,
+                     loss=SQUARED) -> PathResult:
+    """Batched SGL path: grid screening, speculative bucketed sweeps with
+    per-row certification.  ``X``, ``y`` and ``spec`` lie on one device.
+
+    ``use_kernels=True`` with a float64 problem raises ``TypeError``: the
+    float32 kernels would void the float64 exactness of the screen.
+    ``compile_keys`` is an optional persistent set of sweep-shape keys
+    (owned by ``SGLSession``)."""
+    if screen == "gapsafe":
+        raise NotImplementedError(
+            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+    if screen not in ("tlfre", "none"):
+        raise ValueError(f"unknown screen mode {screen!r}")
+    loss = get_loss(loss)
+    if spec.feature_weights is not None:
+        raise NotImplementedError(
+            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
+            "item 8)")
+    if use_kernels and X.dtype == torch.float64:
+        _require_f32_for_pallas(X.dtype)
+    if X.device != y.device or X.device != spec.device:
+        raise ValueError("X, y and the group spec must lie on one device")
+    if (X.device.type == "cuda" and X.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the float32 "
+            "screening margin assumes true float32 products; turn TF32 off")
+    dev, dtype = X.device, X.dtype
+    N, p = X.shape
+    G = spec.num_groups
+    kernels = _kernels_active(use_kernels, dtype, dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    r0 = loss.residual_at_zero(y)
+    xty = X.T @ r0
+    lam_max_t, g_star = lambda_max_sgl(spec, xty, alpha)
+    lam_max = float(lam_max_t)
+    col_n = column_norms(X)
+    if specnorm_method == "power":
+        gspec = group_spectral_norms(X, spec)
+    else:
+        gspec = group_frobenius_norms(X, spec)
+    L_full = spectral_norm(X) ** 2
+    sync()
+    setup_time = time.perf_counter() - t0
+
+    if lambdas is None:
+        lambdas = default_lambda_grid(lam_max, n_lambdas, min_ratio)
+    lambdas = np.asarray(lambdas, dtype=float)
+    J = len(lambdas)
+
+    betas = np.zeros((J, p))
+    iters = np.zeros(J, dtype=np.int64)
+    kept_feat = np.zeros(J, dtype=np.int64)
+    kept_grp = np.zeros(J, dtype=np.int64)
+    stats = EngineStats()
+    screen_time = 0.0
+    solve_time = 0.0
+    gid = spec.group_ids.cpu().numpy()
+    sizes_np = spec.sizes.cpu().numpy()
+    weights_np = spec.weights.cpu().numpy()
+    gap_scale = loss.gap_scale_host(y)
+
+    theta_bar = r0 / lam_max            # exact dual at lam_max (Thm 8)
+    c_prev = xty / lam_max              # X^T theta_bar
+    lam_bar = lam_max
+    beta_full = np.zeros(p)
+    seen_keys = compile_keys if compile_keys is not None else set()
+    spec_m = max(int(chunk_init), 1)
+
+    j = 0
+    while j < J and lambdas[j] >= lam_max * (1.0 - 1e-12):
+        j += 1                          # beta* = 0 at/above lam_max
+
+    while j < J:
+        rem, L_rem = _pad_grid(lambdas[j:], dtype, dev)
+        # ---- screen the whole remaining grid in one shot ----------------
+        ts = time.perf_counter()
+        if screen == "none":
+            fk_np = np.ones((J - j, p), dtype=bool)
+        else:
+            n_vec = normal_vector_sgl(X, y, spec, lam_bar, lam_max,
+                                      theta_bar, g_star)
+            _, fk, _ = tlfre_screen_grid(
+                X, y, spec, alpha, rem, lam_bar, theta_bar, n_vec, col_n,
+                gspec, safety=safety, use_kernels=kernels)
+            fk_np = fk[:L_rem].cpu().numpy()        # one host read
+            stats.n_screens += 1
+            stats.n_pallas_screens += int(kernels)
+        screen_time += time.perf_counter() - ts
+
+        row_counts = fk_np.sum(axis=1)
+        if row_counts[0] == 0:
+            # fully-screened prefix: beta* = 0 and the dual optimum is y/lam
+            k = (int(np.argmax(row_counts > 0)) if row_counts.any()
+                 else len(row_counts))
+            lam_bar = float(lambdas[j + k - 1])
+            theta_bar = r0 / lam_bar
+            c_prev = xty / lam_bar
+            beta_full = np.zeros(p)
+            j += k
+            continue
+
+        # ---- feature set: safe base + nearby-row union + ranked margin --
+        base = fk_np[0]
+        n_base = int(base.sum())
+        p_b = _feature_bucket(n_base, p, min_bucket, margin)
+        S = _expand_set(base, fk_np, p_b)
+        g_S = np.unique(gid[S])
+        g_b = min(_bucket(len(g_S) + 2, min_group_bucket), G + 1)
+        margin_fill_sgl(S, c_prev.cpu().numpy(), gid, sizes_np, weights_np,
+                        p_b, g_b)
+
+        m = min(J - j, spec_m)
+
+        # ---- bucketed reduced problem + one sweep over the chunk --------
+        ts = time.perf_counter()
+        if S.all():
+            sub_spec, col_idx = spec, np.arange(p)
+            X_sub, L_sub = X, L_full
+            p_b, g_b = p, G
+        else:
+            sub_spec, col_idx = spec.bucketed_subset(S, p_b, g_b)
+            X_sub = torch.zeros((N, p_b), dtype=dtype, device=dev)
+            X_sub[:, :len(col_idx)] = X[:, torch.as_tensor(col_idx,
+                                                           device=dev)]
+            L_sub = spectral_norm(X_sub, iters=25) ** 2
+        beta0 = np.zeros(p_b)
+        beta0[:len(col_idx)] = beta_full[col_idx]
+
+        lam_chunk = lambdas[j:j + m]
+        len2 = _pow2_len(m)
+        lam_pad = np.concatenate(
+            [lam_chunk, np.full(len2 - m, lam_chunk[-1])])
+        valid = np.arange(len2) < m
+        # the reference's compile key: every dim its jit cache
+        # discriminates on, so n_compilations counts the same shapes
+        key = ("sgl", N, p, G, str(dtype), max_iter, check_every,
+               kernels, p_b, sub_spec.num_groups, sub_spec.max_size, len2,
+               loss.name)
+        if key not in seen_keys:
+            seen_keys.add(key)
+            stats.n_compilations += 1
+        betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_sgl_core(
+            X, X_sub, y, spec, sub_spec, alpha, L_sub,
+            torch.as_tensor(lam_pad, dtype=dtype, device=dev), valid,
+            torch.as_tensor(beta0, dtype=dtype, device=dev), tol, gap_scale,
+            max_iter=max_iter, check_every=check_every, use_kernels=kernels,
+            loss=loss)
+        good_np = np.zeros(m, dtype=bool)
+        good_np[:len(good_b)] = good_b[:m]
+        k = int(np.argmin(good_np)) if not good_np.all() else m
+        if k == 0:
+            # cannot happen for a converged row 0 (its set is provably
+            # safe); belt-and-braces progress guarantee
+            k = 1
+        stats.n_rejected += int(m - k)
+        theta_bar = thetas_b[k - 1]
+        c_prev = cthetas_b[k - 1]
+        betas_np = torch.stack(betas_b[:k]).cpu().numpy()
+        solve_time += time.perf_counter() - ts
+
+        chunk_rows = np.zeros((k, p))
+        chunk_rows[:, col_idx] = betas_np[:, :len(col_idx)]
+        betas[j:j + k] = chunk_rows
+        iters[j:j + k] = iters_b[:k]
+        kept_feat[j:j + k] = len(col_idx)       # columns entering the solver
+        kept_grp[j:j + k] = len(np.unique(gid[S]))
+        beta_full = chunk_rows[-1]
+        lam_bar = float(lam_chunk[k - 1])
+        stats.n_segments += 1
+        stats.buckets.append((p_b, g_b, m, k))
+        spec_m = min(2 * spec_m, 64) if k == m else max(2, k)
+        j += k
+
+    return PathResult(lambdas=lambdas, betas=betas, lam_max=lam_max,
+                      screen_time=screen_time, solve_time=solve_time,
+                      setup_time=setup_time, iters=iters,
+                      kept_features=kept_feat, kept_groups=kept_grp,
+                      stats=stats)

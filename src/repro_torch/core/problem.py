@@ -1,0 +1,193 @@
+"""Declarative problem / plan specification (PyTorch port).
+
+  * ``Problem`` — WHAT is being solved: the design matrix, the response and
+    the group structure, as tensors on one device.
+  * ``Plan`` — HOW to solve it: lambda grid, alpha, screening rule and
+    engine knobs.  It keeps the reference's fields; ``use_pallas`` becomes
+    ``use_kernels``.  A value this port does not implement yet raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it; no field
+    is silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .groups import GroupSpec, resolve_device
+
+PENALTIES = ("sgl",)
+
+
+def as_group_spec(groups, p: int, device) -> GroupSpec:
+    """Accept a GroupSpec, a list of group sizes, or None (singletons)."""
+    if isinstance(groups, GroupSpec):
+        if groups.num_features != p:
+            raise ValueError(f"GroupSpec covers {groups.num_features} "
+                             f"features, X has {p}")
+        return groups.to(device)
+    if groups is None:
+        return GroupSpec.from_sizes([1] * p, device=device)
+    spec = GroupSpec.from_sizes(groups, device=device)
+    if spec.num_features != p:
+        raise ValueError(f"group sizes sum to {spec.num_features}, X has {p}")
+    return spec
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        t = torch.as_tensor(np.asarray(a))
+    if dtype is None:
+        dtype = t.dtype if t.is_floating_point() else torch.float32
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    """Immutable problem spec: (X, y, groups, penalty family), all on one
+    device.  ``dtype`` pins the compute precision — float64 for exactness
+    runs, float32 for the CUDA kernels."""
+    X: torch.Tensor              # (N, p) design
+    y: torch.Tensor              # (N,) response
+    spec: GroupSpec              # group structure
+    penalty: str = "sgl"
+    loss: str = "squared"
+
+    def __post_init__(self):
+        if self.penalty not in PENALTIES:
+            raise NotImplementedError(
+                f"penalty={self.penalty!r} is not ported yet (the "
+                f"nonnegative Lasso is ROADMAP queue 1, item 7)")
+        if self.X.dim() != 2 or self.y.dim() != 1:
+            raise ValueError("X must be (N, p) and y (N,)")
+        if self.X.shape[0] != self.y.shape[0]:
+            raise ValueError(f"X has {self.X.shape[0]} rows, "
+                             f"y has {self.y.shape[0]}")
+
+    @classmethod
+    def sgl(cls, X, y, groups=None, dtype=None, device=None) -> "Problem":
+        """``device=None`` means the CUDA card (and raises without one);
+        pass ``device='cpu'`` to run on the CPU.  ``dtype=None`` keeps X's
+        floating dtype."""
+        device = resolve_device(device)
+        X = _as_tensor(X, dtype, device)
+        y = _as_tensor(y, X.dtype, device)
+        return cls(X=X, y=y, spec=as_group_spec(groups, X.shape[1], device))
+
+    @property
+    def n_samples(self) -> int:
+        return int(self.X.shape[0])
+
+    @property
+    def n_features(self) -> int:
+        return int(self.X.shape[1])
+
+    @property
+    def dtype(self):
+        return self.X.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.X.device
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Declarative run configuration (the reference's fields)."""
+    # ---- penalty / grid ---------------------------------------------------
+    alpha: float = 1.0
+    lambdas: Optional[np.ndarray] = None
+    n_lambdas: int = 100
+    min_ratio: float = 0.01
+    # ---- loss / adaptive weights ------------------------------------------
+    loss: str = "auto"
+    group_weights: object = None
+    feature_weights: object = None
+    # ---- screening / solver ----------------------------------------------
+    screen: str = "auto"
+    engine: str = "batched"
+    tol: float = 1e-9
+    max_iter: int = 20000
+    safety: float = 0.0
+    specnorm_method: str = "power"
+    check_every: int = 10
+    # ---- batched-engine knobs --------------------------------------------
+    use_kernels: Optional[bool] = None  # fused f32 kernels (None: f32 on
+    #                              CUDA; True on a float64 problem raises)
+    min_bucket: int = 64
+    min_group_bucket: int = 16
+    margin: float = 0.125
+    chunk_init: int = 8
+    # ---- elastic fold scheduling (cv / refine / stability / serving) ------
+    schedule: str = "elastic"
+    chunk_cap: int = 64
+    # ---- model selection (cv / refine) -----------------------------------
+    n_folds: int = 5
+    folds: Optional[list] = None
+    seed: int = 0
+    center: str = "global"
+    selection: str = "min"
+    # ---- stability selection ---------------------------------------------
+    n_subsamples: int = 50
+    subsample_frac: float = 0.5
+    active_tol: float = 1e-8
+    batch_size: int = 10
+    # ---- execution --------------------------------------------------------
+    mesh: object = None
+    feature_shards: int = 0
+
+    def with_(self, **overrides) -> "Plan":
+        """A copy with the given fields replaced (a Plan is immutable)."""
+        return dataclasses.replace(self, **overrides)
+
+    def resolved_loss(self, problem_loss: str = "squared") -> str:
+        loss = problem_loss if self.loss == "auto" else self.loss
+        if loss == "logistic":
+            raise NotImplementedError(
+                "loss='logistic' is not ported yet (ROADMAP queue 1, item 10)")
+        if loss != "squared":
+            raise ValueError(f"unknown loss {loss!r}")
+        return loss
+
+    def resolved_screen(self, penalty: str = "sgl") -> str:
+        screen = "tlfre" if self.screen == "auto" else self.screen
+        if screen == "gapsafe":
+            raise NotImplementedError(
+                "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+        if screen not in ("tlfre", "none"):
+            raise ValueError(f"screen={screen!r} is not valid for "
+                             f"penalty={penalty!r}; expected one of "
+                             f"('auto', 'tlfre', 'gapsafe', 'none')")
+        return screen
+
+    def validate(self, problem: Problem) -> None:
+        """Refuse what the path verb of this port cannot run yet."""
+        self.resolved_loss(problem.loss)
+        self.resolved_screen(problem.penalty)
+        if self.engine == "legacy":
+            raise NotImplementedError(
+                "engine='legacy' (the per-lambda driver) is not ported; "
+                "the batched engine is (ROADMAP queue 1, item 16)")
+        if self.engine != "batched":
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.group_weights is not None or self.feature_weights is not None:
+            raise NotImplementedError(
+                "adaptive weights are not ported yet (ROADMAP queue 1, "
+                "item 8)")
+        if int(self.feature_shards) > 1:
+            raise NotImplementedError(
+                "feature_shards > 1 is not ported yet (ROADMAP queue 1, "
+                "item 13)")
+        if int(self.feature_shards) < 0:
+            raise ValueError("feature_shards must be >= 0")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a fold mesh is not ported yet (ROADMAP queue 1, items 9 "
+                "and 13)")
+        if self.use_kernels and problem.dtype == torch.float64:
+            from .screening import _require_f32_for_pallas
+            _require_f32_for_pallas(problem.dtype)

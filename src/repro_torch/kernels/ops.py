@@ -1,0 +1,67 @@
+"""Dispatching wrappers around the three CUDA kernels.
+
+A tensor on the CPU takes the kernel's plain PyTorch version (``ref``); a
+tensor on a CUDA device launches the kernel, which raises on anything it
+does not take.  There is no fallback between the two.
+
+Every kernel is float32-only: the path engine engages them only for
+float32 problems (``path_engine._kernels_active``), and the screening entry
+point raises ``TypeError`` on float64 with kernels requested.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from . import screen_norms as _screen_norms
+from . import sgl_prox as _sgl_prox
+from . import xtv as _xtv
+
+KERNELS = {"xtv": _xtv, "screen_norms": _screen_norms, "sgl_prox": _sgl_prox}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches in this process}."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def xtv(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out = X^T v, float32.  The certification GEMV."""
+    if _on_cpu(X):
+        return ref.xtv_ref(X, v)
+    return _xtv.xtv_cuda(X, v)
+
+
+def screen_norms_batched(c_pad_grid: torch.Tensor, mask: torch.Tensor):
+    """c_pad_grid (L, G, n_max) with a shared (G, n_max) mask ->
+    (||S_1(c)||^2 (L, G), ||c||_inf (L, G)) float32.  The lambda-grid axis
+    is folded into the row axis; the mask is shared, never broadcast."""
+    L, G, n_max = c_pad_grid.shape
+    flat = c_pad_grid.reshape(L * G, n_max)
+    if _on_cpu(flat):
+        snorm2, cinf = ref.screen_norms_ref(flat, mask)
+    else:
+        snorm2, cinf = _screen_norms.screen_norms_cuda(flat, mask)
+    return snorm2.reshape(L, G), cinf.reshape(L, G)
+
+
+def sgl_prox_padded(v_pad: torch.Tensor, mask: torch.Tensor,
+                    t_l1: torch.Tensor, t_group: torch.Tensor) -> torch.Tensor:
+    """Fused SGL prox on the padded layout, float32.  ``t_l1`` is a
+    1-element tensor on the operands' device."""
+    if _on_cpu(v_pad):
+        return ref.sgl_prox_ref(v_pad, mask, t_l1, t_group)
+    return _sgl_prox.sgl_prox_cuda(v_pad, mask, t_l1, t_group)

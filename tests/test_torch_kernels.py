@@ -1,0 +1,166 @@
+"""The port's kernels against the JAX package's: each plain PyTorch version
+(``repro_torch.kernels.ref``, what ``ops`` runs for CPU tensors) against
+``repro.kernels.ref`` and against the Pallas kernel in interpret mode, at
+ragged shapes with 1e30 poisoned into every masked slot.
+
+Tolerances: float32 throughout; rtol = atol = 1e-5 for the per-row
+statistics and the prox (the same per-element formula, only the order of the
+row reduction differs), and a per-column bound ``N * eps * sum|x_ij v_i|``
+for the GEMV, whose summation order differs.
+
+The whole float32 path through the kernel route (the plain versions on the
+CPU) is held against the reference's ``use_pallas=True`` interpret route:
+betas 1e-5, on well-conditioned problems (N > p) where both solutions sit
+within rounding of the optimum.
+
+The CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``
+holds them against their plain versions there.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import repro.core as J
+import repro_torch.core as T
+from repro.kernels import ref as jref
+from repro.kernels.screen_norms import screen_norms_pallas
+from repro.kernels.sgl_prox import sgl_prox_pallas
+from repro.kernels.xtv import xtv_pallas
+from repro_torch import convert
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.screen_norms import screen_norms_cuda
+from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+from repro_torch.kernels.xtv import xtv_cuda
+
+POISON = 1e30
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _xtv_bound(X, v):
+    """Per-column bound of the float32 GEMV's rounding: N*eps*sum|x v|."""
+    return X.shape[0] * EPS32 * (np.abs(X.astype(np.float64))
+                                 * np.abs(v.astype(np.float64))[:, None]
+                                 ).sum(axis=0)
+
+
+def _padded(rng, G, n_max, keep=0.7):
+    """(values with 1e30 in masked slots, mask) as float32 / bool numpy."""
+    c = (rng.standard_normal((G, n_max)) * 2).astype(np.float32)
+    mask = rng.random((G, n_max)) < keep
+    mask[:, 0] = True
+    return np.where(mask, c, POISON).astype(np.float32), mask
+
+
+@pytest.mark.parametrize("N,p", [(1, 1), (7, 13), (33, 300), (250, 517)])
+def test_xtv_plain_matches_reference(N, p):
+    rng = np.random.default_rng(N * 1000 + p)
+    X = rng.standard_normal((N, p)).astype(np.float32)
+    v = rng.standard_normal(N).astype(np.float32)
+    got = tref.xtv_ref(torch.from_numpy(X), torch.from_numpy(v)).numpy()
+    bound = _xtv_bound(X, v) + 1e-30
+    for want in (np.asarray(jref.xtv_ref(jnp.asarray(X), jnp.asarray(v))),
+                 np.asarray(xtv_pallas(jnp.asarray(X), jnp.asarray(v),
+                                       block_n=64, block_p=128,
+                                       interpret=True))):
+        assert got.dtype == np.float32 and got.shape == (p,)
+        assert np.all(np.abs(got - want) <= 2 * bound)
+
+
+@pytest.mark.parametrize("L,G,n_max", [(1, 1, 1), (3, 5, 17), (4, 37, 9),
+                                       (2, 100, 64)])
+def test_screen_norms_plain_matches_reference(L, G, n_max):
+    rng = np.random.default_rng(L * G * n_max)
+    c = np.stack([_padded(rng, G, n_max)[0] for _ in range(L)])
+    mask = rng.random((G, n_max)) < 0.7
+    mask[:, 0] = True
+    c = np.where(mask[None], c, POISON).astype(np.float32)
+    s, i = ops.screen_norms_batched(torch.from_numpy(c),
+                                    torch.from_numpy(mask))
+    assert s.shape == (L, G) and i.shape == (L, G)
+    flat = c.reshape(L * G, n_max)
+    mflat = np.broadcast_to(mask[None], (L, G, n_max)).reshape(L * G, n_max)
+    for sr, ir in (jref.screen_norms_ref(jnp.asarray(flat),
+                                         jnp.asarray(mflat)),
+                   screen_norms_pallas(jnp.asarray(flat), jnp.asarray(mflat),
+                                       block_g=8, interpret=True)):
+        np.testing.assert_allclose(s.numpy().ravel(), np.asarray(sr),
+                                   **F32_TOL)
+        np.testing.assert_allclose(i.numpy().ravel(), np.asarray(ir),
+                                   **F32_TOL)
+
+
+@pytest.mark.parametrize("G,n_max,t_l1", [(1, 1, 0.0), (5, 17, 0.3),
+                                          (37, 9, 1.1), (64, 130, 0.05)])
+def test_sgl_prox_plain_matches_reference(G, n_max, t_l1):
+    rng = np.random.default_rng(G * n_max)
+    v, mask = _padded(rng, G, n_max)
+    t_group = (rng.random(G) * 3).astype(np.float32)
+    got = ops.sgl_prox_padded(torch.from_numpy(v), torch.from_numpy(mask),
+                              torch.tensor([t_l1], dtype=torch.float32),
+                              torch.from_numpy(t_group)).numpy()
+    assert np.all(got[~mask] == 0.0)
+    for want in (jref.sgl_prox_ref(jnp.asarray(v), jnp.asarray(mask),
+                                   jnp.float32(t_l1), jnp.asarray(t_group)),
+                 sgl_prox_pallas(jnp.asarray(v), jnp.asarray(mask), t_l1,
+                                 jnp.asarray(t_group), block_g=8,
+                                 interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    ops.reset_launch_counts()
+    X = torch.randn(5, 7)
+    ops.xtv(X, torch.randn(5))
+    ops.screen_norms_batched(torch.randn(2, 3, 4),
+                             torch.ones(3, 4, dtype=torch.bool))
+    ops.sgl_prox_padded(torch.randn(3, 4), torch.ones(3, 4, dtype=torch.bool),
+                        torch.tensor([0.1]), torch.rand(3))
+    assert ops.launch_counts() == {"xtv": 0, "screen_norms": 0,
+                                   "sgl_prox": 0}
+
+
+@pytest.mark.parametrize("launch,args", [
+    (xtv_cuda, (torch.zeros(3, 4), torch.zeros(3))),
+    (screen_norms_cuda, (torch.zeros(6, 4),
+                         torch.ones(3, 4, dtype=torch.bool))),
+    (sgl_prox_cuda, (torch.zeros(3, 4), torch.ones(3, 4, dtype=torch.bool),
+                     torch.zeros(1), torch.zeros(3))),
+])
+def test_kernel_launchers_refuse_cpu_tensors(launch, args):
+    with pytest.raises(ValueError, match="CUDA"):
+        launch(*args)
+
+
+def test_build_covers_every_source_with_a_signature():
+    names = sorted(s.stem for s in build.sources())
+    assert names == ["screen_norms", "sgl_prox", "xtv"]
+    assert sorted(build.SIGNATURES) == sorted(
+        f"repro_{n}_f32" for n in names)
+    assert len(build.source_hash()) == 16
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("N,G,n", [(120, 12, 5), (200, 10, 6)])
+def test_path_f32_kernel_route_matches_reference_pallas_route(N, G, n):
+    rng = np.random.default_rng(N)
+    X = rng.standard_normal((N, G * n))
+    beta = np.zeros(G * n)
+    beta[:2] = rng.standard_normal(2)
+    beta[n:n + 2] = rng.standard_normal(2)
+    y = X @ beta + 0.01 * rng.standard_normal(N)
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    kw = dict(alpha=0.9, n_lambdas=10, min_ratio=0.05, tol=1e-6,
+              safety=1e-4, max_iter=20000, check_every=10, min_bucket=32)
+    jspec = J.GroupSpec.from_sizes([n] * G)
+    rj = J.SGLSession(J.Problem.sgl(X, y, jspec)).path(
+        J.Plan(**kw, use_pallas=True))
+    children = {f: (None if getattr(jspec, f) is None
+                    else np.asarray(getattr(jspec, f)))
+                for f in convert.SPEC_FIELDS}
+    rt = T.SGLSession(convert.problem(X, y, children, device="cpu")).path(
+        T.Plan(**kw, use_kernels=True))
+    np.testing.assert_allclose(rt.betas, rj.betas, atol=1e-5)
+    assert rt.stats.n_pallas_screens == rt.stats.n_screens > 0
