@@ -7,7 +7,7 @@ Phases (each fails loudly, with a non-zero exit):
 
 1. Environment: the card's name and power limit (as ``nvidia-smi`` gives
    them), torch and CUDA versions, TF32 flags (turned off and checked).
-2. Build: the three CUDA kernels are compiled from ``src/repro_torch/
+2. Build: the five CUDA kernels are compiled from ``src/repro_torch/
    kernels/csrc`` into ``build/repro_torch/`` (at first use).
 3. Main path: the paper's Table 1, Synthetic 1 (N=250, p=10 000, 1000
    groups of 10, alpha = tan 45 deg, 100 lambdas, tol 1e-6, safety 1e-6,
@@ -20,11 +20,27 @@ Phases (each fails loudly, with a non-zero exit):
 4. Ragged path: the paper's Table 2 shape (N=747, p=100 000, ADNI-like
    ragged groups, n_max=9, Frobenius group norms, 8 lambdas), counters as
    in phase 3.
-5. Each kernel against its plain PyTorch version on the card, at the
+5. Nonnegative-Lasso path: the paper's Table 3, Synthetic 1 (N=250,
+   p=10 000, 100 lambdas, tol 1e-6, safety 1e-6) through
+   ``SGLSession(Problem.nn_lasso(...)).path`` in float32 on the card
+   (counters as in phase 3; the certification GEMV is its only kernel) and
+   in float64 as the reference; the f32 DPC screen's discards checked
+   against the f64 solution.
+6. SGL cross-validation: Synthetic 1 of phase 3 at full width, K = 5
+   folds, 100 lambdas, tol 3e-6, safety 1e-5, elastic schedule, through
+   ``SGLSession.cv`` in float32, cold then warm (0 new compilations); every
+   stacked screen through ``screen_norms_folds``; a float64 CV on the same
+   folds and grid as the reference; one more float32 call with per-fold
+   centering (20 lambdas), whose rows must all be certified.
+7. Nonnegative-Lasso cross-validation: the Table-3 data of phase 5, the
+   plan of phase 6; every stacked screen through ``dpc_screen_folds``; a
+   float64 reference.
+8. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
-   masked slot; timed with CUDA events beside its bound, its plain version
-   and (for ``xtv``) one cuBLAS call.
-6. One JSON line ``{"kernels": [...]}``, then the last line
+   masked slot (``dpc_screen_folds`` exactly, also on inputs that land on
+   1.0 within one ulp); timed with CUDA events beside its bound, its plain
+   version and (for ``xtv``) one cuBLAS call.
+9. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -55,7 +71,12 @@ SOURCES = {
                      "src/repro/kernels/screen_norms.py:41"),
     "sgl_prox": ("src/repro_torch/kernels/csrc/sgl_prox.cu",
                  "src/repro/kernels/sgl_prox.py:46"),
+    "screen_norms_folds": ("src/repro_torch/kernels/csrc/screen_norms_folds.cu",
+                           "src/repro/kernels/screen_norms.py:101"),
+    "dpc_screen_folds": ("src/repro_torch/kernels/csrc/dpc_screen_folds.cu",
+                         "src/repro/kernels/screen_norms.py:158"),
 }
+PATH_KERNELS = ("xtv", "screen_norms", "sgl_prox")
 
 
 def say(*parts):
@@ -130,9 +151,9 @@ def run_path(torch, sess, plan, label):
     return res, counts, wall
 
 
-def require_kernel_route(res, counts, label):
-    for name, n in counts.items():
-        require(n > 0, f"{label}: kernel {name} was not launched")
+def require_kernel_route(res, counts, label, kernels=PATH_KERNELS):
+    for name in kernels:
+        require(counts[name] > 0, f"{label}: kernel {name} was not launched")
     require(res.stats.n_pallas_screens == res.stats.n_screens > 0,
             f"{label}: not every screen went through the kernels")
 
@@ -294,7 +315,243 @@ def ragged_path(torch, T, N=747, p=100_000):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: each kernel against its plain version, and its time
+# phase 5: the nonnegative-Lasso path (paper Table 3)
+# ---------------------------------------------------------------------------
+
+def nn_objectives(X, y, betas, lambdas):
+    """Primal nonnegative-Lasso objective of each row, float64 on the
+    host."""
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    B = np.asarray(betas, dtype=np.float64)
+    resid = y64[None, :] - B @ X64.T
+    return (0.5 * (resid * resid).sum(axis=1)
+            + np.asarray(lambdas) * B.sum(axis=1))
+
+
+def dpc_discards_are_zero(torch, T, prob32, res32, betas64, safety):
+    """Sequential f32 DPC screen at every lambda from the f32 path's
+    certified dual at the previous lambda; every discarded feature must be
+    zero (|beta| <= 1e-6) in the float64 solution."""
+    X, y = prob32.X, prob32.y
+    xty = X.T @ y
+    lam_max_t, i_star = T.lambda_max_nn(xty)
+    lam_max = float(lam_max_t)
+    col_n = T.column_norms(X)
+    lambdas = res32.lambdas
+    worst, n_discarded = 0.0, 0
+    for j in range(1, len(lambdas)):
+        lam_bar = float(lambdas[j - 1])
+        if lam_bar >= lam_max * (1.0 - 1e-12):
+            theta = y / lam_max
+        else:
+            beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
+                                   device=X.device)
+            rho = (y - X @ beta) / lam_bar
+            theta = T.dual_scaling_nn(X.T @ rho) * rho
+        n_vec = T.normal_vector_nn(X, y, lam_bar, lam_max, theta, i_star)
+        lam = torch.as_tensor([lambdas[j]], dtype=X.dtype, device=X.device)
+        fk, _ = T.dpc_screen_grid(X, y, lam, theta, n_vec, col_n,
+                                  safety=safety)
+        dropped = ~fk[0].cpu().numpy()
+        n_discarded += int(dropped.sum())
+        if dropped.any():
+            worst = max(worst, float(np.abs(betas64[j][dropped]).max()))
+    return worst, n_discarded
+
+
+def compare_paths(res, res64, plan, objectives, label):
+    """The float32 path against the float64 one: objectives within the sum
+    of the two certified gaps, betas within 1e-2 * max|beta|."""
+    tol32 = max(plan.tol, 64 * EPS32)
+    dobj = np.abs(objectives(res.betas) - objectives(res64.betas))
+    certified = (res.iters < plan.max_iter) & (res64.iters < plan.max_iter)
+    gap_scale = objectives.gap_scale
+    obj_bound = 1.01 * (tol32 + plan.tol) * gap_scale
+    dbeta = float(np.abs(res.betas - res64.betas).max())
+    dbound = 1e-2 * float(np.abs(res64.betas).max())
+    say(f"[{label}] max|P(beta_f32) - P(beta_f64)| = "
+        f"{float(dobj[certified].max()):.3e} over {int(certified.sum())} "
+        f"certified rows (bound (tol32 + tol64) * 0.5|y|^2 = "
+        f"{obj_bound:.3e}); max|beta_f32 - beta_f64| = {dbeta:.3e} (bound "
+        f"1e-2 * max|beta_f64| = {dbound:.3e})")
+    require(int(certified.sum()) > 0, f"{label}: no certified row")
+    require(bool((dobj[certified] <= obj_bound).all()),
+            f"{label}: f32 objectives disagree with the f64 path's")
+    require(dbeta <= dbound, f"{label}: f32 path disagrees with the f64 path")
+
+
+def nn_path(torch, T, N=250, p=10_000):
+    from repro_torch.data_synth import synthetic_nn
+    X, y, _ = synthetic_nn(1, N=N, p=p, seed=1)
+    plan = T.Plan(n_lambdas=100, tol=1e-6, safety=1e-6, max_iter=6000,
+                  check_every=50)
+    sess = T.SGLSession(T.Problem.nn_lasso(X, y))           # cuda, float32
+    require(sess.problem.device.type == "cuda", "problem is not on the card")
+    res, counts, _ = run_path(torch, sess, plan, "table3-nn-f32")
+    require(counts["xtv"] > 0, "table3-nn-f32: xtv was not launched")
+    require(sum(counts.values()) == counts["xtv"],
+            "table3-nn-f32: a kernel other than xtv was launched")
+    require(res.betas.shape == (100, p) and (res.betas >= 0).all(),
+            "table3-nn-f32: wrong shape or a negative coefficient")
+    sess64 = T.SGLSession(T.Problem.nn_lasso(
+        X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
+    res64, counts64, _ = run_path(torch, sess64, plan, "table3-nn-f64")
+    require(sum(counts64.values()) == 0,
+            "the float64 path engaged a float32 kernel")
+
+    def objectives(betas):
+        return nn_objectives(X, y, betas, res.lambdas)
+    objectives.gap_scale = 0.5 * float(np.dot(y.astype(np.float64), y))
+    compare_paths(res, res64, plan, objectives, "table3-nn")
+    worst, n_disc = dpc_discards_are_zero(torch, T, sess.problem, res,
+                                          res64.betas, plan.safety)
+    say(f"[table3-nn] f32 DPC screen discarded {n_disc} feature-lambda "
+        f"pairs; max |beta_f64| over them = {worst:.3e} (must be <= 1e-6)")
+    require(n_disc > 0 and worst <= 1e-6,
+            "the f32 DPC screen discarded a feature active in the f64 "
+            "solution")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: fold-batched cross-validation
+# ---------------------------------------------------------------------------
+
+class LaunchShapes:
+    """Records the argument shapes of every launch of one kernel wrapper
+    inside the block.  The wrapper itself still counts each launch."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.shapes = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def recorded(*args):
+            self.shapes.append(tuple(tuple(a.shape) for a in args))
+            return self.orig(*args)
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_cv(torch, sess, plan, label):
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sess.cv(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = res.stats
+    say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
+        f"{res.screen_time:.3f} + solve {res.solve_time:.3f} s (+ host "
+        f"{wall - res.total_time:.3f}); K {len(res.folds)} n_segments "
+        f"{st.n_segments} n_screens {st.n_screens} n_pallas_screens "
+        f"{st.n_pallas_screens} n_compilations {st.n_compilations} "
+        f"n_rejected {st.n_rejected} fold_sweeps "
+        f"{[int(v) for v in st.fold_sweeps]} iters "
+        f"{int(res.fold_iters.sum())} best_index {res.best_index} "
+        f"index_1se {res.index_1se} launches {json.dumps(counts)}")
+    require(np.isfinite(res.fold_betas).all() and
+            np.isfinite(res.mean_mse).all(), f"{label}: non-finite result")
+    return res, counts, wall
+
+
+def require_fold_route(res, counts, label, fold_kernel, others):
+    st = res.stats
+    require(st.n_pallas_screens == st.n_screens > 0,
+            f"{label}: not every stacked screen went through the kernels")
+    require(counts[fold_kernel] == st.n_screens,
+            f"{label}: {fold_kernel} launches {counts[fold_kernel]} != "
+            f"stacked screens {st.n_screens}")
+    for name in others:
+        require(counts[name] > 0, f"{label}: kernel {name} was not launched")
+    for name in set(counts) - set(others) - {fold_kernel}:
+        require(counts[name] == 0, f"{label}: kernel {name} was launched")
+
+
+def compare_cv(res, res64, label):
+    """The float32 CV against the float64 one on the same folds and grid:
+    per-fold betas within 1e-2 * max|beta|, mean MSE within 1e-2
+    relative, the selected index within one grid step."""
+    require(all((a[1] == b[1]).all() for a, b in zip(res.folds,
+                                                    res64.folds)),
+            f"{label}: the folds differ")
+    dbeta = float(np.abs(res.fold_betas - res64.fold_betas).max())
+    dbound = 1e-2 * float(np.abs(res64.fold_betas).max())
+    dmse = float(np.max(np.abs(res.mean_mse - res64.mean_mse)
+                        / np.abs(res64.mean_mse)))
+    say(f"[{label}] max|beta_f32 - beta_f64| over folds = {dbeta:.3e} "
+        f"(bound {dbound:.3e}); max rel |mean_mse_f32 - mean_mse_f64| = "
+        f"{dmse:.3e} (bound 1e-2); best_index f32 {res.best_index} f64 "
+        f"{res64.best_index}")
+    require(dbeta <= dbound, f"{label}: f32 betas disagree with f64")
+    require(dmse <= 1e-2, f"{label}: f32 mean MSE disagrees with f64")
+    require(abs(res.best_index - res64.best_index) <= 1,
+            f"{label}: best_index more than one grid step from f64")
+
+
+CV_PLAN = dict(alpha=1.0, n_lambdas=100, n_folds=5, seed=0, tol=3e-6,
+               safety=1e-5, max_iter=6000, check_every=50)
+
+
+def sgl_cv_phase(torch, T, N=250, G=1000, n=10):
+    from repro_torch.data_synth import synthetic_sgl
+    from repro_torch.kernels import screen_norms_folds as snf
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    plan = T.Plan(**CV_PLAN)
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
+    with LaunchShapes(snf, "screen_norms_folds_cuda") as shapes:
+        res, counts, _ = run_cv(torch, sess, plan, "sgl-cv-f32")
+    require_fold_route(res, counts, "sgl-cv-f32", "screen_norms_folds",
+                       ("sgl_prox", "xtv"))
+    require(res.fold_betas.shape == (5, 100, n * G), "wrong fold_betas shape")
+    warm, counts_w, _ = run_cv(torch, sess, plan, "sgl-cv-f32-warm")
+    require(warm.stats.n_compilations == 0, "warm CV paid compilations")
+    require_fold_route(warm, counts_w, "sgl-cv-f32-warm",
+                       "screen_norms_folds", ("sgl_prox", "xtv"))
+    sess64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
+                                        y.astype(np.float64), [n] * G,
+                                        dtype=torch.float64))
+    res64, counts64, _ = run_cv(torch, sess64, plan, "sgl-cv-f64")
+    require(sum(counts64.values()) == 0 and res64.stats.n_pallas_screens == 0,
+            "the float64 CV engaged a float32 kernel")
+    compare_cv(res, res64, "sgl-cv")
+    centred = plan.with_(center="per-fold", n_lambdas=20)
+    resc, counts_c, _ = run_cv(torch, sess, centred, "sgl-cv-f32-per-fold")
+    require_fold_route(resc, counts_c, "sgl-cv-f32-per-fold",
+                       "screen_norms_folds", ("sgl_prox", "xtv"))
+    require(bool((resc.fold_iters < centred.max_iter).all()),
+            "sgl-cv-f32-per-fold: a row ran to max_iter (not certified)")
+    return counts, shapes.shapes[0]
+
+
+def nn_cv_phase(torch, T, N=250, p=10_000):
+    from repro_torch.data_synth import synthetic_nn
+    from repro_torch.kernels import dpc_screen_folds as dsf
+    X, y, _ = synthetic_nn(1, N=N, p=p, seed=1)
+    plan = T.Plan(**CV_PLAN)
+    sess = T.SGLSession(T.Problem.nn_lasso(X, y))           # cuda, float32
+    with LaunchShapes(dsf, "dpc_screen_folds_cuda") as shapes:
+        res, counts, _ = run_cv(torch, sess, plan, "nn-cv-f32")
+    require_fold_route(res, counts, "nn-cv-f32", "dpc_screen_folds",
+                       ("xtv",))
+    sess64 = T.SGLSession(T.Problem.nn_lasso(
+        X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
+    res64, counts64, _ = run_cv(torch, sess64, plan, "nn-cv-f64")
+    require(sum(counts64.values()) == 0,
+            "the float64 CV engaged a float32 kernel")
+    compare_cv(res, res64, "nn-cv")
+    return counts, shapes.shapes[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -446,7 +703,72 @@ def check_sgl_prox(torch, mask, label):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
-def kernel_checks(torch, sess_main, shapes, sess_ragged):
+def check_screen_norms_folds(torch, R, mask, label):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.screen_norms_folds import screen_norms_folds_cuda
+    G, n_max = mask.shape
+    poison = _poisoned(torch, R * G, mask, mask.device).reshape(R, G, n_max)
+    got = screen_norms_folds_cuda(poison, mask)
+    want = ref.screen_norms_folds_ref(poison, mask)
+    torch.cuda.synchronize()
+    errs = []
+    for g, w in zip(got, want):
+        require(bool(torch.isfinite(g).all()),
+                f"screen_norms_folds {label}: non-finite (poison leaked)")
+        require(bool(torch.allclose(g, w, **KERNEL_TOL)),
+                f"screen_norms_folds {label}: outside rtol=atol=1e-5")
+        errs.append(float((g - w).abs().max()))
+    ms = time_ms(torch, lambda: screen_norms_folds_cuda(poison, mask))
+    eager = eager_ms(torch, lambda: screen_norms_folds_cuda(poison, mask))
+    plain = time_ms(torch, lambda: ref.screen_norms_folds_ref(poison, mask))
+    b, by = bound_ms(4 * R * G * n_max + G * n_max + 8 * R * G,
+                     6 * R * G * n_max)
+    say(f"[kernel screen_norms_folds {label}] rows {R} x G {G} n_max "
+        f"{n_max} valid {float(mask.float().mean()):.3f} max_abs_err "
+        f"{max(errs):.3e} (tol rtol=atol=1e-5) ms {ms:.5f} eager_ms "
+        f"{eager:.5f} plain_ms {plain:.5f} bound_ms {b:.5f} ({by})")
+    return dict(max_abs_err=max(errs), ms=ms, eager_ms=eager, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def check_dpc_screen_folds(torch, K, L, p, label, borderline=False):
+    """Exact equality with the plain version.  ``borderline``: inputs on
+    which C + r*cn lands on 1.0 within one ulp, where a fused multiply-add
+    would flip ``n_flips`` decisions."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dpc_screen_folds import (borderline_inputs,
+                                                      dpc_screen_folds_cuda)
+    n_flips = None
+    if borderline:
+        C, r, cn, n_flips = borderline_inputs(K, L, p, seed=1)
+        require(n_flips > 0, "the borderline case flips nothing under fma")
+        C, r, cn = (torch.from_numpy(a).cuda() for a in (C, r, cn))
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(K * L * p)
+        C = torch.randn(K, L, p, device="cuda", generator=gen) * 0.5 + 0.6
+        r = torch.rand(K, L, device="cuda", generator=gen)
+        cn = torch.rand(K, p, device="cuda", generator=gen) + 0.5
+    got = dpc_screen_folds_cuda(C, r, cn)
+    want = ref.dpc_screen_folds_ref(C, r, cn)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    require(n_diff == 0, f"dpc_screen_folds {label}: {n_diff} decisions "
+            f"differ from the plain version")
+    ms = time_ms(torch, lambda: dpc_screen_folds_cuda(C, r, cn))
+    eager = eager_ms(torch, lambda: dpc_screen_folds_cuda(C, r, cn))
+    plain = time_ms(torch, lambda: ref.dpc_screen_folds_ref(C, r, cn))
+    b, by = bound_ms(5 * K * L * p + 4 * K * L + 4 * K * p, 3 * K * L * p)
+    say(f"[kernel dpc_screen_folds {label}] K {K} L {L} p {p} kept "
+        f"{float(got.float().mean()):.3f} mismatches 0 (exact)"
+        f"{'' if n_flips is None else f', fma would flip {n_flips}'} ms "
+        f"{ms:.5f} eager_ms {eager:.5f} plain_ms {plain:.5f} bound_ms "
+        f"{b:.5f} ({by})")
+    return dict(max_abs_err=0.0, ms=ms, eager_ms=eager, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def kernel_checks(torch, sess_main, shapes, sess_ragged, snf_shape,
+                  dsf_shape):
     spec = sess_main.problem.spec
     rspec = sess_ragged.problem.spec
     # the main path's shapes: the full X of the certification GEMV, the
@@ -467,6 +789,16 @@ def kernel_checks(torch, sess_main, shapes, sess_ragged):
     check_screen_norms(torch, 8, rspec.pad_mask, "table2")
     check_sgl_prox(torch, rspec.pad_mask, "table2")
     check_sgl_prox(torch, spec.pad_mask, "synthetic1-full")
+    # the CV paths' shapes: the first stacked screen of each
+    (R, _, _), _ = snf_shape
+    rows["screen_norms_folds"] = check_screen_norms_folds(
+        torch, R, spec.pad_mask, "sgl-cv")
+    check_screen_norms_folds(torch, 3 * 8, rspec.pad_mask, "table2-folds")
+    (K, L, p), _, _ = dsf_shape
+    rows["dpc_screen_folds"] = check_dpc_screen_folds(torch, K, L, p,
+                                                      "nn-cv")
+    check_dpc_screen_folds(torch, K, L, p + 7, "ragged-p")
+    check_dpc_screen_folds(torch, K, L, p + 7, "borderline", borderline=True)
     return rows
 
 
@@ -490,14 +822,24 @@ def main() -> int:
     build_kernels()
     sess, res, counts, shapes = main_path(torch, T)
     sess_r, res_r, counts_r = ragged_path(torch, T)
-    rows = kernel_checks(torch, sess, shapes, sess_r)
+    counts_nn = nn_path(torch, T)
+    counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
+    counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
+    rows = kernel_checks(torch, sess, shapes, sess_r, snf_shape, dsf_shape)
 
+    by_path = {"synthetic1-path": counts, "table2-path": counts_r,
+               "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,
+               "nn-cv": counts_nn_cv}
+    own = {"screen_norms_folds": counts_sgl_cv,
+           "dpc_screen_folds": counts_nn_cv}     # else the main path's
     kernels = []
     for name, row in rows.items():
         src, replaces = SOURCES[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name], launches_ragged=counts_r[name],
+            launches=own.get(name, counts)[name],
+            launches_ragged=counts_r[name],
+            launches_by_path={k: v[name] for k, v in by_path.items()},
             max_err=row["max_abs_err"], **row))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

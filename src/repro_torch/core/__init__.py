@@ -1,10 +1,14 @@
 """TLFre for sparse-group lasso — the PyTorch/CUDA port of ``repro.core``.
 
 Public surface:
-  Problem, Plan, SGLSession   problem spec, run config, ``.path`` verb
+  Problem, Plan, SGLSession   problem spec, run config, ``.path`` / ``.cv``
   GroupSpec                   group bookkeeping (ragged + padded views)
   lambda_max_sgl, dual_scaling_sgl, group_shrink_roots
   tlfre_screen_grid, fista_sgl, sgl_path_batched
+  lambda_max_nn, dual_scaling_nn, dpc_screen_grid, fista_nn_lasso,
+  nn_lasso_path_batched       the DPC nonnegative Lasso
+  kfold_indices, sgl_fold_paths, nn_fold_paths, CVResult
+                              fold-batched cross-validation
 """
 from .groups import (GroupSpec, broadcast_to_features, group_max_abs,
                      group_norms, group_sum, pad_groups, resolve_device)
@@ -12,13 +16,21 @@ from .fenchel import sgl_penalty, shrink, weighted_l1
 from .losses import SQUARED, SquaredLoss, get_loss
 from .lambda_max import dual_scaling_sgl, group_shrink_roots, lambda_max_sgl
 from .estimation import normal_vector_sgl, project_out_normal
-from .screening import grid_ball_geometry, sup_shrink_norm, tlfre_screen_grid
-from .prox import sgl_prox
+from .screening import (grid_ball_geometry, grid_ball_geometry_folds,
+                        sup_shrink_norm, tlfre_screen_grid,
+                        tlfre_screen_grid_folds)
+from .dpc import (dpc_screen_grid, dpc_screen_grid_folds, dual_scaling_nn,
+                  lambda_max_nn, normal_vector_nn, nn_dual_objective,
+                  nn_primal_objective)
+from .prox import nn_lasso_prox, sgl_prox
 from .linalg import (column_norms, group_frobenius_norms,
                      group_spectral_norms, spectral_norm)
-from .solver import SolveResult, fista_sgl
+from .solver import SolveResult, fista_nn_lasso, fista_sgl
 from .path import PathResult, default_lambda_grid
-from .path_engine import EngineStats, sgl_path_batched
+from .path_engine import (EngineStats, nn_lasso_path_batched,
+                          sgl_path_batched)
+from .cv import (CVResult, kfold_indices, nn_fold_paths, per_fold_centering,
+                 sgl_fold_paths)
 from .problem import Plan, Problem, as_group_spec
 from .session import SGLSession
 

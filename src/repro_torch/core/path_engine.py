@@ -1,5 +1,7 @@
-"""Batched lambda-path engine for SGL with TLFre screening (PyTorch port of
-``repro.core.path_engine.sgl_path_batched``).
+"""Batched lambda-path engine: SGL with TLFre screening and the
+nonnegative Lasso with DPC screening (PyTorch port of
+``repro.core.path_engine.sgl_path_batched`` / ``nn_lasso_path_batched``,
+single device).
 
 Each segment of the path does three things:
 
@@ -27,7 +29,9 @@ every ``check_every`` iterations and each row's certificate once.  Sweep
 shapes are counted with the reference's compile keys, so
 ``EngineStats.n_compilations`` reports the same numbers (a warm second call
 reports 0).  The kernels run for float32 on CUDA (``_kernels_active``) and
-never for float64.
+never for float64.  The nonnegative-Lasso path has the same three steps
+with the DPC grid rule (Theorem 22) and the prox ``(v - t*lam)_+``; its
+only kernel is the ``xtv`` certification GEMV.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .dpc import (dpc_screen_grid, dual_scaling_nn, lambda_max_nn,
+                  normal_vector_nn)
 from .estimation import normal_vector_sgl
 from .fenchel import sgl_penalty
 from .groups import GroupSpec
@@ -47,7 +53,7 @@ from .linalg import (column_norms, group_frobenius_norms,
 from .losses import SQUARED, get_loss
 from .path import PathResult, _bucket, default_lambda_grid
 from .screening import _require_f32_for_pallas, tlfre_screen_grid
-from .solver import fista_sgl
+from .solver import fista_nn_lasso, fista_sgl
 
 
 @dataclasses.dataclass
@@ -58,17 +64,19 @@ class EngineStats:
     sweep shapes (the reference's jit compilations), ``n_rejected``
     speculative rows whose certificate failed, ``n_pallas_screens`` grid
     screens that ran through the fused kernels (always 0 on float64
-    paths)."""
+    paths).  ``fold_sweeps`` (fold drivers only) counts, per fold, the
+    sweep launches the fold took part in."""
     n_segments: int = 0
     n_screens: int = 0
     n_compilations: int = 0
     n_rejected: int = 0
     n_pallas_screens: int = 0
     buckets: list = dataclasses.field(default_factory=list)  # (p_b, g_b, m, k)
+    fold_sweeps: object = None   # (K,) launch counts from the last fold run
 
     def merge(self, other: "EngineStats") -> None:
-        """Accumulate another run's counters (not its buckets) into this
-        one."""
+        """Accumulate another run's counters (not its buckets, nor its
+        per-run ``fold_sweeps``) into this one."""
         self.n_segments += other.n_segments
         self.n_screens += other.n_screens
         self.n_compilations += other.n_compilations
@@ -84,6 +92,20 @@ def _kernels_active(use_kernels: Optional[bool], dtype, device) -> bool:
     if use_kernels is None:
         return torch.device(device).type == "cuda"
     return bool(use_kernels)
+
+
+def _refuse_tf32(X) -> None:
+    """The float32 screening margins assume true float32 products."""
+    if (X.device.type == "cuda" and X.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the float32 "
+            "screening margin assumes true float32 products; turn TF32 off")
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _xtv(X, v, use_kernels: bool):
@@ -178,25 +200,61 @@ def margin_fill_sgl(S, c_prev_np, gid, sizes_np, weights_np, p_b: int,
         n_grp += 1
 
 
-def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
-                   lipschitz, lams, valid, beta0, tol, gap_scale: float, *,
-                   max_iter: int, check_every: int, use_kernels: bool,
-                   loss=SQUARED):
-    """Solve the rows of ``lams`` (a device grid; ``valid`` marks the real
-    rows) in order, warm-started, each certified against the full problem.
+def margin_fill_nn(S, c_prev_np, p_b: int):
+    """Fill spare capacity with the top features by dual correlation
+    (nonnegative-Lasso analogue of ``margin_fill_sgl``).  Mutates ``S``."""
+    spare = p_b - int(S.sum())
+    if spare > 0 and not S.all():
+        cand = np.asarray(c_prev_np, dtype=float).copy()
+        cand[S] = -np.inf
+        S[np.argpartition(-cand, spare - 1)[:spare]] = True
+
+
+def _certified_rows(lams, valid, beta0, tol: float, gap_scale: float,
+                    max_iter: int, solve_row):
+    """The sweep's row loop, shared by both penalties: solve the rows of
+    ``lams`` in order, warm-started, each certified against the full
+    problem by ``solve_row(lam, beta) -> (beta, theta, c_theta, gap,
+    iters)`` (``gap`` a host float).
 
     Returns (betas, thetas, cthetas, good, iters): lists over the rows run.
     The sweep stops after the first failed certificate or the first invalid
     row, so the lists may be shorter than the grid; rows not run count as
     not good."""
-    prox = _padded_prox(sub_spec) if use_kernels else None
-    tol = loss.effective_tol(tol, y.dtype)
     betas, thetas, cthetas, goods, iters = [], [], [], [], []
     b = beta0
     for idx in range(lams.shape[0]):
         if not valid[idx]:
             break
-        lam = lams[idx]
+        b, theta, ctheta, gap, its = solve_row(lams[idx], b)
+        # a max_iter-capped solve only certifies on the provably safe row 0
+        good = (gap <= tol * gap_scale * 1.01) or \
+            (idx == 0 and its >= max_iter)
+        betas.append(b)
+        thetas.append(theta)
+        cthetas.append(ctheta)
+        goods.append(good)
+        iters.append(its)
+        if not good:
+            break
+    return betas, thetas, cthetas, goods, iters
+
+
+def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
+                   lipschitz, lams, valid, beta0, tol, gap_scale: float,
+                   mu=None, *, max_iter: int, check_every: int,
+                   use_kernels: bool, loss=SQUARED):
+    """The SGL sweep over the rows of ``lams`` (a device grid; ``valid``
+    marks the real rows); see ``_certified_rows``.
+
+    ``mu`` (optional, (p,)): per-fold column means for leakage-free
+    centering.  The certification GEMV runs against the SHARED design, so
+    the centered correlation is the rank-one correction
+    ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked)."""
+    prox = _padded_prox(sub_spec) if use_kernels else None
+    tol = loss.effective_tol(tol, y.dtype)
+
+    def solve_row(lam, b):
         res = fista_sgl(X_sub, y, sub_spec, lam, alpha, lipschitz, b,
                         max_iter=max_iter, check_every=check_every, tol=tol,
                         prox=prox, loss=loss)
@@ -204,24 +262,42 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
         resid = loss.residual(y, fit)
         rho = resid / lam
         c = _xtv(X, rho, use_kernels).to(b.dtype)          # full-X GEMV
+        if mu is not None:
+            c = c - (mu * torch.sum(rho)).to(b.dtype)
         s = dual_scaling_sgl(spec, c, alpha)
         theta = (s * rho).to(b.dtype)
         pen = sgl_penalty(sub_spec, res.beta, alpha)
         pval = loss.primal_value(y, fit, resid) + lam * pen
         dval = loss.dual_value(y, theta, lam)
-        gap = float(pval - dval)                          # one host read
-        # a max_iter-capped solve only certifies on the provably safe row 0
-        good = (gap <= tol * gap_scale * 1.01) or \
-            (idx == 0 and res.iters >= max_iter)
-        b = res.beta
-        betas.append(b)
-        thetas.append(theta)
-        cthetas.append((s * c).to(b.dtype))
-        goods.append(good)
-        iters.append(res.iters)
-        if not good:
-            break
-    return betas, thetas, cthetas, goods, iters
+        return (res.beta, theta, (s * c).to(b.dtype),
+                float(pval - dval), res.iters)            # one host read
+
+    return _certified_rows(lams, valid, beta0, tol, gap_scale, max_iter,
+                           solve_row)
+
+
+def sweep_nn_core(X, X_sub, y, lipschitz, lams, valid, beta0, tol,
+                  gap_scale: float, *, max_iter: int, check_every: int,
+                  use_kernels: bool):
+    """The nonnegative-Lasso sweep; see ``_certified_rows``."""
+    tol = SQUARED.effective_tol(tol, y.dtype)
+
+    def solve_row(lam, b):
+        res = fista_nn_lasso(X_sub, y, lam, lipschitz, b, max_iter=max_iter,
+                             check_every=check_every, tol=tol)
+        resid = y - X_sub @ res.beta
+        rho = resid / lam
+        c = _xtv(X, rho, use_kernels).to(b.dtype)          # full-X GEMV
+        s = dual_scaling_nn(c)
+        theta = (s * rho).to(b.dtype)
+        pval = 0.5 * torch.dot(resid, resid) + lam * torch.sum(res.beta)
+        d = y - lam * theta
+        dval = 0.5 * torch.dot(y, y) - 0.5 * torch.dot(d, d)
+        return (res.beta, theta, (s * c).to(b.dtype),
+                float(pval - dval), res.iters)            # one host read
+
+    return _certified_rows(lams, valid, beta0, tol, gap_scale, max_iter,
+                           solve_row)
 
 
 def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
@@ -255,19 +331,11 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         _require_f32_for_pallas(X.dtype)
     if X.device != y.device or X.device != spec.device:
         raise ValueError("X, y and the group spec must lie on one device")
-    if (X.device.type == "cuda" and X.dtype == torch.float32
-            and torch.backends.cuda.matmul.allow_tf32):
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is on: the float32 "
-            "screening margin assumes true float32 products; turn TF32 off")
+    _refuse_tf32(X)
     dev, dtype = X.device, X.dtype
     N, p = X.shape
     G = spec.num_groups
     kernels = _kernels_active(use_kernels, dtype, dev)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
     r0 = loss.residual_at_zero(y)
@@ -280,7 +348,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     else:
         gspec = group_frobenius_norms(X, spec)
     L_full = spectral_norm(X) ** 2
-    sync()
+    _sync(dev)
     setup_time = time.perf_counter() - t0
 
     if lambdas is None:
@@ -417,3 +485,161 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
                       setup_time=setup_time, iters=iters,
                       kept_features=kept_feat, kept_groups=kept_grp,
                       stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Nonnegative Lasso
+# ---------------------------------------------------------------------------
+
+def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
+                          min_ratio: float = 0.01, screen: str = "dpc",
+                          tol=1e-9, max_iter: int = 20000,
+                          safety: float = 0.0, check_every: int = 10,
+                          use_kernels: Optional[bool] = None,
+                          min_bucket: int = 64, margin: float = 0.125,
+                          chunk_init: int = 8,
+                          compile_keys: Optional[set] = None) -> PathResult:
+    """Batched nonnegative-Lasso path: whole-grid DPC screens, speculative
+    bucketed sweeps with per-row certification (the single-device branch of
+    the reference).  ``use_kernels`` / ``compile_keys`` as in
+    ``sgl_path_batched``; the only kernel on this path is the ``xtv``
+    certification GEMV."""
+    if screen == "gapsafe":
+        raise NotImplementedError(
+            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+    if screen not in ("dpc", "none"):
+        raise ValueError(f"unknown screen mode {screen!r}")
+    if use_kernels and X.dtype == torch.float64:
+        _require_f32_for_pallas(X.dtype)
+    if X.device != y.device:
+        raise ValueError("X and y must lie on one device")
+    _refuse_tf32(X)
+    dev, dtype = X.device, X.dtype
+    N, p = X.shape
+    kernels = _kernels_active(use_kernels, dtype, dev)
+
+    t0 = time.perf_counter()
+    xty = X.T @ y
+    lam_max_t, i_star = lambda_max_nn(xty)
+    lam_max = float(lam_max_t)
+    col_n = column_norms(X)
+    L_full = spectral_norm(X) ** 2
+    _sync(dev)
+    if lam_max <= 0:
+        raise ValueError("max_i <x_i, y> <= 0: nonnegative Lasso solution is "
+                         "identically zero for every lambda > 0")
+    setup_time = time.perf_counter() - t0
+
+    if lambdas is None:
+        lambdas = default_lambda_grid(lam_max, n_lambdas, min_ratio)
+    lambdas = np.asarray(lambdas, dtype=float)
+    J = len(lambdas)
+
+    betas = np.zeros((J, p))
+    iters = np.zeros(J, dtype=np.int64)
+    kept_feat = np.zeros(J, dtype=np.int64)
+    stats = EngineStats()
+    screen_time = 0.0
+    solve_time = 0.0
+    gap_scale = SQUARED.gap_scale_host(y)
+
+    theta_bar = y / lam_max
+    c_prev = xty / lam_max
+    lam_bar = lam_max
+    beta_full = np.zeros(p)
+    seen_keys = compile_keys if compile_keys is not None else set()
+    spec_m = max(int(chunk_init), 1)
+
+    j = 0
+    while j < J and lambdas[j] >= lam_max * (1.0 - 1e-12):
+        j += 1
+
+    while j < J:
+        rem, L_rem = _pad_grid(lambdas[j:], dtype, dev)
+        ts = time.perf_counter()
+        if screen == "none":
+            fk_np = np.ones((J - j, p), dtype=bool)
+        else:
+            n_vec = normal_vector_nn(X, y, lam_bar, lam_max, theta_bar,
+                                     i_star)
+            fk, _ = dpc_screen_grid(X, y, rem, theta_bar, n_vec, col_n,
+                                    safety=safety)
+            fk_np = fk[:L_rem].cpu().numpy()        # one host read
+            stats.n_screens += 1
+        screen_time += time.perf_counter() - ts
+
+        row_counts = fk_np.sum(axis=1)
+        if row_counts[0] == 0:
+            k = (int(np.argmax(row_counts > 0)) if row_counts.any()
+                 else len(row_counts))
+            lam_bar = float(lambdas[j + k - 1])
+            theta_bar = y / lam_bar
+            c_prev = xty / lam_bar
+            beta_full = np.zeros(p)
+            j += k
+            continue
+
+        base = fk_np[0]
+        n_base = int(base.sum())
+        p_b = _feature_bucket(n_base, p, min_bucket, margin)
+        S = _expand_set(base, fk_np, p_b)
+        margin_fill_nn(S, c_prev.cpu().numpy(), p_b)
+
+        m = min(J - j, spec_m)
+
+        ts = time.perf_counter()
+        if S.all():
+            col_idx = np.arange(p)
+            X_sub, L_sub = X, L_full
+            p_b = p
+        else:
+            col_idx = np.nonzero(S)[0]
+            X_sub = torch.zeros((N, p_b), dtype=dtype, device=dev)
+            X_sub[:, :len(col_idx)] = X[:, torch.as_tensor(col_idx,
+                                                           device=dev)]
+            L_sub = spectral_norm(X_sub, iters=25) ** 2
+        beta0 = np.zeros(p_b)
+        beta0[:len(col_idx)] = beta_full[col_idx]
+
+        lam_chunk = lambdas[j:j + m]
+        len2 = _pow2_len(m)
+        lam_pad = np.concatenate(
+            [lam_chunk, np.full(len2 - m, lam_chunk[-1])])
+        valid = np.arange(len2) < m
+        key = ("nn", N, p, str(dtype), max_iter, check_every, kernels, p_b,
+               len2, "squared")
+        if key not in seen_keys:
+            seen_keys.add(key)
+            stats.n_compilations += 1
+        betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_nn_core(
+            X, X_sub, y, L_sub,
+            torch.as_tensor(lam_pad, dtype=dtype, device=dev), valid,
+            torch.as_tensor(beta0, dtype=dtype, device=dev), tol, gap_scale,
+            max_iter=max_iter, check_every=check_every, use_kernels=kernels)
+        good_np = np.zeros(m, dtype=bool)
+        good_np[:len(good_b)] = good_b[:m]
+        k = int(np.argmin(good_np)) if not good_np.all() else m
+        if k == 0:
+            k = 1
+        stats.n_rejected += int(m - k)
+        theta_bar = thetas_b[k - 1]
+        c_prev = cthetas_b[k - 1]
+        betas_np = torch.stack(betas_b[:k]).cpu().numpy()
+        solve_time += time.perf_counter() - ts
+
+        chunk_rows = np.zeros((k, p))
+        chunk_rows[:, col_idx] = betas_np[:, :len(col_idx)]
+        betas[j:j + k] = chunk_rows
+        iters[j:j + k] = iters_b[:k]
+        kept_feat[j:j + k] = len(col_idx)       # columns entering the solver
+        beta_full = chunk_rows[-1]
+        lam_bar = float(lam_chunk[k - 1])
+        stats.n_segments += 1
+        stats.buckets.append((p_b, 0, m, k))
+        spec_m = min(2 * spec_m, 64) if k == m else max(2, k)
+        j += k
+
+    return PathResult(lambdas=lambdas, betas=betas, lam_max=lam_max,
+                      screen_time=screen_time, solve_time=solve_time,
+                      setup_time=setup_time, iters=iters,
+                      kept_features=kept_feat, stats=stats)

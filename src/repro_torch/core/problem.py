@@ -1,7 +1,8 @@
 """Declarative problem / plan specification (PyTorch port).
 
-  * ``Problem`` — WHAT is being solved: the design matrix, the response and
-    the group structure, as tensors on one device.
+  * ``Problem`` — WHAT is being solved: the design matrix, the response,
+    the group structure (SGL) and the penalty family (``sgl`` or
+    ``nn_lasso``), as tensors on one device.
   * ``Plan`` — HOW to solve it: lambda grid, alpha, screening rule and
     engine knobs.  It keeps the reference's fields; ``use_pallas`` becomes
     ``use_kernels``.  A value this port does not implement yet raises
@@ -18,7 +19,11 @@ import torch
 
 from .groups import GroupSpec, resolve_device
 
-PENALTIES = ("sgl",)
+PENALTIES = ("sgl", "nn_lasso")
+
+# screening rules per penalty family; "auto" resolves to the first entry
+_SCREENS = {"sgl": ("tlfre", "gapsafe", "none"),
+            "nn_lasso": ("dpc", "gapsafe", "none")}
 
 
 def as_group_spec(groups, p: int, device) -> GroupSpec:
@@ -53,15 +58,19 @@ class Problem:
     runs, float32 for the CUDA kernels."""
     X: torch.Tensor              # (N, p) design
     y: torch.Tensor              # (N,) response
-    spec: GroupSpec              # group structure
+    spec: Optional[GroupSpec]    # group structure (None only for nn_lasso)
     penalty: str = "sgl"
     loss: str = "squared"
 
     def __post_init__(self):
         if self.penalty not in PENALTIES:
-            raise NotImplementedError(
-                f"penalty={self.penalty!r} is not ported yet (the "
-                f"nonnegative Lasso is ROADMAP queue 1, item 7)")
+            raise ValueError(f"unknown penalty {self.penalty!r}; "
+                             f"expected one of {PENALTIES}")
+        if self.penalty == "sgl" and self.spec is None:
+            raise ValueError("penalty='sgl' requires a GroupSpec")
+        if self.penalty == "nn_lasso" and self.loss != "squared":
+            raise ValueError("nn_lasso supports only the squared loss "
+                             "(the DPC dual geometry is squared-only)")
         if self.X.dim() != 2 or self.y.dim() != 1:
             raise ValueError("X must be (N, p) and y (N,)")
         if self.X.shape[0] != self.y.shape[0]:
@@ -77,6 +86,15 @@ class Problem:
         X = _as_tensor(X, dtype, device)
         y = _as_tensor(y, X.dtype, device)
         return cls(X=X, y=y, spec=as_group_spec(groups, X.shape[1], device))
+
+    @classmethod
+    def nn_lasso(cls, X, y, dtype=None, device=None) -> "Problem":
+        """The nonnegative Lasso (paper Section 5).  ``device`` and
+        ``dtype`` as in ``Problem.sgl``: ``device=None`` means the card."""
+        device = resolve_device(device)
+        X = _as_tensor(X, dtype, device)
+        y = _as_tensor(y, X.dtype, device)
+        return cls(X=X, y=y, spec=None, penalty="nn_lasso")
 
     @property
     def n_samples(self) -> int:
@@ -154,20 +172,42 @@ class Plan:
         return loss
 
     def resolved_screen(self, penalty: str = "sgl") -> str:
-        screen = "tlfre" if self.screen == "auto" else self.screen
+        allowed = _SCREENS[penalty]
+        screen = allowed[0] if self.screen == "auto" else self.screen
+        if screen not in allowed:
+            raise ValueError(f"screen={screen!r} is not valid for "
+                             f"penalty={penalty!r}; expected one of "
+                             f"{('auto',) + allowed}")
         if screen == "gapsafe":
             raise NotImplementedError(
                 "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
-        if screen not in ("tlfre", "none"):
-            raise ValueError(f"screen={screen!r} is not valid for "
-                             f"penalty={penalty!r}; expected one of "
-                             f"('auto', 'tlfre', 'gapsafe', 'none')")
         return screen
 
+    def validate_for_penalty(self, penalty: str) -> None:
+        """Penalty-level validation (no Problem instance needed)."""
+        self.resolved_screen(penalty)
+        if self.schedule not in ("elastic", "lockstep"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.chunk_cap < 2:
+            raise ValueError("chunk_cap must be >= 2")
+        if self.center not in ("global", "per-fold"):
+            raise ValueError(f"unknown center mode {self.center!r}")
+        if self.selection not in ("min", "1se"):
+            raise ValueError(f"unknown selection rule {self.selection!r}")
+        if penalty == "nn_lasso" and self.center == "per-fold":
+            raise ValueError("per-fold centering is not defined for the "
+                             "nonnegative Lasso (centering X breaks the "
+                             "nonnegativity geometry)")
+
     def validate(self, problem: Problem) -> None:
-        """Refuse what the path verb of this port cannot run yet."""
+        """Refuse what the verbs of this port cannot run yet."""
         self.resolved_loss(problem.loss)
-        self.resolved_screen(problem.penalty)
+        self.validate_for_penalty(problem.penalty)
+        if problem.penalty == "nn_lasso" and (
+                self.group_weights is not None
+                or self.feature_weights is not None):
+            raise ValueError("adaptive weights are SGL-only (the nn_lasso "
+                             "penalty has no group/feature weights)")
         if self.engine == "legacy":
             raise NotImplementedError(
                 "engine='legacy' (the per-lambda driver) is not ported; "
@@ -191,3 +231,11 @@ class Plan:
         if self.use_kernels and problem.dtype == torch.float64:
             from .screening import _require_f32_for_pallas
             _require_f32_for_pallas(problem.dtype)
+
+    def grid(self, lam_max: float) -> np.ndarray:
+        """The lambda grid this plan runs: explicit, or the paper protocol
+        anchored at ``lam_max``."""
+        from .path import default_lambda_grid
+        if self.lambdas is not None:
+            return np.asarray(self.lambdas, dtype=float)
+        return default_lambda_grid(lam_max, self.n_lambdas, self.min_ratio)

@@ -1,4 +1,4 @@
-"""Proximal operator for SGL (PyTorch port).
+"""Proximal operators for SGL and the nonnegative Lasso (PyTorch port).
 
 The prox of t * (lam1 * sum_g w_g ||b_g|| + lam2 ||b||_1) is the exact
 composition soft-threshold-then-group-soft-threshold (Friedman et al. 2010):
@@ -23,3 +23,8 @@ def sgl_prox(spec: GroupSpec, v: torch.Tensor, t_l1,
                         1.0 - t_group / torch.where(norms > 0, norms, 1.0),
                         0.0)
     return u * broadcast_to_features(spec, scale)
+
+
+def nn_lasso_prox(v: torch.Tensor, t_lam) -> torch.Tensor:
+    """prox of t*lam*||.||_1 + I_{R+}:  (v - t*lam)_+."""
+    return torch.clamp(v - t_lam, min=0.0)

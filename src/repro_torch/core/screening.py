@@ -61,6 +61,28 @@ def _grid_group_stats(spec: GroupSpec, C: torch.Tensor, use_kernels: bool):
     return c_norm, c_inf
 
 
+def _grid_group_stats_folds(spec: GroupSpec, C: torch.Tensor,
+                            use_kernels: bool):
+    """Fold-stacked group statistics: (K, L, p) -> ((K, L, G), (K, L, G)).
+
+    ``use_kernels`` routes the whole (K*L, p) CV layout through ONE
+    ``screen_norms_folds`` launch (float32, same float64 refusal as
+    ``_grid_group_stats``); otherwise the plain segment reductions run on
+    the (K*L, p) rows, which is the reference's vmap over folds."""
+    K, L, p = C.shape
+    if use_kernels:
+        _require_f32_for_pallas(C.dtype)
+        from ..kernels import ops as _kops
+        c_pad = torch.where(spec.pad_mask[None, None],
+                            C[:, :, spec.pad_index], 0.0)
+        snorm2, cinf = _kops.screen_norms_folds(c_pad.to(torch.float32),
+                                                spec.pad_mask)
+        return torch.sqrt(snorm2).to(C.dtype), cinf.to(C.dtype)
+    c_norm, c_inf = _grid_group_stats(spec, C.reshape(K * L, p), False)
+    G = spec.num_groups
+    return c_norm.reshape(K, L, G), c_inf.reshape(K, L, G)
+
+
 def _grid_rules(spec: GroupSpec, alpha, C, radii, col_norms, group_specnorms,
                 use_kernels: bool = False):
     """Theorems 15/16 evaluated for every (lambda, group/feature) pair."""
@@ -88,6 +110,68 @@ def grid_ball_geometry(y, lambdas, theta_bar, n_vec):
     centers = theta_bar[None, :] + 0.5 * v_perp
     radii = 0.5 * torch.linalg.vector_norm(v_perp, dim=1)
     return centers, radii
+
+
+def grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs):
+    """Theorem-12 ball geometry for K folds x L lambdas at once.
+
+    Per-fold quantities live on the FULL row index with held-out rows
+    zeroed (zero rows add nothing to any inner product, so the masked
+    algebra is the per-fold algebra).  ``Y``/``Theta_bar``/``N_vecs``:
+    (K, N); ``lambdas``: (K, L).  Returns (centers (K, L, N), radii (K, L))
+    — the reference's vmap of ``grid_ball_geometry`` with the fold axis
+    written out, including its zero-normal guard per fold."""
+    v = Y[:, None, :] / lambdas[:, :, None] - Theta_bar[:, None, :]
+    n2 = torch.sum(N_vecs * N_vecs, dim=1)                       # (K,)
+    ok = n2 > 0
+    coef = torch.where(ok[:, None],
+                       torch.einsum("kln,kn->kl", v, N_vecs)
+                       / torch.where(ok, n2, 1.0)[:, None], 0.0)
+    v_perp = v - coef[:, :, None] * N_vecs[:, None, :]
+    centers = Theta_bar[:, None, :] + 0.5 * v_perp
+    radii = 0.5 * torch.linalg.vector_norm(v_perp, dim=2)
+    return centers, radii
+
+
+def _grid_rules_folds(spec: GroupSpec, alpha, C, radii, col_norms_f,
+                      group_specnorms_f, use_kernels: bool = False):
+    """Theorems 15/16 for every (fold, lambda, group/feature) triple.
+    ``C`` (K, L, p), ``radii`` (K, L), per-fold norms (K, p) / (K, G)."""
+    if spec.feature_weights is not None:
+        raise NotImplementedError(
+            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
+            "item 8)")
+    r_g = radii[:, :, None] * group_specnorms_f[:, None, :]
+    c_norm, c_inf = _grid_group_stats_folds(spec, C, use_kernels)
+    s = sup_shrink_norm(c_norm, c_inf, r_g)
+    group_keep = s >= alpha * spec.weights[None, None, :]
+
+    t = torch.abs(C) + radii[:, :, None] * col_norms_f[:, None, :]
+    feat_keep = (t > 1.0) & group_keep[:, :, spec.group_ids]
+    return group_keep, feat_keep
+
+
+def tlfre_screen_grid_folds(X, Y, spec: GroupSpec, alpha, lambdas, Theta_bar,
+                            N_vecs, col_norms_f, group_specnorms_f,
+                            safety: float = 0.0, mus=None,
+                            use_kernels: bool = False):
+    """Fold-batched TLFre grid screen: K folds x L lambdas in ONE
+    ``(K*L, N) x (N, p)`` GEMM against the SHARED design (fold-k centers
+    are zero on fold k's held-out rows).  ``mus`` (optional, (K, p)):
+    per-fold train-row column means; fold k's centered design needs only
+    the rank-one correction ``C -= sum(center) * mu_k``.  Returns
+    (group_keep (K, L, G), feat_keep (K, L, p), radii (K, L))."""
+    K, L = lambdas.shape
+    N = Y.shape[1]
+    centers, radii = grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs)
+    radii = radii * (1.0 + safety)
+    C = (centers.reshape(K * L, N) @ X).reshape(K, L, X.shape[1])
+    if mus is not None:
+        C = C - centers.sum(dim=2)[:, :, None] * mus[:, None, :]
+    group_keep, feat_keep = _grid_rules_folds(spec, alpha, C, radii,
+                                              col_norms_f, group_specnorms_f,
+                                              use_kernels)
+    return group_keep, feat_keep, radii
 
 
 def tlfre_screen_grid(X, y, spec: GroupSpec, alpha, lambdas, lam_bar,

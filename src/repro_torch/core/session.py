@@ -1,19 +1,26 @@
 """SGLSession — a persistent handle binding a ``Problem`` to device state
-(PyTorch port of the ``.path`` verb).
+(PyTorch port of the ``.path`` and ``.cv`` verbs).
 
 The session owns one persistent set of sweep-shape keys (``compile_keys``)
 threaded through every engine call, so ``EngineStats.n_compilations``
 counts the shapes a run meets for the first time: a second
-``session.path(plan)`` over the same buckets reports zero.
+``session.path(plan)`` or ``session.cv(plan)`` over the same buckets reports
+zero.  ``X^T y`` and the per-alpha ``lambda_max`` grid anchor are computed
+once per session.
 
-The other verbs of the reference (``cv``, ``refine``, ``stability``) are not
-ported yet (ROADMAP queue 1, item 9).
+``refine`` and ``stability`` are not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from .path_engine import EngineStats, sgl_path_batched
+import numpy as np
+
+from .cv import (CVResult, _cv_statistics, _masks_from_folds, kfold_indices,
+                 nn_fold_paths, per_fold_centering, sgl_fold_paths)
+from .dpc import lambda_max_nn
+from .lambda_max import lambda_max_sgl
+from .path_engine import EngineStats, nn_lasso_path_batched, sgl_path_batched
 from .problem import Plan, Problem
 
 
@@ -24,6 +31,7 @@ class SGLSession:
     >>> sess = SGLSession(prob)
     >>> path = sess.path(Plan(alpha=1.0, n_lambdas=40, tol=1e-8))
     >>> path2 = sess.path(Plan(alpha=1.0, n_lambdas=40, tol=1e-8))  # warm
+    >>> cv = sess.cv(Plan(alpha=1.0, n_lambdas=40, n_folds=5))
     """
 
     def __init__(self, problem: Problem, plan: Optional[Plan] = None):
@@ -31,6 +39,8 @@ class SGLSession:
         self.default_plan = plan if plan is not None else Plan()
         self.compile_keys: set = set()
         self.stats = EngineStats()       # aggregate over the session
+        self._lam_max_cache: dict = {}   # grid-anchor cache (see lambda_max)
+        self._xty = problem.X.T @ problem.y
 
     def _resolve(self, plan: Optional[Plan], overrides: dict) -> Plan:
         plan = self.default_plan if plan is None else plan
@@ -39,21 +49,109 @@ class SGLSession:
         plan.validate(self.problem)
         return plan
 
+    def lambda_max(self, alpha: float = 1.0) -> float:
+        """Full-data grid anchor, cached per alpha on the session's
+        ``X^T y``."""
+        if self.problem.penalty == "nn_lasso":
+            key = "nn"
+            if key not in self._lam_max_cache:
+                self._lam_max_cache[key] = float(lambda_max_nn(self._xty)[0])
+            return self._lam_max_cache[key]
+        alpha = float(alpha)
+        if alpha not in self._lam_max_cache:
+            self._lam_max_cache[alpha] = float(lambda_max_sgl(
+                self.problem.spec, self._xty, alpha)[0])
+        return self._lam_max_cache[alpha]
+
+    def _grid(self, plan: Plan):
+        """(lambdas, lam_max): an explicit grid is anchored at its largest
+        value, as in the reference."""
+        if plan.lambdas is not None:
+            lambdas = np.asarray(plan.lambdas, dtype=float)
+            return lambdas, float(lambdas.max())
+        lam_max = self.lambda_max(plan.alpha)
+        if self.problem.penalty == "nn_lasso" and lam_max <= 0:
+            raise ValueError("max_i <x_i, y> <= 0: nonnegative Lasso "
+                             "solution is identically zero")
+        return plan.grid(lam_max), lam_max
+
     def path(self, plan: Optional[Plan] = None, **overrides):
         """Solve one lambda path; compiled buckets persist across calls."""
         plan = self._resolve(plan, overrides)
         prob = self.problem
         screen = plan.resolved_screen(prob.penalty)
-        res = sgl_path_batched(
-            prob.X, prob.y, prob.spec, plan.alpha,
-            lambdas=plan.lambdas, n_lambdas=plan.n_lambdas,
-            min_ratio=plan.min_ratio, screen=screen, tol=plan.tol,
-            max_iter=plan.max_iter, safety=plan.safety,
-            specnorm_method=plan.specnorm_method,
-            check_every=plan.check_every, use_kernels=plan.use_kernels,
-            min_bucket=plan.min_bucket,
-            min_group_bucket=plan.min_group_bucket, margin=plan.margin,
-            chunk_init=plan.chunk_init, compile_keys=self.compile_keys,
-            loss=plan.resolved_loss(prob.loss))
+        common = dict(lambdas=plan.lambdas, n_lambdas=plan.n_lambdas,
+                      min_ratio=plan.min_ratio, screen=screen, tol=plan.tol,
+                      max_iter=plan.max_iter, safety=plan.safety,
+                      check_every=plan.check_every,
+                      use_kernels=plan.use_kernels,
+                      min_bucket=plan.min_bucket, margin=plan.margin,
+                      chunk_init=plan.chunk_init,
+                      compile_keys=self.compile_keys)
+        if prob.penalty == "sgl":
+            res = sgl_path_batched(
+                prob.X, prob.y, prob.spec, plan.alpha,
+                specnorm_method=plan.specnorm_method,
+                min_group_bucket=plan.min_group_bucket,
+                loss=plan.resolved_loss(prob.loss), **common)
+        else:
+            res = nn_lasso_path_batched(prob.X, prob.y, **common)
         self.stats.merge(res.stats)
         return res
+
+    def _fold_setup(self, plan: Plan):
+        """(folds, masks, mus, y_means, y_rows) for this plan's CV, on the
+        host in float64."""
+        prob = self.problem
+        N = prob.n_samples
+        folds = (plan.folds if plan.folds is not None
+                 else kfold_indices(N, plan.n_folds, plan.seed))
+        masks = _masks_from_folds(folds, N)
+        y_np = prob.y.cpu().numpy().astype(float)
+        if plan.center == "per-fold":
+            mus, y_means, y_rows = per_fold_centering(
+                prob.X.cpu().numpy().astype(float), y_np, masks)
+        else:
+            mus = y_means = None
+            y_rows = y_np
+        return folds, masks, mus, y_means, y_rows
+
+    def cv(self, plan: Optional[Plan] = None, **overrides) -> CVResult:
+        """Fold-batched K-fold CV over the plan's grid, anchored at the
+        full-data lambda_max."""
+        plan = self._resolve(plan, overrides)
+        prob = self.problem
+        screen = plan.resolved_screen(prob.penalty)
+        lambdas, lam_max = self._grid(plan)
+        folds, masks, mus, y_means, y_rows = self._fold_setup(plan)
+        common = dict(screen=screen, tol=plan.tol, max_iter=plan.max_iter,
+                      safety=plan.safety, check_every=plan.check_every,
+                      min_bucket=plan.min_bucket, margin=plan.margin,
+                      chunk_init=plan.chunk_init, chunk_cap=plan.chunk_cap,
+                      schedule=plan.schedule, use_kernels=plan.use_kernels,
+                      mesh=plan.mesh, compile_keys=self.compile_keys,
+                      feature_shards=plan.feature_shards)
+        if prob.penalty == "sgl":
+            betas, kept, iters, stats, times = sgl_fold_paths(
+                prob.X, y_rows, prob.spec, plan.alpha, masks, lambdas,
+                specnorm_method=plan.specnorm_method,
+                min_group_bucket=plan.min_group_bucket, mus=mus,
+                loss=plan.resolved_loss(prob.loss), **common)
+        else:
+            betas, kept, iters, stats, times = nn_fold_paths(
+                prob.X, y_rows, masks, lambdas, **common)
+        res = _cv_statistics(prob.X.cpu().numpy(), prob.y.cpu().numpy(),
+                             folds, np.asarray(lambdas, float), betas,
+                             lam_max, kept, stats, times, iters=iters,
+                             mus=mus, y_means=y_means)
+        self.stats.merge(stats)
+        return res
+
+    def refine(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SGLSession.refine is not ported yet (ROADMAP queue 1, item 9)")
+
+    def stability(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SGLSession.stability is not ported yet (ROADMAP queue 1, "
+            "item 9)")

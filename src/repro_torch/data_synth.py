@@ -3,8 +3,9 @@ own copy of the generators in ``benchmarks/data_synth.py``, drawing the same
 numbers from the same numpy seed.
 
 Synthetic 1: X ~ iid N(0,1).  Synthetic 2: rows ~ N(0, Sigma),
-Sigma_ij = 0.5^|i-j| (AR(1) recursion).  beta*: gamma1 of the groups, then
-gamma2 of the features inside each selected group, drawn from N(0,1);
+Sigma_ij = 0.5^|i-j| (AR(1) recursion).  SGL beta*: gamma1 of the groups,
+then gamma2 of the features inside each selected group, drawn from N(0,1);
+nonnegative-Lasso beta*: |N(0,1)| on a fraction of the features;
 y = X beta* + 0.01 eps.
 """
 from __future__ import annotations
@@ -33,6 +34,29 @@ def synthetic_sgl(kind: int, N: int, G: int, n: int, gamma1: float,
         k = max(1, int(n * gamma2))
         idx = g * n + rng.choice(n, k, replace=False)
         beta[idx] = rng.standard_normal(k)
+    y = X @ beta + 0.01 * rng.standard_normal(N)
+    return X.astype(np.float32), y.astype(np.float32), beta
+
+
+def synthetic_nn(kind: int, N: int, p: int, frac: float = 0.1,
+                 seed: int = 0):
+    """Nonnegative-Lasso data (paper Table 3): X as in ``synthetic_sgl``,
+    beta* nonnegative on ``frac`` of the features.  (X float32 (N, p),
+    y float32 (N,), beta* float64) as numpy."""
+    rng = np.random.default_rng(seed)
+    if kind == 1:
+        X = rng.standard_normal((N, p))
+    else:
+        rho = 0.5
+        eps = rng.standard_normal((N, p))
+        X = np.empty((N, p))
+        X[:, 0] = eps[:, 0]
+        c = np.sqrt(1 - rho * rho)
+        for j in range(1, p):
+            X[:, j] = rho * X[:, j - 1] + c * eps[:, j]
+    beta = np.zeros(p)
+    idx = rng.choice(p, max(1, int(p * frac)), replace=False)
+    beta[idx] = np.abs(rng.standard_normal(len(idx)))
     y = X @ beta + 0.01 * rng.standard_normal(N)
     return X.astype(np.float32), y.astype(np.float32), beta
 

@@ -33,6 +33,8 @@ SIGNATURES = {
     "repro_xtv_f32": [_P, _P, _P, _I64, _I64, _P],
     "repro_screen_norms_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_sgl_prox_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_screen_norms_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_dpc_screen_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

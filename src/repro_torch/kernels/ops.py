@@ -1,4 +1,4 @@
-"""Dispatching wrappers around the three CUDA kernels.
+"""Dispatching wrappers around the five CUDA kernels.
 
 A tensor on the CPU takes the kernel's plain PyTorch version (``ref``); a
 tensor on a CUDA device launches the kernel, which raises on anything it
@@ -12,12 +12,16 @@ from __future__ import annotations
 
 import torch
 
+from . import dpc_screen_folds as _dpc_screen_folds
 from . import ref
 from . import screen_norms as _screen_norms
+from . import screen_norms_folds as _screen_norms_folds
 from . import sgl_prox as _sgl_prox
 from . import xtv as _xtv
 
-KERNELS = {"xtv": _xtv, "screen_norms": _screen_norms, "sgl_prox": _sgl_prox}
+KERNELS = {"xtv": _xtv, "screen_norms": _screen_norms, "sgl_prox": _sgl_prox,
+           "screen_norms_folds": _screen_norms_folds,
+           "dpc_screen_folds": _dpc_screen_folds}
 
 
 def launch_counts() -> dict:
@@ -56,6 +60,28 @@ def screen_norms_batched(c_pad_grid: torch.Tensor, mask: torch.Tensor):
     else:
         snorm2, cinf = _screen_norms.screen_norms_cuda(flat, mask)
     return snorm2.reshape(L, G), cinf.reshape(L, G)
+
+
+def screen_norms_folds(c_pad_folds: torch.Tensor, mask: torch.Tensor):
+    """c_pad_folds (K, L, G, n_max) with a shared (G, n_max) mask ->
+    (||S_1(c)||^2 (K, L, G), ||c||_inf (K, L, G)) float32: every fold x
+    lambda row of the stacked CV screen in one pass."""
+    K, L, G, n_max = c_pad_folds.shape
+    flat = c_pad_folds.reshape(K * L, G, n_max)
+    if _on_cpu(flat):
+        snorm2, cinf = ref.screen_norms_folds_ref(flat, mask)
+    else:
+        snorm2, cinf = _screen_norms_folds.screen_norms_folds_cuda(flat, mask)
+    return snorm2.reshape(K, L, G), cinf.reshape(K, L, G)
+
+
+def dpc_screen_folds(C: torch.Tensor, radii: torch.Tensor,
+                     col_norms_f: torch.Tensor) -> torch.Tensor:
+    """Fused fold-stacked DPC rule: C (K, L, p), radii (K, L), col_norms_f
+    (K, p) -> feat_keep (K, L, p) bool, float32 compute."""
+    if _on_cpu(C):
+        return ref.dpc_screen_folds_ref(C, radii, col_norms_f)
+    return _dpc_screen_folds.dpc_screen_folds_cuda(C, radii, col_norms_f)
 
 
 def sgl_prox_padded(v_pad: torch.Tensor, mask: torch.Tensor,

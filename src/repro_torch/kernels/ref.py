@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the five CUDA kernels.
 
 They compute what the kernels compute, in float32, and are the counterparts
 of the JAX package's ``kernels/ref.py`` oracles.  ``ops`` takes them for
@@ -51,3 +51,28 @@ def sgl_prox_ref(v_pad: torch.Tensor, mask: torch.Tensor, t_l1,
     scale = torch.where(norms > tg,
                         1.0 - tg / torch.where(norms > 0, norms, 1.0), 0.0)
     return u * scale[:, None]
+
+
+def screen_norms_folds_ref(c_pad: torch.Tensor, mask: torch.Tensor):
+    """Fused screening statistics on the fold-stacked layout.
+
+    c_pad: (R, G, n_max) with R = K*L fold x lambda rows, mask: (G, n_max)
+    shared by every row.  Returns (||S_1(c_{r,g})||^2, ||c_{r,g}||_inf),
+    each (R, G), float32.
+    """
+    c = torch.where(mask[None], c_pad.to(torch.float32), 0.0)
+    sh = torch.sign(c) * torch.clamp(torch.abs(c) - 1.0, min=0.0)
+    snorm2 = torch.sum(sh * sh, dim=2)
+    cinf = torch.amax(torch.abs(c), dim=2)
+    return snorm2, cinf
+
+
+def dpc_screen_folds_ref(C: torch.Tensor, radii: torch.Tensor,
+                         col_norms_f: torch.Tensor) -> torch.Tensor:
+    """Theorem-22 keep mask ``C + r * ||x_i|| >= 1`` on the fold stack:
+    C (K, L, p), radii (K, L), col_norms_f (K, p) -> (K, L, p) bool.  The
+    product and the sum are rounded separately, in float32."""
+    C = C.to(torch.float32)
+    r = radii.to(torch.float32)[:, :, None]
+    cn = col_norms_f.to(torch.float32)[:, None, :]
+    return (C + r * cn) >= 1.0

@@ -91,13 +91,83 @@ def test_sgl_prox_kernel_matches_plain(dev, G, n_max, t_l1):
                                **TOL)
 
 
+@pytest.mark.parametrize("KL,G,n_max", [(1, 1, 1), (24, 313, 9),
+                                         (640, 1000, 10), (6, 37, 32),
+                                         (70, 5, 33), (3, 20, 130)])
+def test_screen_norms_folds_kernel_matches_plain(dev, KL, G, n_max):
+    """Both paths of the kernel (n_max <= 32 and wider) on ragged masks,
+    with 1e30 in every masked slot of the kernel's input."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.screen_norms_folds import screen_norms_folds_cuda
+    gen = torch.Generator().manual_seed(KL * G * n_max)
+    mask = _mask(gen, G, n_max)
+    clean, poison = _poisoned(gen, KL * G, mask, dev)
+    mask = mask.to(dev)
+    got = screen_norms_folds_cuda(poison.reshape(KL, G, n_max), mask)
+    want = ref.screen_norms_folds_ref(clean.reshape(KL, G, n_max), mask)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == (KL, G)
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.parametrize("K,L,p", [(1, 1, 1), (5, 128, 10_000),
+                                   (3, 9, 10_007), (2, 3, 300)])
+def test_dpc_screen_folds_kernel_matches_plain_exactly(dev, K, L, p):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dpc_screen_folds import dpc_screen_folds_cuda
+    gen = torch.Generator().manual_seed(K * L * p)
+    C = (torch.randn(K, L, p, generator=gen) * 0.5 + 0.6).to(dev)
+    radii = torch.rand(K, L, generator=gen).to(dev)
+    cn = (torch.rand(K, p, generator=gen) + 0.5).to(dev)
+    got = dpc_screen_folds_cuda(C, radii, cn)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and got.shape == (K, L, p)
+    assert bool((got == ref.dpc_screen_folds_ref(C, radii, cn)).all())
+
+
+def test_dpc_screen_folds_kernel_rounds_like_the_plain_form(dev):
+    """On inputs where ``C + r*cn`` lands on 1.0 within one ulp, a fused
+    multiply-add would flip ``n_flips`` decisions; the kernel flips none."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dpc_screen_folds import (borderline_inputs,
+                                                      dpc_screen_folds_cuda)
+    C, r, cn, n_flips = borderline_inputs(3, 16, 4099, seed=1)
+    assert n_flips > 0
+    C, r, cn = (torch.from_numpy(a).to(dev) for a in (C, r, cn))
+    got = dpc_screen_folds_cuda(C, r, cn)
+    torch.cuda.synchronize()
+    assert bool((got == ref.dpc_screen_folds_ref(C, r, cn)).all())
+
+
 def test_kernels_refuse_other_dtypes_and_layouts(dev):
+    from repro_torch.kernels.dpc_screen_folds import dpc_screen_folds_cuda
+    from repro_torch.kernels.screen_norms_folds import screen_norms_folds_cuda
     from repro_torch.kernels.xtv import xtv_cuda
     X = torch.randn(8, 16, device=dev)
     with pytest.raises(TypeError):
         xtv_cuda(X.double(), torch.randn(8, device=dev).double())
     with pytest.raises(ValueError, match="contiguous"):
         xtv_cuda(X.T, torch.randn(16, device=dev))
+    c = torch.randn(4, 6, 5, device=dev)
+    mask = torch.ones(6, 5, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        screen_norms_folds_cuda(c.double(), mask)
+    with pytest.raises(TypeError):
+        screen_norms_folds_cuda(c, mask.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        screen_norms_folds_cuda(c.transpose(0, 1), mask[:4])
+    with pytest.raises(ValueError, match="shape"):
+        screen_norms_folds_cuda(c, mask[:5])
+    C = torch.randn(2, 3, 7, device=dev)
+    r, cn = torch.rand(2, 3, device=dev), torch.rand(2, 7, device=dev)
+    with pytest.raises(TypeError):
+        dpc_screen_folds_cuda(C.double(), r, cn)
+    with pytest.raises(ValueError, match="contiguous"):
+        dpc_screen_folds_cuda(C, r.T.contiguous().T, cn)
+    with pytest.raises(ValueError, match="shape"):
+        dpc_screen_folds_cuda(C, r, cn[:, :6])
 
 
 def test_small_path_on_the_card_goes_through_the_kernels(dev):
@@ -112,9 +182,60 @@ def test_small_path_on_the_card_goes_through_the_kernels(dev):
     res = T.SGLSession(T.Problem.sgl(X, y, [6] * 20)).path(
         T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16))
     counts = ops.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("xtv", "screen_norms", "sgl_prox")), \
+        counts
+    assert counts["screen_norms_folds"] == counts["dpc_screen_folds"] == 0
     assert res.stats.n_pallas_screens == res.stats.n_screens > 0
     cpu = T.SGLSession(T.Problem.sgl(X, y, [6] * 20, device="cpu")).path(
         T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16,
                use_kernels=True))
     np.testing.assert_allclose(res.betas, cpu.betas, atol=1e-4)
+
+
+def test_small_sgl_cv_on_the_card_goes_through_the_kernels(dev):
+    """Fold-batched SGL CV on the card: every stacked screen through
+    ``screen_norms_folds`` (one launch each), the sweeps through
+    ``sgl_prox`` and ``xtv``; per-fold betas as the CPU kernel route's."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(1)
+    X = gen.standard_normal((60, 120)).astype(np.float32)
+    beta = np.zeros(120, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(60)).astype(np.float32)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=3)
+    ops.reset_launch_counts()
+    res = T.SGLSession(T.Problem.sgl(X, y, [6] * 20)).cv(plan)
+    counts = ops.launch_counts()
+    st = res.stats
+    assert st.n_pallas_screens == st.n_screens == \
+        counts["screen_norms_folds"] > 0
+    assert counts["sgl_prox"] > 0 and counts["xtv"] > 0
+    assert counts["screen_norms"] == counts["dpc_screen_folds"] == 0
+    cpu = T.SGLSession(T.Problem.sgl(X, y, [6] * 20, device="cpu")).cv(
+        plan.with_(use_kernels=True))
+    np.testing.assert_allclose(res.fold_betas, cpu.fold_betas, atol=1e-4)
+
+
+def test_small_nn_cv_on_the_card_goes_through_the_kernels(dev):
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(2)
+    X = gen.standard_normal((60, 120)).astype(np.float32)
+    beta = np.zeros(120, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(60)).astype(np.float32)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=3)
+    ops.reset_launch_counts()
+    res = T.SGLSession(T.Problem.nn_lasso(X, y)).cv(plan)
+    counts = ops.launch_counts()
+    st = res.stats
+    assert st.n_pallas_screens == st.n_screens == \
+        counts["dpc_screen_folds"] > 0
+    assert counts["xtv"] > 0
+    assert counts["screen_norms_folds"] == counts["sgl_prox"] == 0
+    cpu = T.SGLSession(T.Problem.nn_lasso(X, y, device="cpu")).cv(
+        plan.with_(use_kernels=True))
+    np.testing.assert_allclose(res.fold_betas, cpu.fold_betas, atol=1e-4)

@@ -17,12 +17,14 @@ The CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 holds them against their plain versions there.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 import repro.core as J
 import repro_torch.core as T
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.screen_norms import screen_norms_pallas
 from repro.kernels.sgl_prox import sgl_prox_pallas
@@ -30,7 +32,10 @@ from repro.kernels.xtv import xtv_pallas
 from repro_torch import convert
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.dpc_screen_folds import (borderline_inputs,
+                                                  dpc_screen_folds_cuda)
 from repro_torch.kernels.screen_norms import screen_norms_cuda
+from repro_torch.kernels.screen_norms_folds import screen_norms_folds_cuda
 from repro_torch.kernels.sgl_prox import sgl_prox_cuda
 from repro_torch.kernels.xtv import xtv_cuda
 
@@ -110,6 +115,62 @@ def test_sgl_prox_plain_matches_reference(G, n_max, t_l1):
         np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("K,L,G,n_max", [(1, 1, 1, 1), (3, 4, 37, 9),
+                                         (2, 8, 100, 10), (3, 2, 5, 40)])
+def test_screen_norms_folds_plain_matches_reference(K, L, G, n_max):
+    """Against ``ops.screen_norms_folds`` (the Pallas kernel, interpret)
+    and the vmapped ``screen_norms_ref`` oracle of
+    ``analysis/pallas_check.py``, 1e30 in every masked slot."""
+    rng = np.random.default_rng(K * L * G * n_max + 1)
+    mask = rng.random((G, n_max)) < 0.7
+    mask[:, 0] = True
+    c = (rng.standard_normal((K, L, G, n_max)) * 2).astype(np.float32)
+    c = np.where(mask, c, POISON).astype(np.float32)
+    s, i = ops.screen_norms_folds(torch.from_numpy(c), torch.from_numpy(mask))
+    assert s.shape == (K, L, G) and i.shape == (K, L, G)
+    oracle = jax.vmap(jax.vmap(jax.vmap(
+        lambda row: jref.screen_norms_ref(row, jnp.asarray(mask)))))
+    for sr, ir in (jops.screen_norms_folds(jnp.asarray(c), jnp.asarray(mask),
+                                           interpret=True),
+                   oracle(jnp.asarray(c)[:, :, None])):
+        np.testing.assert_allclose(s.numpy(), np.asarray(sr).reshape(K, L, G),
+                                   **F32_TOL)
+        np.testing.assert_allclose(i.numpy(), np.asarray(ir).reshape(K, L, G),
+                                   **F32_TOL)
+
+
+@pytest.mark.parametrize("K,L,p", [(1, 1, 1), (3, 9, 517), (2, 16, 1030)])
+def test_dpc_screen_folds_plain_matches_reference_exactly(K, L, p):
+    """Against ``ops.dpc_screen_folds`` (the Pallas kernel, interpret) and
+    the plain rule of ``analysis/pallas_check.py``, at atol = 0."""
+    rng = np.random.default_rng(K * L * p)
+    C = (rng.standard_normal((K, L, p)) * 0.5 + 0.6).astype(np.float32)
+    radii = rng.random((K, L)).astype(np.float32)
+    cn = (rng.random((K, p)) + 0.5).astype(np.float32)
+    got = ops.dpc_screen_folds(torch.from_numpy(C), torch.from_numpy(radii),
+                               torch.from_numpy(cn)).numpy()
+    assert got.dtype == bool and got.shape == (K, L, p)
+    want_k = np.asarray(jops.dpc_screen_folds(
+        jnp.asarray(C), jnp.asarray(radii), jnp.asarray(cn), interpret=True))
+    want_r = np.asarray((jnp.asarray(C) + jnp.asarray(radii)[:, :, None]
+                         * jnp.asarray(cn)[:, None, :]) >= 1.0)
+    np.testing.assert_array_equal(got, want_k)
+    np.testing.assert_array_equal(got, want_r)
+
+
+def test_dpc_screen_folds_plain_rounds_product_and_sum_apart():
+    """On inputs that land on 1.0 within one ulp, the plain version is the
+    two-rounding ``fl(C + fl(r * cn)) >= 1`` that the CUDA kernel keeps,
+    and a fused multiply-add would flip some decisions."""
+    C, r, cn, n_flips = borderline_inputs(2, 8, 513, seed=3)
+    assert n_flips > 0
+    got = ops.dpc_screen_folds(torch.from_numpy(C), torch.from_numpy(r),
+                               torch.from_numpy(cn)).numpy()
+    want = (C + r[:, :, None] * cn[:, None, :]) >= np.float32(1.0)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < int(got.sum()) < got.size
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     ops.reset_launch_counts()
     X = torch.randn(5, 7)
@@ -118,8 +179,13 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                              torch.ones(3, 4, dtype=torch.bool))
     ops.sgl_prox_padded(torch.randn(3, 4), torch.ones(3, 4, dtype=torch.bool),
                         torch.tensor([0.1]), torch.rand(3))
+    ops.screen_norms_folds(torch.randn(2, 2, 3, 4),
+                           torch.ones(3, 4, dtype=torch.bool))
+    ops.dpc_screen_folds(torch.randn(2, 3, 7), torch.rand(2, 3),
+                         torch.rand(2, 7))
     assert ops.launch_counts() == {"xtv": 0, "screen_norms": 0,
-                                   "sgl_prox": 0}
+                                   "sgl_prox": 0, "screen_norms_folds": 0,
+                                   "dpc_screen_folds": 0}
 
 
 @pytest.mark.parametrize("launch,args", [
@@ -128,6 +194,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                          torch.ones(3, 4, dtype=torch.bool))),
     (sgl_prox_cuda, (torch.zeros(3, 4), torch.ones(3, 4, dtype=torch.bool),
                      torch.zeros(1), torch.zeros(3))),
+    (screen_norms_folds_cuda, (torch.zeros(2, 3, 4),
+                               torch.ones(3, 4, dtype=torch.bool))),
+    (dpc_screen_folds_cuda, (torch.zeros(2, 3, 5), torch.zeros(2, 3),
+                             torch.zeros(2, 5))),
 ])
 def test_kernel_launchers_refuse_cpu_tensors(launch, args):
     with pytest.raises(ValueError, match="CUDA"):
@@ -136,7 +206,8 @@ def test_kernel_launchers_refuse_cpu_tensors(launch, args):
 
 def test_build_covers_every_source_with_a_signature():
     names = sorted(s.stem for s in build.sources())
-    assert names == ["screen_norms", "sgl_prox", "xtv"]
+    assert names == ["dpc_screen_folds", "screen_norms",
+                     "screen_norms_folds", "sgl_prox", "xtv"]
     assert sorted(build.SIGNATURES) == sorted(
         f"repro_{n}_f32" for n in names)
     assert len(build.source_hash()) == 16
