@@ -13,13 +13,21 @@ Phases (each fails loudly, with a non-zero exit):
    groups of 10, alpha = tan 45 deg, 100 lambdas, tol 1e-6, safety 1e-6,
    max_iter 6000, check_every 50) through ``SGLSession.path`` in float32 on
    the card, with the kernels' launch counters reset just before and read
-   just after; the same path in float64 (no kernels) as the reference; the
-   f32 screen's discards checked against the f64 solution; a warm second
-   call that must pay no new compilation; one more warm call under
-   ``torch.profiler`` for the device's busy time and idle share.
+   just after.  Every FISTA solve of the float32 path replays captured
+   CUDA graphs of its ``check_every`` block (``fista_sgl_graphed``): no
+   eager solve runs, ``sgl_prox`` launches once per FISTA iteration (the
+   engine's ``stats.fista_iters``; a replay counts the launches its
+   capture recorded), and solve time per iteration is printed.  The same path in float64 (no
+   kernels, eager) as the reference; the f32 screen's discards checked
+   against the f64 solution; a warm second call that must pay no new
+   compilation and capture no graph; one more warm call under
+   ``torch.profiler`` for the device's busy time and idle share, whose
+   ``sgl_prox`` kernels on the card must equal the launch count; the
+   longest solve of the path rerun eagerly and graphed (equal iteration
+   counts, betas within 1e-6 relative, bitwise equality printed).
 4. Ragged path: the paper's Table 2 shape (N=747, p=100 000, ADNI-like
    ragged groups, n_max=9, Frobenius group norms, 8 lambdas), counters as
-   in phase 3.
+   in phase 3, graphed as in phase 3.
 5. Nonnegative-Lasso path: the paper's Table 3, Synthetic 1 (N=250,
    p=10 000, 100 lambdas, tol 1e-6, safety 1e-6) through
    ``SGLSession(Problem.nn_lasso(...)).path`` in float32 on the card
@@ -31,15 +39,22 @@ Phases (each fails loudly, with a non-zero exit):
    ``SGLSession.cv`` in float32, cold then warm (0 new compilations); every
    stacked screen through ``screen_norms_folds``; a float64 CV on the same
    folds and grid as the reference; one more float32 call with per-fold
-   centering (20 lambdas), whose rows must all be certified.
+   centering (20 lambdas), whose rows must all be certified.  The float32
+   calls replay graphed blocks as in phase 3; one more warm call under
+   ``torch.profiler`` for the idle share.
 7. Nonnegative-Lasso cross-validation: the Table-3 data of phase 5, the
    plan of phase 6; every stacked screen through ``dpc_screen_folds``; a
    float64 reference.
 8. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
-   masked slot (``dpc_screen_folds`` exactly, also on inputs that land on
-   1.0 within one ulp); timed with CUDA events beside its bound, its plain
-   version and (for ``xtv``) one cuBLAS call.
+   masked slot (``sgl_prox``: into an uncovered column every masked slot
+   points at, and every uncovered column must come out 0; at a real
+   Synthetic-1 bucket, Table 2's full spec and a real bucket of it,
+   n_max = 1 and n_max = 50; ``dpc_screen_folds`` exactly, also on inputs
+   that land on 1.0 within one ulp); timed with CUDA events beside its
+   bound, its plain version, the launch floor (a 1-element ``zero_()`` in
+   the same graph harness) and, for ``xtv``, ``torch.mv`` at both X
+   shapes, L2-warm and L2-cold.
 9. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -131,14 +146,55 @@ def build_kernels():
 # phase 3-4: the paths
 # ---------------------------------------------------------------------------
 
+class GraphedSolves:
+    """Wraps ``path_engine.fista_sgl_graphed`` inside the block: sums the
+    iterations of the graphed solves, and keeps the arguments of the
+    longest one (a real segment's row) and, of the buckets they met, the
+    spec of the one that ran the most iterations (the prox's busiest
+    shape).  A solve that bypasses the hook only lowers the sum, which
+    ``require_graph_route`` then refuses."""
+
+    def __init__(self):
+        self.iters = 0
+        self.longest = None          # (iters, args, kwargs)
+        self.by_bucket = {}          # (p_b, g_b) -> [iterations, spec]
+
+    def __enter__(self):
+        from repro_torch.core import path_engine
+        self.mod = path_engine
+        self.orig = orig = path_engine.fista_sgl_graphed
+
+        def recorded(*args, **kw):
+            res = orig(*args, **kw)
+            self.iters += res.iters
+            if self.longest is None or res.iters > self.longest[0]:
+                self.longest = (res.iters, args, kw)
+            spec = args[2]
+            row = self.by_bucket.setdefault(
+                (spec.num_features, spec.num_groups), [0, spec])
+            row[0] += res.iters
+            return res
+
+        path_engine.fista_sgl_graphed = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fista_sgl_graphed = self.orig
+
+    @property
+    def busiest_spec(self):
+        return max(self.by_bucket.values(), key=lambda r: r[0])[1]
+
+
 def run_path(torch, sess, plan, label):
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = sess.path(plan)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with GraphedSolves() as calls:
+        t0 = time.perf_counter()
+        res = sess.path(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     st = res.stats
     say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
@@ -146,9 +202,23 @@ def run_path(torch, sess, plan, label):
         f"n_segments {st.n_segments} n_screens {st.n_screens} "
         f"n_pallas_screens {st.n_pallas_screens} n_compilations "
         f"{st.n_compilations} n_rejected {st.n_rejected} iters "
-        f"{int(res.iters.sum())} launches {json.dumps(counts)}")
+        f"{int(res.iters.sum())} (accepted rows) fista iterations run "
+        f"{st.fista_iters} (graphed {calls.iters}); solve "
+        f"{1e6 * res.solve_time / max(st.fista_iters, 1):.2f} us per "
+        f"iteration; graphs captured {len(sess.fista_graphs)} (in "
+        f"the session); launches {json.dumps(counts)}")
     require(np.isfinite(res.betas).all(), f"{label}: non-finite betas")
-    return res, counts, wall
+    return res, counts, wall, calls
+
+
+def require_graph_route(res, counts, calls, label):
+    """On the card's float32 kernel route every SGL solve replays graphed
+    blocks, and each FISTA iteration is one ``sgl_prox`` launch."""
+    st = res.stats
+    require(counts["sgl_prox"] == st.fista_iters == calls.iters > 0,
+            f"{label}: sgl_prox launches {counts['sgl_prox']}, FISTA "
+            f"iterations {st.fista_iters}, graphed {calls.iters}: not all "
+            f"equal")
 
 
 def require_kernel_route(res, counts, label, kernels=PATH_KERNELS):
@@ -193,37 +263,87 @@ def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
     return worst, n_discarded
 
 
-def profile_path(torch, sess, plan, label, warm_wall, top=6):
-    """One more warm call under ``torch.profiler``: the card's busy time
-    (the sum of the kernels' device time; one stream, so kernels never
-    overlap), its share of this call's wall time and of ``warm_wall``, the
-    same call's wall time without the profiler (which slows the host), and
-    the kernels that take the most device time."""
+def profile_call(torch, run, label, warm_wall, top=6):
+    """One more warm call (``run()``) under ``torch.profiler``: the card's
+    busy time (the sum of the kernels' device time; one stream, so kernels
+    never overlap), its share of this call's wall time and of
+    ``warm_wall``, the same call's wall time without the profiler (which
+    slows the host), and the kernels that take the most device time.  The
+    ``sgl_prox`` kernels the profiler saw on the card, graph replays
+    included, must equal the wrapper's launch count for the same call."""
+    from repro_torch.kernels import ops
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.path(plan)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name, n_kernels = {}, 0
+    counted = ops.launch_counts()["sgl_prox"]
+    by_name, n_kernels, n_prox = {}, 0, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             n_kernels += 1
+            n_prox += "sgl_prox_flat_kernel" in ev.name
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
     busy = sum(by_name.values()) / 1e6
-    if n_kernels == 0:
-        say(f"[{label}] wall {wall:.3f} s; the profiler saw no device "
-            f"activity: device busy share not measured")
-        return
+    say(f"[{label}] sgl_prox kernels seen by the profiler {n_prox}, "
+        f"launches counted by the wrapper {counted}")
+    require(n_prox == counted > 0, f"{label}: the profiler saw {n_prox} "
+            f"sgl_prox kernels, the wrapper counted {counted}")
     say(f"[{label}] wall {wall:.3f} s (profiler on); device kernels "
         f"{n_kernels}, device busy {busy:.3f} s; idle share "
         f"{1 - busy / wall:.4f} of this wall, {1 - busy / warm_wall:.4f} "
         f"of the unprofiled warm wall {warm_wall:.3f} s")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         say(f"[{label}]   {us / 1e3:10.3f} ms  {name[:100]}")
+    return 1 - busy / warm_wall
+
+
+def graph_vs_eager(torch, T, calls, label):
+    """The graphed FISTA block against the eager ``fista_sgl`` (kernel prox)
+    on the recorded longest solve of a real segment: equal iteration
+    counts, betas within 1e-6 * max|beta|, whether they are bitwise equal;
+    and the host time per iteration of each, cold (capturing) and warm."""
+    from repro_torch.core.path_engine import _padded_prox
+    its, args, kw = calls.longest
+    kw = {k: v for k, v in kw.items() if k != "graphs"}
+    spec = args[2]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    eager, t_eager = timed(lambda: T.fista_sgl(*args, prox=_padded_prox(spec),
+                                               **kw))
+    graphs = {}
+    cold, t_cold = timed(lambda: T.fista_sgl_graphed(*args, graphs=graphs,
+                                                     **kw))
+    warm, t_warm = timed(lambda: T.fista_sgl_graphed(*args, graphs=graphs,
+                                                     **kw))
+    scale = float(eager.beta.abs().max())
+    dbeta = max(float((b.beta - eager.beta).abs().max()) for b in (cold, warm))
+    bitwise = all(torch.equal(b.beta, eager.beta) for b in (cold, warm))
+    X_sub = args[0]
+    say(f"[{label}] graph vs eager on a segment row (X_sub "
+        f"{tuple(X_sub.shape)}, g_b {spec.num_groups}, n_max "
+        f"{spec.max_size}): iterations eager {eager.iters} graphed "
+        f"{cold.iters}/{warm.iters} (path {its}); max|beta_graph - "
+        f"beta_eager| = {dbeta:.3e} (bound 1e-6 * max|beta| = "
+        f"{1e-6 * scale:.3e}); bitwise equal {bitwise}; host us per "
+        f"iteration eager {1e6 * t_eager / eager.iters:.2f} graphed cold "
+        f"(capture) {1e6 * t_cold / cold.iters:.2f} warm "
+        f"{1e6 * t_warm / warm.iters:.2f}; captures {len(graphs)}")
+    require(eager.iters == cold.iters == warm.iters == its,
+            f"{label}: graph and eager iteration counts differ")
+    require(dbeta <= 1e-6 * scale, f"{label}: graph and eager betas differ")
+    require(len(graphs) == 1, f"{label}: the warm solve captured")
 
 
 def sgl_objectives(X, y, betas, lambdas, G, n, alpha=1.0):
@@ -245,14 +365,15 @@ def main_path(torch, T, N=250, G=1000, n=10):
                   max_iter=6000, check_every=50)
     sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
     require(sess.problem.device.type == "cuda", "problem is not on the card")
-    res, counts, wall = run_path(torch, sess, plan, "synthetic1-f32")
+    res, counts, wall, calls = run_path(torch, sess, plan, "synthetic1-f32")
     require_kernel_route(res, counts, "synthetic1-f32")
+    require_graph_route(res, counts, calls, "synthetic1-f32")
     require(res.betas.shape == (100, n * G), "wrong beta shape")
 
     sess64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
                                         y.astype(np.float64), [n] * G,
                                         dtype=torch.float64))
-    res64, counts64, _ = run_path(torch, sess64, plan, "synthetic1-f64")
+    res64, counts64, _, _ = run_path(torch, sess64, plan, "synthetic1-f64")
     require(sum(counts64.values()) == 0 and
             res64.stats.n_pallas_screens == 0,
             "the float64 path engaged a float32 kernel")
@@ -285,14 +406,24 @@ def main_path(torch, T, N=250, G=1000, n=10):
     require(n_disc > 0 and worst <= 1e-6,
             "the f32 screen discarded a feature active in the f64 solution")
 
-    warm, _, warm_wall = run_path(torch, sess, plan, "synthetic1-f32-warm")
+    n_captures = len(sess.fista_graphs)
+    require(0 < n_captures <= res.stats.n_compilations,
+            "captures do not coincide with counted compilations")
+    warm, counts_w, warm_wall, calls_w = run_path(torch, sess, plan,
+                                                  "synthetic1-f32-warm")
     require(warm.stats.n_compilations == 0, "warm call paid compilations")
-    profile_path(torch, sess, plan, "synthetic1-f32-profiled", warm_wall)
+    require(len(sess.fista_graphs) == n_captures,
+            "the warm call captured a graph")
+    require_graph_route(warm, counts_w, calls_w, "synthetic1-f32-warm")
+    idle = profile_call(torch, lambda: sess.path(plan),
+                        "synthetic1-f32-profiled", warm_wall)
+    say(f"[synthetic1] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
+    graph_vs_eager(torch, T, calls, "synthetic1")
     from repro_torch.core.path_engine import _pow2_len
     # the first screen's grid: the lambdas below lambda_max, padded to a
-    # power of two (99 -> 128); the largest group bucket a sweep used
+    # power of two (99 -> 128); the prox bucket that ran the most iterations
     shapes = {"L": _pow2_len(len(res.lambdas) - 1),
-              "g_b": max(b[1] for b in res.stats.buckets)}
+              "bucket_spec": calls.busiest_spec}
     return sess, res, counts, shapes
 
 
@@ -309,9 +440,10 @@ def ragged_path(torch, T, N=747, p=100_000):
     require(sess.problem.spec.max_size == 9, "ragged n_max is not 9")
     plan = T.Plan(alpha=1.0, n_lambdas=8, tol=1e-6, safety=1e-6,
                   max_iter=6000, check_every=50, specnorm_method="frobenius")
-    res, counts, _ = run_path(torch, sess, plan, "table2-ragged-f32")
+    res, counts, _, calls = run_path(torch, sess, plan, "table2-ragged-f32")
     require_kernel_route(res, counts, "table2-ragged-f32")
-    return sess, res, counts
+    require_graph_route(res, counts, calls, "table2-ragged-f32")
+    return sess, res, counts, calls.busiest_spec
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +519,7 @@ def nn_path(torch, T, N=250, p=10_000):
                   check_every=50)
     sess = T.SGLSession(T.Problem.nn_lasso(X, y))           # cuda, float32
     require(sess.problem.device.type == "cuda", "problem is not on the card")
-    res, counts, _ = run_path(torch, sess, plan, "table3-nn-f32")
+    res, counts, _, _ = run_path(torch, sess, plan, "table3-nn-f32")
     require(counts["xtv"] > 0, "table3-nn-f32: xtv was not launched")
     require(sum(counts.values()) == counts["xtv"],
             "table3-nn-f32: a kernel other than xtv was launched")
@@ -395,7 +527,7 @@ def nn_path(torch, T, N=250, p=10_000):
             "table3-nn-f32: wrong shape or a negative coefficient")
     sess64 = T.SGLSession(T.Problem.nn_lasso(
         X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
-    res64, counts64, _ = run_path(torch, sess64, plan, "table3-nn-f64")
+    res64, counts64, _, _ = run_path(torch, sess64, plan, "table3-nn-f64")
     require(sum(counts64.values()) == 0,
             "the float64 path engaged a float32 kernel")
 
@@ -442,10 +574,11 @@ def run_cv(torch, sess, plan, label):
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = sess.cv(plan)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with GraphedSolves() as calls:
+        t0 = time.perf_counter()
+        res = sess.cv(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     st = res.stats
     say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
@@ -455,11 +588,15 @@ def run_cv(torch, sess, plan, label):
         f"{st.n_pallas_screens} n_compilations {st.n_compilations} "
         f"n_rejected {st.n_rejected} fold_sweeps "
         f"{[int(v) for v in st.fold_sweeps]} iters "
-        f"{int(res.fold_iters.sum())} best_index {res.best_index} "
-        f"index_1se {res.index_1se} launches {json.dumps(counts)}")
+        f"{int(res.fold_iters.sum())} (accepted rows) fista iterations run "
+        f"{st.fista_iters} (graphed {calls.iters}); solve "
+        f"{1e6 * res.solve_time / max(st.fista_iters, 1):.2f} us per "
+        f"iteration; graphs captured {len(sess.fista_graphs)} (in "
+        f"the session); best_index {res.best_index} index_1se "
+        f"{res.index_1se} launches {json.dumps(counts)}")
     require(np.isfinite(res.fold_betas).all() and
             np.isfinite(res.mean_mse).all(), f"{label}: non-finite result")
-    return res, counts, wall
+    return res, counts, wall, calls
 
 
 def require_fold_route(res, counts, label, fold_kernel, others):
@@ -507,25 +644,36 @@ def sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     plan = T.Plan(**CV_PLAN)
     sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
     with LaunchShapes(snf, "screen_norms_folds_cuda") as shapes:
-        res, counts, _ = run_cv(torch, sess, plan, "sgl-cv-f32")
+        res, counts, _, calls = run_cv(torch, sess, plan, "sgl-cv-f32")
     require_fold_route(res, counts, "sgl-cv-f32", "screen_norms_folds",
                        ("sgl_prox", "xtv"))
+    require_graph_route(res, counts, calls, "sgl-cv-f32")
+    n_captures = len(sess.fista_graphs)
     require(res.fold_betas.shape == (5, 100, n * G), "wrong fold_betas shape")
-    warm, counts_w, _ = run_cv(torch, sess, plan, "sgl-cv-f32-warm")
+    warm, counts_w, warm_wall, calls_w = run_cv(torch, sess, plan,
+                                                "sgl-cv-f32-warm")
     require(warm.stats.n_compilations == 0, "warm CV paid compilations")
+    require(len(sess.fista_graphs) == n_captures,
+            "the warm CV captured a graph")
     require_fold_route(warm, counts_w, "sgl-cv-f32-warm",
                        "screen_norms_folds", ("sgl_prox", "xtv"))
+    require_graph_route(warm, counts_w, calls_w, "sgl-cv-f32-warm")
+    idle = profile_call(torch, lambda: sess.cv(plan), "sgl-cv-f32-profiled",
+                        warm_wall)
+    say(f"[sgl-cv] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
     sess64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
                                         y.astype(np.float64), [n] * G,
                                         dtype=torch.float64))
-    res64, counts64, _ = run_cv(torch, sess64, plan, "sgl-cv-f64")
+    res64, counts64, _, _ = run_cv(torch, sess64, plan, "sgl-cv-f64")
     require(sum(counts64.values()) == 0 and res64.stats.n_pallas_screens == 0,
             "the float64 CV engaged a float32 kernel")
     compare_cv(res, res64, "sgl-cv")
     centred = plan.with_(center="per-fold", n_lambdas=20)
-    resc, counts_c, _ = run_cv(torch, sess, centred, "sgl-cv-f32-per-fold")
+    resc, counts_c, _, calls_c = run_cv(torch, sess, centred,
+                                        "sgl-cv-f32-per-fold")
     require_fold_route(resc, counts_c, "sgl-cv-f32-per-fold",
                        "screen_norms_folds", ("sgl_prox", "xtv"))
+    require_graph_route(resc, counts_c, calls_c, "sgl-cv-f32-per-fold")
     require(bool((resc.fold_iters < centred.max_iter).all()),
             "sgl-cv-f32-per-fold: a row ran to max_iter (not certified)")
     return counts, shapes.shapes[0]
@@ -538,12 +686,12 @@ def nn_cv_phase(torch, T, N=250, p=10_000):
     plan = T.Plan(**CV_PLAN)
     sess = T.SGLSession(T.Problem.nn_lasso(X, y))           # cuda, float32
     with LaunchShapes(dsf, "dpc_screen_folds_cuda") as shapes:
-        res, counts, _ = run_cv(torch, sess, plan, "nn-cv-f32")
+        res, counts, _, _ = run_cv(torch, sess, plan, "nn-cv-f32")
     require_fold_route(res, counts, "nn-cv-f32", "dpc_screen_folds",
                        ("xtv",))
     sess64 = T.SGLSession(T.Problem.nn_lasso(
         X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
-    res64, counts64, _ = run_cv(torch, sess64, plan, "nn-cv-f64")
+    res64, counts64, _, _ = run_cv(torch, sess64, plan, "nn-cv-f64")
     require(sum(counts64.values()) == 0,
             "the float64 CV engaged a float32 kernel")
     compare_cv(res, res64, "nn-cv")
@@ -609,12 +757,29 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _cycling(pool, fn):
+    """A call that takes the next member of ``pool`` each time: timed in a
+    graph of 20 calls, each call finds its input evicted from L2 by the
+    others' when the pool holds more than the 50 MB L2."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] += 1
+        return fn(pool[state["i"] % len(pool)])
+    return call
+
+
 def check_xtv(torch, X, label):
+    """Within ``2*N*eps*sum|x v|`` per column of the plain version, bit for
+    bit the same on a second run; timed against ``torch.mv(X.T, v)``
+    L2-warm (one X, back to back) and L2-cold (a pool of copies of X over
+    100 MB, so each call reads X from HBM)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.xtv import xtv_cuda
     N, p = X.shape
     v = torch.randn(N, device=X.device)
     got = xtv_cuda(X, v)
+    again = xtv_cuda(X, v)
     want = ref.xtv_ref(X, v)
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -622,18 +787,28 @@ def check_xtv(torch, X, label):
     tol = N * EPS32 * (X.abs() * v.abs()[:, None]).sum(dim=0)
     require(bool(torch.isfinite(got).all()), f"xtv {label}: non-finite")
     require(bool((err <= 2 * tol + 1e-30).all()),
-            f"xtv {label}: outside N*eps*sum|x v|")
+            f"xtv {label}: outside 2*N*eps*sum|x v|")
+    require(torch.equal(got, again), f"xtv {label}: differs between runs")
     ms = time_ms(torch, lambda: xtv_cuda(X, v))
     eager = eager_ms(torch, lambda: xtv_cuda(X, v))
     plain = time_ms(torch, lambda: ref.xtv_ref(X, v), inner=5)
     lib = time_ms(torch, lambda: torch.mv(X.T, v))
+    n_copies = max(2, -(-100_000_000 // (4 * N * p)))
+    pool = [X] + [X.clone() for _ in range(n_copies - 1)]
+    ms_cold = time_ms(torch, _cycling(pool, lambda A: xtv_cuda(A, v)))
+    lib_cold = time_ms(torch, _cycling(pool, lambda A: torch.mv(A.T, v)))
+    del pool
     b, by = bound_ms(4 * (N * p + N + p), 2 * N * p)
     say(f"[kernel xtv {label}] X {tuple(X.shape)} max_abs_err "
         f"{float(err.max()):.3e} (tol 2*N*eps*sum|x v|, max "
-        f"{float(tol.max()):.3e}) ms {ms:.5f} eager_ms {eager:.5f} plain_ms "
-        f"{plain:.5f} cublas_ms {lib:.5f} bound_ms {b:.5f} ({by})")
+        f"{float(tol.max()):.3e}), same bits on a second run; L2-warm: ms "
+        f"{ms:.5f} torch.mv {lib:.5f}; L2-cold ({n_copies} copies of X): ms "
+        f"{ms_cold:.5f} torch.mv {lib_cold:.5f}; eager_ms {eager:.5f} "
+        f"plain_ms {plain:.5f} bound_ms {b:.5f} ({by}); faster than "
+        f"torch.mv: warm {ms < lib}, cold {ms_cold < lib_cold}")
     return dict(max_abs_err=float(err.max()), ms=ms, eager_ms=eager,
-                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                ms_l2_cold=ms_cold, library_ms_l2_cold=lib_cold)
 
 
 def _poisoned(torch, rows, mask_rows, dev, scale=2.0):
@@ -672,35 +847,63 @@ def check_screen_norms(torch, L, mask, label):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
-def check_sgl_prox(torch, mask, label):
+def _bucket_spec(torch, T, sizes, keep, p_b, g_b):
+    """A bucketed spec (garbage bin past n_max) on the card."""
+    full = T.GroupSpec.from_sizes(sizes, device="cpu")
+    gid = np.repeat(np.arange(len(sizes)), sizes)
+    sub, _ = full.bucketed_subset(np.isin(gid, keep), p_b, g_b)
+    return sub.to("cuda")
+
+
+def check_sgl_prox(torch, spec, label, floor_ms=None):
+    """The fused flat prox against its plain composition on ``spec``'s
+    padded view, with one more column, uncovered, that holds 1e30 and that
+    every masked slot points at; every uncovered column (the spec's own and
+    that one) must come out exactly 0.  Timed beside the launch floor."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sgl_prox import sgl_prox_cuda
-    G, n_max = mask.shape
-    dev = mask.device
-    poison = _poisoned(torch, G, mask, dev)
+    G, n_max = spec.pad_index.shape
+    p = spec.num_features
+    dev = spec.device
+    mask = spec.pad_mask
+    idx = torch.where(mask, spec.pad_index, p).contiguous()
+    unc = torch.cat([spec.pad_uncovered,
+                     torch.ones(1, dtype=torch.bool, device=dev)])
+    v = torch.where(unc, 1e30, torch.randn(p + 1, device=dev) * 2)
     t_l1 = torch.tensor([0.3], device=dev)
     t_group = torch.rand(G, device=dev) * 2
-    got = sgl_prox_cuda(poison, mask, t_l1, t_group)
-    want = ref.sgl_prox_ref(poison, mask, t_l1, t_group)
+
+    def kernel():
+        return sgl_prox_cuda(v, idx, mask, unc, t_l1, t_group)
+
+    def plain():
+        return ref.sgl_prox_flat_ref(v, idx, mask, t_l1, t_group)
+
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()),
             f"sgl_prox {label}: non-finite (poison leaked)")
-    require(bool((got[~mask] == 0).all()), f"sgl_prox {label}: masked != 0")
+    require(bool((got[unc] == 0).all()),
+            f"sgl_prox {label}: an uncovered column is not 0")
     require(bool(torch.allclose(got, want, **KERNEL_TOL)),
             f"sgl_prox {label}: outside rtol=atol=1e-5")
     err = float((got - want).abs().max())
-    ms = time_ms(torch, lambda: sgl_prox_cuda(poison, mask, t_l1, t_group))
-    eager = eager_ms(torch,
-                     lambda: sgl_prox_cuda(poison, mask, t_l1, t_group))
-    plain = time_ms(torch,
-                    lambda: ref.sgl_prox_ref(poison, mask, t_l1, t_group))
-    b, by = bound_ms(8 * G * n_max + G * n_max + 4 * G + 4, 8 * G * n_max)
-    say(f"[kernel sgl_prox {label}] G {G} n_max {n_max} valid "
-        f"{float(mask.float().mean()):.3f} max_abs_err {err:.3e} (tol "
-        f"rtol=atol=1e-5) ms {ms:.5f} eager_ms {eager:.5f} plain_ms "
-        f"{plain:.5f} bound_ms {b:.5f} ({by})")
-    return dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None)
+    ms = time_ms(torch, kernel)
+    eager = eager_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    q = p + 1
+    b, by = bound_ms(4 * q + 9 * G * n_max + q + 4 * G + 4 + 4 * q,
+                     8 * G * n_max)
+    say(f"[kernel sgl_prox {label}] p {p} G {G} n_max {n_max} valid "
+        f"{float(mask.float().mean()):.3f} uncovered "
+        f"{int(spec.pad_uncovered.sum())} max_abs_err {err:.3e} (tol "
+        f"rtol=atol=1e-5) ms {ms:.5f}"
+        f"{'' if floor_ms is None else f' launch floor {floor_ms:.5f}'} "
+        f"eager_ms {eager:.5f} plain_ms {plain_ms:.5f} bound_ms {b:.7f} "
+        f"({by})")
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None,
+                launch_floor_ms=floor_ms)
 
 
 def check_screen_norms_folds(torch, R, mask, label):
@@ -767,28 +970,36 @@ def check_dpc_screen_folds(torch, K, L, p, label, borderline=False):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
-def kernel_checks(torch, sess_main, shapes, sess_ragged, snf_shape,
-                  dsf_shape):
+def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
+                  snf_shape, dsf_shape):
     spec = sess_main.problem.spec
     rspec = sess_ragged.problem.spec
+    # the launch floor: a 1-element zero_() in the same graph harness
+    one = torch.empty(1, device="cuda")
+    floor = time_ms(torch, lambda: one.zero_())
+    say(f"[kernel launch floor] 1-element zero_() ms {floor:.5f}")
     # the main path's shapes: the full X of the certification GEMV, the
-    # first screen's padded (128 x G, n_max) grid, the largest prox bucket
-    # (kept groups' rows of the full mask, then empty groups and the bin)
-    g_b = shapes["g_b"]
-    bucket_mask = torch.zeros(g_b, spec.max_size, dtype=torch.bool,
-                              device=spec.device)
-    bucket_mask[: min(g_b, spec.num_groups)] = spec.pad_mask[:g_b]
+    # first screen's padded (128 x G, n_max) grid, the prox bucket that ran
+    # the most iterations
     rows = {
         "xtv": check_xtv(torch, sess_main.problem.X, "synthetic1"),
         "screen_norms": check_screen_norms(torch, shapes["L"], spec.pad_mask,
                                            "synthetic1"),
-        "sgl_prox": check_sgl_prox(torch, bucket_mask, "synthetic1-bucket"),
+        "sgl_prox": check_sgl_prox(torch, shapes["bucket_spec"],
+                                   "synthetic1-bucket", floor),
     }
     # ragged shapes with live masks: Table 2's X and padded layouts
-    check_xtv(torch, sess_ragged.problem.X, "table2")
+    rows["xtv"]["table2"] = check_xtv(torch, sess_ragged.problem.X, "table2")
     check_screen_norms(torch, 8, rspec.pad_mask, "table2")
-    check_sgl_prox(torch, rspec.pad_mask, "table2")
-    check_sgl_prox(torch, spec.pad_mask, "synthetic1-full")
+    check_sgl_prox(torch, rspec, "table2-full", floor)
+    check_sgl_prox(torch, ragged_bucket, "table2-bucket", floor)
+    check_sgl_prox(torch, spec, "synthetic1-full", floor)
+    check_sgl_prox(torch, _bucket_spec(torch, T, [1] * 4096,
+                                       list(range(0, 4096, 3)), 2048, 2048),
+                   "n_max-1", floor)
+    check_sgl_prox(torch, _bucket_spec(torch, T, [40, 35, 7, 50] * 250,
+                                       list(range(0, 1000, 4)), 16384, 512),
+                   "n_max-50", floor)
     # the CV paths' shapes: the first stacked screen of each
     (R, _, _), _ = snf_shape
     rows["screen_norms_folds"] = check_screen_norms_folds(
@@ -818,14 +1029,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch.core as T
 
-    environment(torch)
+    card = environment(torch)
     build_kernels()
     sess, res, counts, shapes = main_path(torch, T)
-    sess_r, res_r, counts_r = ragged_path(torch, T)
+    sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
     counts_nn = nn_path(torch, T)
     counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
     counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
-    rows = kernel_checks(torch, sess, shapes, sess_r, snf_shape, dsf_shape)
+    rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
+                         snf_shape, dsf_shape)
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,
@@ -841,6 +1053,7 @@ def main() -> int:
             launches_ragged=counts_r[name],
             launches_by_path={k: v[name] for k, v in by_path.items()},
             max_err=row["max_abs_err"], **row))
+    say(f"[card] {card} (every time above was taken on this card)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,8 @@ Public surface:
   GroupSpec                   group bookkeeping (ragged + padded views)
   lambda_max_sgl, dual_scaling_sgl, group_shrink_roots
   tlfre_screen_grid, fista_sgl, sgl_path_batched
+  fista_sgl_graphed
+                              the FISTA block replayed as a CUDA graph (card)
   lambda_max_nn, dual_scaling_nn, dpc_screen_grid, fista_nn_lasso,
   nn_lasso_path_batched       the DPC nonnegative Lasso
   kfold_indices, sgl_fold_paths, nn_fold_paths, CVResult
@@ -25,7 +27,8 @@ from .dpc import (dpc_screen_grid, dpc_screen_grid_folds, dual_scaling_nn,
 from .prox import nn_lasso_prox, sgl_prox
 from .linalg import (column_norms, group_frobenius_norms,
                      group_spectral_norms, spectral_norm)
-from .solver import SolveResult, fista_nn_lasso, fista_sgl
+from .solver import (SolveResult, fista_nn_lasso, fista_sgl,
+                     fista_sgl_graphed)
 from .path import PathResult, default_lambda_grid
 from .path_engine import (EngineStats, nn_lasso_path_batched,
                           sgl_path_batched)

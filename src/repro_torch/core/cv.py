@@ -200,8 +200,10 @@ def _screen_folds_nn(X, Y, rem, lam_bars, lam_maxs, theta_bars, n_bound,
 # ---------------------------------------------------------------------------
 
 def _fold_sweep(kind: str, max_iter: int, check_every: int,
-                use_kernels: bool = False, loss=SQUARED):
-    """The fold-batched sweep of one cohort launch.
+                use_kernels: bool, *, graphs, loss=SQUARED):
+    """The fold-batched sweep of one cohort launch.  ``graphs`` is the
+    session's cache of captured SGL FISTA blocks (``None`` for the
+    nonnegative Lasso, which has no graphed route).
 
     Returns ``run(X, X_subs, Ys, ..., mus)`` that runs each member's sweep
     through the single-fold core (``sweep_sgl_core`` or ``sweep_nn_core``)
@@ -227,7 +229,7 @@ def _fold_sweep(kind: str, max_iter: int, check_every: int,
                     X, X_subs[t], Ys[t], spec, sub_spec, alpha, L_subs[t],
                     lam_pads[t], valids[t], beta0s[t], tol,
                     float(gap_scales[t]), None if mus is None else mus[t],
-                    loss=loss, **kw)
+                    graphs=graphs, loss=loss, **kw)
                 out.append((b, th, ct) + pad(good, its, len(valids[t])))
             return out
     else:
@@ -394,6 +396,7 @@ class _FoldEngine:
             if kk == 0:
                 kk = 1
             self.stats.n_rejected += int(mk - kk)
+            self.stats.fista_iters += int(iters_b.sum())
             col_idx = launch.col_idxs[t]
             rows = np.zeros((kk, self.p))
             rows[:, col_idx] = torch.stack(betas_b[:kk])[:, :len(col_idx)] \
@@ -539,9 +542,10 @@ class _SGLFoldEngine(_FoldEngine):
     """SGL screening (TLFre) and group-bucketed sweeps."""
 
     def __init__(self, *args, spec, alpha, Y, masks_d, col_n_f, gspec_f,
-                 lam_max_f, n_bound, mus_d, mus64,
+                 lam_max_f, n_bound, mus_d, mus64, graphs,
                  min_group_bucket: int = 16, loss=SQUARED, **kw):
         super().__init__(*args, **kw)
+        self.graphs = graphs
         self.spec = spec
         self.alpha = alpha
         self.loss = loss
@@ -607,7 +611,8 @@ class _SGLFoldEngine(_FoldEngine):
         ks = [k for k, _, _, _ in cohort]
         k_rows = self._dev(ks, torch.int64)
         runner = _fold_sweep("sgl", self.max_iter, self.check_every,
-                             self.kernels, loss=self.loss)
+                             self.kernels, loss=self.loss,
+                             graphs=self.graphs)
         outputs = runner(
             self.X, X_subs, self.Y[k_rows], self.spec, sub_specs, self.alpha,
             L_subs, self._dev(lam_pads), valids, self._dev(beta0s), self.tol,
@@ -663,7 +668,7 @@ class _NNFoldEngine(_FoldEngine):
             self.stats.n_compilations += 1
         ks = [k for k, _, _, _ in cohort]
         runner = _fold_sweep("nn", self.max_iter, self.check_every,
-                             self.kernels)
+                             self.kernels, graphs=None)
         outputs = runner(
             self.X, X_subs, self.Y[self._dev(ks, torch.int64)], L_subs,
             self._dev(lam_pads), valids, self._dev(beta0s), self.tol,
@@ -707,7 +712,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
                    chunk_init: int = 8, chunk_cap: int = 64,
                    schedule: str = "elastic", use_kernels=None, mesh=None,
                    mus=None, init=None, compile_keys=None,
-                   feature_shards: int = 0, loss=SQUARED):
+                   fista_graphs=None, feature_shards: int = 0, loss=SQUARED):
     """Solve the SAME lambda grid on K masked row subsets of (X, y).
 
     ``X`` is a device tensor, ``spec`` on its device.  ``masks``: (K, N)
@@ -716,10 +721,11 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     ``mus`` (optional, (K, p)): per-fold train-row column means for
     leakage-free centering; fold k then solves on ``M_k (X - 1 mu_k^T)``
     through rank-one corrections of the shared-X algebra, and the caller
-    supplies ``y`` rows centered by the per-fold means.  ``use_kernels``
-    as in ``sgl_path_batched``.  Returns ``(betas (K, J, p), kept (K, J),
-    iters (K, J), stats, (screen_time, solve_time, setup_time))``; grid
-    points at or above a fold's own lambda_max get exact zeros."""
+    supplies ``y`` rows centered by the per-fold means.  ``use_kernels``,
+    ``compile_keys`` and ``fista_graphs`` as in ``sgl_path_batched``.
+    Returns ``(betas (K, J, p), kept (K, J), iters (K, J), stats,
+    (screen_time, solve_time, setup_time))``; grid points at or above a
+    fold's own lambda_max get exact zeros."""
     if screen not in ("tlfre", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
     _refuse_unported(screen, mesh, init, feature_shards)
@@ -787,7 +793,8 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         screen_mode=screen, stats=stats, seen_keys=seen_keys,
         spec=spec, alpha=alpha, Y=Y, masks_d=masks_d, col_n_f=col_n_f,
         gspec_f=gspec_f, lam_max_f=lam_max_f, n_bound=n_bound, mus_d=mus_d,
-        mus64=mus64, min_group_bucket=min_group_bucket, loss=loss)
+        mus64=mus64, min_group_bucket=min_group_bucket, loss=loss,
+        graphs=fista_graphs if fista_graphs is not None else {})
     for k in range(K):
         while (eng.j_pos[k] < J
                and lambdas[eng.j_pos[k]] >= lam_max_np[k] * (1.0 - 1e-12)):

@@ -44,6 +44,9 @@ class GroupSpec:
     num_features: int
     max_size: int
     uniform: bool              # all groups share one size
+    # (p,) bool: features that no valid padded slot covers (a bucketed
+    # spec's garbage-bin columns past n_max); derived in ``from_arrays``
+    pad_uncovered: torch.Tensor
     feature_weights: Optional[torch.Tensor] = None   # (p,) float64 or None
 
     @property
@@ -59,7 +62,8 @@ class GroupSpec:
             group_ids=self.group_ids.to(device),
             weights=self.weights.to(device),
             pad_index=self.pad_index.to(device),
-            pad_mask=self.pad_mask.to(device), feature_weights=fw)
+            pad_mask=self.pad_mask.to(device), feature_weights=fw,
+            pad_uncovered=self.pad_uncovered.to(device))
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -67,10 +71,20 @@ class GroupSpec:
                     pad_mask, feature_weights=None, *, uniform=None,
                     device=None) -> "GroupSpec":
         """Spec from host arrays (the seven children of the reference's
-        ``GroupSpec``); the static fields are derived from them."""
+        ``GroupSpec``); the static fields and ``pad_uncovered`` are derived
+        from them.  Raises if a valid padded slot points outside [0, p) or
+        two valid slots cover one feature: the fused prox stores each
+        slot's value where the reference scatter-adds it."""
         device = resolve_device(device)
         sizes = np.asarray(sizes, dtype=np.int64)
         pad_index = np.asarray(pad_index, dtype=np.int64)
+        p = int(np.asarray(group_ids).shape[0])
+        covered = pad_index[np.asarray(pad_mask, dtype=bool)]
+        if covered.size and (covered.min() < 0 or covered.max() >= p):
+            raise ValueError("a valid padded slot points outside [0, p)")
+        cover = np.bincount(covered, minlength=p)
+        if (cover > 1).any():
+            raise ValueError("two valid padded slots cover one feature")
         if uniform is None:
             uniform = bool(len(sizes) > 0 and (sizes == sizes[0]).all())
 
@@ -83,11 +97,11 @@ class GroupSpec:
             weights=t(weights, torch.float64),
             pad_index=t(pad_index, torch.int64),
             pad_mask=t(pad_mask, torch.bool),
-            num_groups=int(sizes.shape[0]),
-            num_features=int(np.asarray(group_ids).shape[0]),
+            num_groups=int(sizes.shape[0]), num_features=p,
             max_size=int(pad_index.shape[1]), uniform=bool(uniform),
             feature_weights=(None if feature_weights is None
-                             else t(feature_weights, torch.float64)))
+                             else t(feature_weights, torch.float64)),
+            pad_uncovered=t(cover == 0, torch.bool))
 
     @classmethod
     def from_sizes(cls, sizes: Sequence[int], weights=None,

@@ -25,7 +25,9 @@ Each segment of the path does three things:
 
 The reference runs step 2 as one jitted ``lax.scan``/``lax.cond``; here it
 is a Python loop over device tensors that reads the FISTA gap on the host
-every ``check_every`` iterations and each row's certificate once.  Sweep
+every ``check_every`` iterations and each row's certificate once.  On the
+card's float32 kernel route each block of ``check_every`` iterations is a
+replay of a captured CUDA graph (``solver.fista_sgl_graphed``).  Sweep
 shapes are counted with the reference's compile keys, so
 ``EngineStats.n_compilations`` reports the same numbers (a warm second call
 reports 0).  The kernels run for float32 on CUDA (``_kernels_active``) and
@@ -53,7 +55,7 @@ from .linalg import (column_norms, group_frobenius_norms,
 from .losses import SQUARED, get_loss
 from .path import PathResult, _bucket, default_lambda_grid
 from .screening import _require_f32_for_pallas, tlfre_screen_grid
-from .solver import fista_nn_lasso, fista_sgl
+from .solver import fista_nn_lasso, fista_sgl, fista_sgl_graphed
 
 
 @dataclasses.dataclass
@@ -64,13 +66,15 @@ class EngineStats:
     sweep shapes (the reference's jit compilations), ``n_rejected``
     speculative rows whose certificate failed, ``n_pallas_screens`` grid
     screens that ran through the fused kernels (always 0 on float64
-    paths).  ``fold_sweeps`` (fold drivers only) counts, per fold, the
+    paths), ``fista_iters`` the FISTA iterations run (rejected rows'
+    included).  ``fold_sweeps`` (fold drivers only) counts, per fold, the
     sweep launches the fold took part in."""
     n_segments: int = 0
     n_screens: int = 0
     n_compilations: int = 0
     n_rejected: int = 0
     n_pallas_screens: int = 0
+    fista_iters: int = 0
     buckets: list = dataclasses.field(default_factory=list)  # (p_b, g_b, m, k)
     fold_sweeps: object = None   # (K,) launch counts from the last fold run
 
@@ -82,6 +86,7 @@ class EngineStats:
         self.n_compilations += other.n_compilations
         self.n_rejected += other.n_rejected
         self.n_pallas_screens += other.n_pallas_screens
+        self.fista_iters += other.fista_iters
 
 
 def _kernels_active(use_kernels: Optional[bool], dtype, device) -> bool:
@@ -116,22 +121,15 @@ def _xtv(X, v, use_kernels: bool):
 
 
 def _padded_prox(spec: GroupSpec):
-    """Fused SGL prox through the kernel on the padded layout.
-
-    Columns outside the padded view (the garbage bin's columns past its
-    first ``n_max``) have zero gradient and start at zero, so scattering
-    back onto a zero vector is exact; the kernel writes masked slots as 0,
-    so they add nothing."""
+    """The fused SGL prox kernel on the flat vector, through ``spec``'s
+    padded view.  Columns no valid slot covers (the garbage bin's columns
+    past its first ``n_max``) come out 0, as a scatter-add onto zeros would
+    give them."""
     from ..kernels import ops as _kops
-    mask, idx = spec.pad_mask, spec.pad_index
-    flat_idx = idx.reshape(-1)
 
     def prox(v, t_l1, t_group):
-        v_pad = torch.where(mask, v[idx], 0.0).to(torch.float32)
-        out = _kops.sgl_prox_padded(v_pad, mask, t_l1.to(torch.float32),
-                                    t_group.to(torch.float32))
-        return torch.zeros_like(v).scatter_add_(
-            0, flat_idx, out.reshape(-1).to(v.dtype))
+        return _kops.sgl_prox(v, spec.pad_index, spec.pad_mask,
+                              spec.pad_uncovered, t_l1, t_group)
 
     return prox
 
@@ -243,21 +241,29 @@ def _certified_rows(lams, valid, beta0, tol: float, gap_scale: float,
 def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
                    lipschitz, lams, valid, beta0, tol, gap_scale: float,
                    mu=None, *, max_iter: int, check_every: int,
-                   use_kernels: bool, loss=SQUARED):
+                   use_kernels: bool, graphs: dict, loss=SQUARED):
     """The SGL sweep over the rows of ``lams`` (a device grid; ``valid``
     marks the real rows); see ``_certified_rows``.
+
+    With the kernels on the card, each row's FISTA replays its blocks from
+    a CUDA graph in ``graphs`` (``fista_sgl_graphed``); elsewhere it runs
+    ``fista_sgl`` eagerly (through the plain prox on the CPU).
 
     ``mu`` (optional, (p,)): per-fold column means for leakage-free
     centering.  The certification GEMV runs against the SHARED design, so
     the centered correlation is the rank-one correction
     ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked)."""
-    prox = _padded_prox(sub_spec) if use_kernels else None
     tol = loss.effective_tol(tol, y.dtype)
+    kw = dict(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
+    if use_kernels and X_sub.device.type == "cuda":
+        kw["graphs"] = graphs
+        solve = fista_sgl_graphed
+    else:
+        kw["prox"] = _padded_prox(sub_spec) if use_kernels else None
+        solve = fista_sgl
 
     def solve_row(lam, b):
-        res = fista_sgl(X_sub, y, sub_spec, lam, alpha, lipschitz, b,
-                        max_iter=max_iter, check_every=check_every, tol=tol,
-                        prox=prox, loss=loss)
+        res = solve(X_sub, y, sub_spec, lam, alpha, lipschitz, b, **kw)
         fit = X_sub @ res.beta
         resid = loss.residual(y, fit)
         rho = resid / lam
@@ -309,14 +315,16 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
                      min_bucket: int = 64, min_group_bucket: int = 16,
                      margin: float = 0.125, chunk_init: int = 8,
                      compile_keys: Optional[set] = None,
+                     fista_graphs: Optional[dict] = None,
                      loss=SQUARED) -> PathResult:
     """Batched SGL path: grid screening, speculative bucketed sweeps with
     per-row certification.  ``X``, ``y`` and ``spec`` lie on one device.
 
     ``use_kernels=True`` with a float64 problem raises ``TypeError``: the
     float32 kernels would void the float64 exactness of the screen.
-    ``compile_keys`` is an optional persistent set of sweep-shape keys
-    (owned by ``SGLSession``)."""
+    ``compile_keys`` is an optional persistent set of sweep-shape keys and
+    ``fista_graphs`` an optional persistent cache of captured FISTA blocks
+    (both owned by ``SGLSession``)."""
     if screen == "gapsafe":
         raise NotImplementedError(
             "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
@@ -373,6 +381,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     lam_bar = lam_max
     beta_full = np.zeros(p)
     seen_keys = compile_keys if compile_keys is not None else set()
+    graphs = fista_graphs if fista_graphs is not None else {}
     spec_m = max(int(chunk_init), 1)
 
     j = 0
@@ -453,7 +462,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
             torch.as_tensor(lam_pad, dtype=dtype, device=dev), valid,
             torch.as_tensor(beta0, dtype=dtype, device=dev), tol, gap_scale,
             max_iter=max_iter, check_every=check_every, use_kernels=kernels,
-            loss=loss)
+            graphs=graphs, loss=loss)
         good_np = np.zeros(m, dtype=bool)
         good_np[:len(good_b)] = good_b[:m]
         k = int(np.argmin(good_np)) if not good_np.all() else m
@@ -462,6 +471,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
             # safe); belt-and-braces progress guarantee
             k = 1
         stats.n_rejected += int(m - k)
+        stats.fista_iters += int(sum(iters_b))
         theta_bar = thetas_b[k - 1]
         c_prev = cthetas_b[k - 1]
         betas_np = torch.stack(betas_b[:k]).cpu().numpy()
@@ -622,6 +632,7 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         if k == 0:
             k = 1
         stats.n_rejected += int(m - k)
+        stats.fista_iters += int(sum(iters_b))
         theta_bar = thetas_b[k - 1]
         c_prev = cthetas_b[k - 1]
         betas_np = torch.stack(betas_b[:k]).cpu().numpy()

@@ -5,8 +5,10 @@ The session owns one persistent set of sweep-shape keys (``compile_keys``)
 threaded through every engine call, so ``EngineStats.n_compilations``
 counts the shapes a run meets for the first time: a second
 ``session.path(plan)`` or ``session.cv(plan)`` over the same buckets reports
-zero.  ``X^T y`` and the per-alpha ``lambda_max`` grid anchor are computed
-once per session.
+zero.  Beside it, the session owns the CUDA graphs of the SGL FISTA block
+(``fista_graphs``), captured on the card at the first solve of each shape,
+so a warm call captures none.  ``X^T y`` and the per-alpha ``lambda_max``
+grid anchor are computed once per session.
 
 ``refine`` and ``stability`` are not ported yet (ROADMAP queue 1, item 9).
 """
@@ -38,6 +40,7 @@ class SGLSession:
         self.problem = problem
         self.default_plan = plan if plan is not None else Plan()
         self.compile_keys: set = set()
+        self.fista_graphs: dict = {}     # captured FISTA blocks (card)
         self.stats = EngineStats()       # aggregate over the session
         self._lam_max_cache: dict = {}   # grid-anchor cache (see lambda_max)
         self._xty = problem.X.T @ problem.y
@@ -93,6 +96,7 @@ class SGLSession:
                 prob.X, prob.y, prob.spec, plan.alpha,
                 specnorm_method=plan.specnorm_method,
                 min_group_bucket=plan.min_group_bucket,
+                fista_graphs=self.fista_graphs,
                 loss=plan.resolved_loss(prob.loss), **common)
         else:
             res = nn_lasso_path_batched(prob.X, prob.y, **common)
@@ -136,6 +140,7 @@ class SGLSession:
                 prob.X, y_rows, prob.spec, plan.alpha, masks, lambdas,
                 specnorm_method=plan.specnorm_method,
                 min_group_bucket=plan.min_group_bucket, mus=mus,
+                fista_graphs=self.fista_graphs,
                 loss=plan.resolved_loss(prob.loss), **common)
         else:
             betas, kept, iters, stats, times = nn_fold_paths(

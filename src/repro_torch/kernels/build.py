@@ -30,9 +30,9 @@ LIB_NAME = "librepro_kernels.so"
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # C signatures: every pointer and the stream as c_void_p, every size int64
 SIGNATURES = {
-    "repro_xtv_f32": [_P, _P, _P, _I64, _I64, _P],
+    "repro_xtv_f32": [_P, _P, _P, _P, _I64, _I64, _P],
     "repro_screen_norms_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
-    "repro_sgl_prox_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_sgl_prox_f32": [_P] * 7 + [_I64, _I64, _I64, _P],
     "repro_screen_norms_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_dpc_screen_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
@@ -120,6 +120,9 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # how many row chunks xtv cuts N into (sizes its scratch)
+            lib.repro_xtv_chunks.argtypes = [_I64, _I64]
+            lib.repro_xtv_chunks.restype = ctypes.c_int64
             _lib = lib
     return _lib
 

@@ -16,13 +16,14 @@ import torch
 from . import build
 
 launches = 0   # launches of the kernel in this process
+captured = 0   # calls recorded into CUDA graphs (see ops.count_replay)
 
 
 def dpc_screen_folds_cuda(C: torch.Tensor, radii: torch.Tensor,
                           col_norms_f: torch.Tensor) -> torch.Tensor:
     """C: (K, L, p) float32, radii: (K, L) float32, col_norms_f: (K, p)
     float32 -> keep (K, L, p) bool."""
-    global launches
+    global launches, captured
     if C.dim() != 3:
         raise ValueError("C must be 3-D (folds, lambdas, features)")
     K, L, p = C.shape
@@ -39,7 +40,10 @@ def dpc_screen_folds_cuda(C: torch.Tensor, radii: torch.Tensor,
         C.data_ptr(), radii.data_ptr(), col_norms_f.data_ptr(),
         keep.data_ptr(), K, L, p, build.stream_handle(C.device))
     build.check(err, "dpc_screen_folds")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return keep
 
 

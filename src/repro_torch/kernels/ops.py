@@ -34,6 +34,21 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
+def captured_counts() -> dict:
+    """{kernel name: calls recorded into CUDA graphs in this process}.  A
+    wrapper called under stream capture launches nothing and counts here;
+    the graph's replays launch it."""
+    return {name: mod.captured for name, mod in KERNELS.items()}
+
+
+def count_replay(recorded: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``recorded`` ({kernel name: calls}, a difference of two
+    ``captured_counts``)."""
+    for name, n in recorded.items():
+        KERNELS[name].launches += n
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -84,10 +99,15 @@ def dpc_screen_folds(C: torch.Tensor, radii: torch.Tensor,
     return _dpc_screen_folds.dpc_screen_folds_cuda(C, radii, col_norms_f)
 
 
-def sgl_prox_padded(v_pad: torch.Tensor, mask: torch.Tensor,
-                    t_l1: torch.Tensor, t_group: torch.Tensor) -> torch.Tensor:
-    """Fused SGL prox on the padded layout, float32.  ``t_l1`` is a
-    1-element tensor on the operands' device."""
-    if _on_cpu(v_pad):
-        return ref.sgl_prox_ref(v_pad, mask, t_l1, t_group)
-    return _sgl_prox.sgl_prox_cuda(v_pad, mask, t_l1, t_group)
+def sgl_prox(v: torch.Tensor, pad_index: torch.Tensor,
+             pad_mask: torch.Tensor, uncovered: torch.Tensor,
+             t_l1: torch.Tensor, t_group: torch.Tensor) -> torch.Tensor:
+    """Fused SGL prox on the flat vector v (p,) through the padded view
+    ``pad_index`` / ``pad_mask`` (G, n_max); ``uncovered`` (p,) marks the
+    columns that no valid slot covers, which come out 0.  ``t_l1`` is a
+    1-element tensor on the operands' device.  float32 on the card; the
+    plain version keeps v's dtype at its boundary."""
+    if _on_cpu(v):
+        return ref.sgl_prox_flat_ref(v, pad_index, pad_mask, t_l1, t_group)
+    return _sgl_prox.sgl_prox_cuda(v, pad_index, pad_mask, uncovered, t_l1,
+                                   t_group)

@@ -53,6 +53,19 @@ def sgl_prox_ref(v_pad: torch.Tensor, mask: torch.Tensor, t_l1,
     return u * scale[:, None]
 
 
+def sgl_prox_flat_ref(v: torch.Tensor, pad_index: torch.Tensor,
+                      pad_mask: torch.Tensor, t_l1,
+                      t_group: torch.Tensor) -> torch.Tensor:
+    """Fused SGL prox on the flat vector: the composition that the kernel
+    fuses.  Gather v (p,) by ``pad_index`` with masked slots as 0, the
+    padded prox ``sgl_prox_ref`` in float32, scatter-add onto zeros in v's
+    dtype.  Columns that no valid slot covers come out 0."""
+    v_pad = torch.where(pad_mask, v[pad_index], 0.0).to(torch.float32)
+    out = sgl_prox_ref(v_pad, pad_mask, t_l1, t_group)
+    return torch.zeros_like(v).scatter_add_(
+        0, pad_index.reshape(-1), out.reshape(-1).to(v.dtype))
+
+
 def screen_norms_folds_ref(c_pad: torch.Tensor, mask: torch.Tensor):
     """Fused screening statistics on the fold-stacked layout.
 

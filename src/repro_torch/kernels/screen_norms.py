@@ -13,12 +13,13 @@ import torch
 from . import build
 
 launches = 0   # launches of the kernel in this process
+captured = 0   # calls recorded into CUDA graphs (see ops.count_replay)
 
 
 def screen_norms_cuda(c_pad: torch.Tensor, mask: torch.Tensor):
     """c_pad: (R, n_max) float32, mask: (G, n_max) bool with R a multiple
     of G -> (snorm2 (R,), cinf (R,)) float32."""
-    global launches
+    global launches, captured
     if c_pad.dim() != 2 or mask.dim() != 2:
         raise ValueError("c_pad and mask must be 2-D")
     R, n_max = c_pad.shape
@@ -37,5 +38,8 @@ def screen_norms_cuda(c_pad: torch.Tensor, mask: torch.Tensor):
         c_pad.data_ptr(), mask.data_ptr(), snorm2.data_ptr(), cinf.data_ptr(),
         R, G, n_max, build.stream_handle(c_pad.device))
     build.check(err, "screen_norms")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return snorm2, cinf

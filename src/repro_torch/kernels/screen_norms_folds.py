@@ -14,13 +14,14 @@ import torch
 from . import build
 
 launches = 0   # launches of the kernel in this process
+captured = 0   # calls recorded into CUDA graphs (see ops.count_replay)
 
 
 def screen_norms_folds_cuda(c_pad: torch.Tensor, mask: torch.Tensor):
     """c_pad: (R, G, n_max) float32 (R = K*L fold x lambda rows), mask:
     (G, n_max) bool shared by every row -> (snorm2 (R, G), cinf (R, G))
     float32."""
-    global launches
+    global launches, captured
     if c_pad.dim() != 3:
         raise ValueError("c_pad must be 3-D (rows, groups, n_max)")
     R, G, n_max = c_pad.shape
@@ -35,5 +36,8 @@ def screen_norms_folds_cuda(c_pad: torch.Tensor, mask: torch.Tensor):
         c_pad.data_ptr(), mask.data_ptr(), snorm2.data_ptr(), cinf.data_ptr(),
         R, G, n_max, build.stream_handle(c_pad.device))
     build.check(err, "screen_norms_folds")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return snorm2, cinf

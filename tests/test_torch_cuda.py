@@ -43,18 +43,28 @@ def _mask(gen, G, n_max):
     return m
 
 
-@pytest.mark.parametrize("N,p", [(1, 1), (250, 10_000), (300, 1037)])
-def test_xtv_kernel_matches_plain(dev, N, p):
+@pytest.mark.parametrize("N,p,offset", [
+    (1, 1, 0), (250, 10_000, 0), (300, 1037, 0),    # ragged p, N split
+    (1, 10_000, 0), (747, 4099, 0),                 # N = 1; p % 4 != 0
+    (64, 5000, 1),                                  # unaligned base of X
+])
+def test_xtv_kernel_matches_plain(dev, N, p, offset):
+    """Both paths of the kernel (128-bit loads and the scalar path), with
+    and without N split across blocks, within ``2*N*eps*sum|x v|`` per
+    column, and bit for bit the same on a second run."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.xtv import xtv_cuda
     gen = torch.Generator().manual_seed(N + p)
-    X = torch.randn(N, p, generator=gen).to(dev)
+    X = torch.randn(N * p + offset, generator=gen).to(dev)[offset:]
+    X = X.view(N, p)
     v = torch.randn(N, generator=gen).to(dev)
     got = xtv_cuda(X, v)
+    again = xtv_cuda(X, v)
     want = ref.xtv_ref(X, v)
     torch.cuda.synchronize()
     bound = N * EPS32 * (X.abs() * v.abs()[:, None]).sum(dim=0)
     assert bool(((got - want).abs() <= 2 * bound + 1e-30).all())
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("L,G,n_max", [(1, 1, 1), (4, 37, 9), (128, 100, 10),
@@ -73,22 +83,40 @@ def test_screen_norms_kernel_matches_plain(dev, L, G, n_max):
         torch.testing.assert_close(a, b, **TOL)
 
 
-@pytest.mark.parametrize("G,n_max,t_l1", [(1, 1, 0.0), (37, 9, 0.3),
-                                          (1000, 10, 1.1), (20, 130, 0.05)])
-def test_sgl_prox_kernel_matches_plain(dev, G, n_max, t_l1):
+def _bucket_spec(sizes, keep, p_b, g_b, dev):
+    """A bucketed spec whose garbage bin runs past n_max (columns that no
+    valid slot covers), on the card."""
+    from repro_torch.core import GroupSpec
+    full = GroupSpec.from_sizes(sizes, device="cpu")
+    gid = np.repeat(np.arange(len(sizes)), sizes)
+    sub, _ = full.bucketed_subset(np.isin(gid, keep), p_b, g_b)
+    return sub.to(dev)
+
+
+@pytest.mark.parametrize("sizes,keep,p_b,g_b,t_l1", [
+    ([1] * 40, [3, 7], 8, 4, 0.0),                      # n_max = 1
+    ([3, 7, 1, 9, 5, 2, 8, 4] * 5, list(range(0, 40, 3)), 128, 16, 0.3),
+    ([10] * 1000, list(range(0, 1000, 2)), 8192, 1024, 1.1),
+    ([40, 35, 7, 50] * 5, [0, 3, 5, 9], 512, 16, 0.05),  # n_max > 32
+])
+def test_sgl_prox_kernel_matches_plain(dev, sizes, keep, p_b, g_b, t_l1):
+    """The fused flat prox against its plain composition, with 1e30 in
+    every column no valid slot covers: those come out exactly 0."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sgl_prox import sgl_prox_cuda
-    gen = torch.Generator().manual_seed(G * n_max)
-    mask = _mask(gen, G, n_max)
-    clean, poison = _poisoned(gen, G, mask, dev)
-    mask = mask.to(dev)
+    spec = _bucket_spec(sizes, keep, p_b, g_b, dev)
+    unc = spec.pad_uncovered
+    assert bool(unc.any())
+    gen = torch.Generator().manual_seed(p_b + g_b)
+    v = (torch.randn(p_b, generator=gen) * 2).to(dev)
+    v = torch.where(unc, 1e30, v)
     tl1 = torch.tensor([t_l1], device=dev)
-    tg = (torch.rand(G, generator=gen) * 2).to(dev)
-    got = sgl_prox_cuda(poison, mask, tl1, tg)
+    tg = (torch.rand(g_b, generator=gen) * 2).to(dev)
+    got = sgl_prox_cuda(v, spec.pad_index, spec.pad_mask, unc, tl1, tg)
+    want = ref.sgl_prox_flat_ref(v, spec.pad_index, spec.pad_mask, tl1, tg)
     torch.cuda.synchronize()
-    assert bool((got[~mask] == 0).all())
-    torch.testing.assert_close(got, ref.sgl_prox_ref(clean, mask, tl1, tg),
-                               **TOL)
+    assert bool((got[unc] == 0).all()) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.parametrize("KL,G,n_max", [(1, 1, 1), (24, 313, 9),
@@ -239,3 +267,68 @@ def test_small_nn_cv_on_the_card_goes_through_the_kernels(dev):
     cpu = T.SGLSession(T.Problem.nn_lasso(X, y, device="cpu")).cv(
         plan.with_(use_kernels=True))
     np.testing.assert_allclose(res.fold_betas, cpu.fold_betas, atol=1e-4)
+
+
+def _graph_problem():
+    gen = np.random.default_rng(3)
+    X = gen.standard_normal((80, 400)).astype(np.float32)
+    beta = np.zeros(400, np.float32)
+    beta[:12] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(80)).astype(np.float32)
+    return X, y, [8] * 50
+
+
+def test_graphed_fista_matches_eager_fista(dev):
+    """The graphed block against the eager ``fista_sgl`` with the kernel
+    prox, on a bucketed subproblem: equal iterations, betas within 1e-6
+    relative; a second solve of the same shape replays, captures none."""
+    from repro_torch.core import fista_sgl, fista_sgl_graphed
+    from repro_torch.core.linalg import spectral_norm
+    from repro_torch.core.path_engine import _padded_prox
+    X, y, sizes = _graph_problem()
+    spec = _bucket_spec(sizes, list(range(0, 50, 3)), 256, 32, dev)
+    gid = np.repeat(np.arange(50), sizes)
+    cols = np.nonzero(np.isin(gid, list(range(0, 50, 3))))[0]
+    X_sub = torch.zeros((80, 256), device=dev)
+    X_sub[:, :len(cols)] = torch.as_tensor(X[:, cols], device=dev)
+    y_d = torch.as_tensor(y, device=dev)
+    L = spectral_norm(X_sub, iters=25) ** 2
+    lam = float(torch.max(torch.abs(X_sub.T @ y_d))) * 0.01
+    kw = dict(max_iter=6000, check_every=10, tol=1e-6)   # about 9 blocks
+    graphs = {}
+    b0 = torch.zeros(256, device=dev)
+    eager = fista_sgl(X_sub, y_d, spec, lam, 1.0, L, b0,
+                      prox=_padded_prox(spec), **kw)
+    for _ in range(2):                  # captures, then replays
+        graphed = fista_sgl_graphed(X_sub, y_d, spec, lam, 1.0, L, b0,
+                                    graphs=graphs, **kw)
+        assert len(graphs) == 1
+        assert graphed.iters == eager.iters > kw["check_every"]
+        scale = float(eager.beta.abs().max())
+        assert float((graphed.beta - eager.beta).abs().max()) <= 1e-6 * scale
+
+
+def test_warm_path_captures_no_graph(dev):
+    """The float32 path on the card replays captured blocks: every FISTA
+    iteration is one ``sgl_prox`` launch, and a second warm ``.path``
+    captures nothing and pays no compilation."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y, sizes = _graph_problem()
+    sess = T.SGLSession(T.Problem.sgl(X, y, sizes))
+    plan = T.Plan(n_lambdas=10, tol=1e-6, safety=1e-6, min_bucket=16,
+                  check_every=20)
+    ops.reset_launch_counts()
+    cold = sess.path(plan)
+    assert ops.launch_counts()["sgl_prox"] == cold.stats.fista_iters \
+        >= cold.iters.sum() > 0
+    n = len(sess.fista_graphs)
+    assert 0 < n <= cold.stats.n_compilations
+    assert all(g.recorded == {"sgl_prox": plan.check_every}
+               for g in sess.fista_graphs.values())
+    ops.reset_launch_counts()
+    warm = sess.path(plan)
+    assert len(sess.fista_graphs) == n
+    assert warm.stats.n_compilations == 0
+    assert ops.launch_counts()["sgl_prox"] == warm.stats.fista_iters
+    np.testing.assert_array_equal(warm.iters, cold.iters)

@@ -100,12 +100,14 @@ def test_screen_norms_plain_matches_reference(L, G, n_max):
 @pytest.mark.parametrize("G,n_max,t_l1", [(1, 1, 0.0), (5, 17, 0.3),
                                           (37, 9, 1.1), (64, 130, 0.05)])
 def test_sgl_prox_plain_matches_reference(G, n_max, t_l1):
+    """The padded oracle ``sgl_prox_ref``, on which the flat plain version
+    is built, against the reference's oracle and Pallas kernel."""
     rng = np.random.default_rng(G * n_max)
     v, mask = _padded(rng, G, n_max)
     t_group = (rng.random(G) * 3).astype(np.float32)
-    got = ops.sgl_prox_padded(torch.from_numpy(v), torch.from_numpy(mask),
-                              torch.tensor([t_l1], dtype=torch.float32),
-                              torch.from_numpy(t_group)).numpy()
+    got = tref.sgl_prox_ref(torch.from_numpy(v), torch.from_numpy(mask),
+                            torch.tensor([t_l1], dtype=torch.float32),
+                            torch.from_numpy(t_group)).numpy()
     assert np.all(got[~mask] == 0.0)
     for want in (jref.sgl_prox_ref(jnp.asarray(v), jnp.asarray(mask),
                                    jnp.float32(t_l1), jnp.asarray(t_group)),
@@ -113,6 +115,65 @@ def test_sgl_prox_plain_matches_reference(G, n_max, t_l1):
                                  jnp.asarray(t_group), block_g=8,
                                  interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
+
+
+def _bucketed_specs(sizes, keep, p_b, g_b, seed):
+    """A ragged bucketed spec whose garbage bin runs past n_max, so some
+    columns no valid slot covers, as the reference's spec and the port's.
+    Every masked slot points at an uncovered column.  Returns (jspec,
+    tspec, uncovered columns)."""
+    full = J.GroupSpec.from_sizes(sizes)
+    gid = np.repeat(np.arange(len(sizes)), sizes)
+    sub, _ = full.bucketed_subset(np.isin(gid, keep), p_b, g_b)
+    leaves, aux = sub.tree_flatten()
+    ch = dict(zip(convert.SPEC_FIELDS, (None if a is None else np.asarray(a)
+                                        for a in leaves)))
+    mask = ch["pad_mask"]
+    uncovered = np.setdiff1d(np.arange(p_b), ch["pad_index"][mask])
+    assert uncovered.size > 0
+    idx = ch["pad_index"].copy()
+    idx[~mask] = np.random.default_rng(seed).choice(uncovered,
+                                                    int((~mask).sum()))
+    ch["pad_index"] = idx
+    jspec = J.GroupSpec.tree_unflatten(
+        aux, [ch[f] for f in convert.SPEC_FIELDS])
+    return jspec, convert.group_spec(ch, device="cpu"), uncovered
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-6),
+                                        (np.float64, 1e-12)])
+@pytest.mark.parametrize("sizes,keep,p_b,g_b", [
+    ([3, 7, 1, 9, 5, 2, 8, 4], [1, 3, 6], 64, 8),     # ragged, bin of 40
+    ([10] * 40, [0, 5, 17, 33], 128, 16),              # uniform, bin of 88
+    ([1] * 50, [2, 9, 30], 16, 8),                     # n_max = 1
+    ([40, 35, 7, 50], [0, 3], 256, 4),                 # n_max > 32
+])
+def test_sgl_prox_flat_plain_matches_reference_padded_prox(
+        sizes, keep, p_b, g_b, dtype, atol):
+    """The flat plain prox (what the CPU runs in the kernel's place)
+    against the reference's ``path_engine._padded_prox`` (gather, Pallas
+    kernel in interpret mode, scatter-add), with 1e30 in every column no
+    valid slot covers and every masked slot pointing at one: those columns
+    come out exactly 0."""
+    from repro.core.path_engine import _padded_prox as j_padded_prox
+    jspec, tspec, uncovered = _bucketed_specs(sizes, keep, p_b, g_b,
+                                              seed=p_b + g_b)
+    assert bool(tspec.pad_uncovered[uncovered].all())
+    assert int(tspec.pad_uncovered.sum()) == uncovered.size
+    rng = np.random.default_rng(len(sizes))
+    v = (rng.standard_normal(p_b) * 2).astype(dtype)
+    v[uncovered] = POISON
+    t_l1 = dtype(0.3)
+    t_group = (rng.random(g_b) * 2).astype(dtype)
+    got = ops.sgl_prox(torch.from_numpy(v), tspec.pad_index, tspec.pad_mask,
+                       tspec.pad_uncovered, torch.tensor([t_l1]),
+                       torch.from_numpy(t_group)).numpy()
+    want = np.asarray(j_padded_prox(jspec)(jnp.asarray(v), jnp.asarray(t_l1),
+                                           jnp.asarray(t_group)))
+    assert got.dtype == dtype and got.shape == (p_b,)
+    assert np.all(got[uncovered] == 0.0)
+    assert np.count_nonzero(got) > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("K,L,G,n_max", [(1, 1, 1, 1), (3, 4, 37, 9),
@@ -177,8 +238,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     ops.xtv(X, torch.randn(5))
     ops.screen_norms_batched(torch.randn(2, 3, 4),
                              torch.ones(3, 4, dtype=torch.bool))
-    ops.sgl_prox_padded(torch.randn(3, 4), torch.ones(3, 4, dtype=torch.bool),
-                        torch.tensor([0.1]), torch.rand(3))
+    ops.sgl_prox(torch.randn(12), torch.arange(12).reshape(3, 4),
+                 torch.ones(3, 4, dtype=torch.bool),
+                 torch.zeros(12, dtype=torch.bool), torch.tensor([0.1]),
+                 torch.rand(3))
     ops.screen_norms_folds(torch.randn(2, 2, 3, 4),
                            torch.ones(3, 4, dtype=torch.bool))
     ops.dpc_screen_folds(torch.randn(2, 3, 7), torch.rand(2, 3),
@@ -192,8 +255,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     (xtv_cuda, (torch.zeros(3, 4), torch.zeros(3))),
     (screen_norms_cuda, (torch.zeros(6, 4),
                          torch.ones(3, 4, dtype=torch.bool))),
-    (sgl_prox_cuda, (torch.zeros(3, 4), torch.ones(3, 4, dtype=torch.bool),
-                     torch.zeros(1), torch.zeros(3))),
+    (sgl_prox_cuda, (torch.zeros(12), torch.arange(12).reshape(3, 4),
+                     torch.ones(3, 4, dtype=torch.bool),
+                     torch.zeros(12, dtype=torch.bool), torch.zeros(1),
+                     torch.zeros(3))),
     (screen_norms_folds_cuda, (torch.zeros(2, 3, 4),
                                torch.ones(3, 4, dtype=torch.bool))),
     (dpc_screen_folds_cuda, (torch.zeros(2, 3, 5), torch.zeros(2, 3),

@@ -144,6 +144,73 @@ def test_kernel_route_counts_launches_only_on_the_card():
     assert np.isfinite(res.betas).all()
 
 
+def test_cpu_kernel_route_captures_no_graph():
+    """On the CPU the float32 kernel route runs the eager FISTA loop
+    through the plain prox: the session's graph cache stays empty, and
+    ``n_compilations`` is the reference's ``use_pallas=True`` count, cold
+    and warm."""
+    X, y, sizes = make_problem()
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    kw = dict(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16)
+    jspec = J.GroupSpec.from_sizes(sizes)
+    rj = J.SGLSession(J.Problem.sgl(X, y, jspec)).path(
+        J.Plan(**kw, use_pallas=True))
+    sess = T.SGLSession(convert.problem(X, y, _children(jspec),
+                                        device="cpu"))
+    plan = T.Plan(**kw, use_kernels=True)
+    rt = sess.path(plan)
+    assert rt.stats.n_compilations == rj.stats.n_compilations > 0
+    assert sess.path(plan).stats.n_compilations == 0
+    assert not sess.fista_graphs
+
+
+def test_engine_counts_fista_iterations_run():
+    """``stats.fista_iters`` counts every FISTA iteration the sweeps ran,
+    rejected rows' included, so it bounds the accepted rows' iterations;
+    the session accumulates it."""
+    X, y, sizes = make_problem()
+    sess = T.SGLSession(T.Problem.sgl(X, y, sizes, device="cpu"))
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16)
+    res = sess.path(plan)
+    assert res.stats.fista_iters >= int(res.iters.sum()) > 0
+    assert sess.stats.fista_iters == res.stats.fista_iters
+    if res.stats.n_rejected == 0:
+        assert res.stats.fista_iters == int(res.iters.sum())
+
+
+def test_replay_counts_the_launches_its_capture_recorded():
+    """A wrapper called under stream capture counts a recorded call, not
+    a launch; each replay adds the recorded calls to the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sgl_prox as kprox
+    ops.reset_launch_counts()
+    before = ops.captured_counts()
+    kprox.captured += 3                 # what a capture of 3 calls leaves
+    try:
+        after = ops.captured_counts()
+        recorded = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        assert recorded == {"sgl_prox": 3}
+        assert sum(ops.launch_counts().values()) == 0
+        for _ in range(2):
+            ops.count_replay(recorded)
+        assert ops.launch_counts()["sgl_prox"] == 6
+        assert sum(ops.launch_counts().values()) == 6
+    finally:
+        kprox.captured -= 3
+        ops.reset_launch_counts()
+
+
+def test_graphed_fista_refuses_the_cpu():
+    X, y, sizes = make_problem()
+    spec = T.GroupSpec.from_sizes(sizes, device="cpu")
+    X32 = torch.as_tensor(X, dtype=torch.float32)
+    with pytest.raises(ValueError, match="card"):
+        T.fista_sgl_graphed(X32, torch.as_tensor(y, dtype=torch.float32),
+                            spec, 0.5, 1.0, 100.0, torch.zeros(X.shape[1]),
+                            graphs={})
+
+
 def test_float64_with_kernels_requested_raises():
     X, y, sizes = make_problem()
     sess = T.SGLSession(T.Problem.sgl(X, y, sizes, device="cpu"))
