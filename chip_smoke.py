@@ -22,8 +22,11 @@ Phases (each fails loudly, with a non-zero exit):
    against the f64 solution; a warm second call that must pay no new
    compilation and capture no graph; one more warm call under
    ``torch.profiler`` for the device's busy time and idle share, whose
-   ``sgl_prox`` kernels on the card must equal the launch count; the
-   longest solve of the path rerun eagerly and graphed (equal iteration
+   ``sgl_prox`` kernels on the card must equal the launch count, whose
+   ``screen_norms`` kernels must equal both the launch count and
+   ``n_pallas_screens``, and in which no operator may take a tensor of the
+   padded (., G, n_max) layout (the screen reads its GEMM's output through
+   the spec, unpadded); the longest solve of the path rerun eagerly and graphed (equal iteration
    counts, betas within 1e-6 relative, bitwise equality printed).
 4. Ragged path: the paper's Table 2 shape (N=747, p=100 000, ADNI-like
    ragged groups, n_max=9, Frobenius group norms, 8 lambdas), counters as
@@ -47,14 +50,20 @@ Phases (each fails loudly, with a non-zero exit):
    float64 reference.
 8. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
-   masked slot (``sgl_prox``: into an uncovered column every masked slot
-   points at, and every uncovered column must come out 0; at a real
+   masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
+   that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
+   uncovered column every masked slot points at, and every uncovered
+   column must come out 0; at a real
    Synthetic-1 bucket, Table 2's full spec and a real bucket of it,
    n_max = 1 and n_max = 50; ``dpc_screen_folds`` exactly, also on inputs
    that land on 1.0 within one ulp); timed with CUDA events beside its
    bound, its plain version, the launch floor (a 1-element ``zero_()`` in
    the same graph harness) and, for ``xtv``, ``torch.mv`` at both X
-   shapes, L2-warm and L2-cold.
+   shapes, L2-warm and L2-cold (``screen_norms`` too, L2-warm and cold).
+   Also the Synthetic-1 group-statistics step as the path runs it
+   (``_grid_group_stats(spec, C, True)``) beside the gather and mask that
+   the unfused screen ran, and ``screen_norms`` at the SGL CV's first
+   stacked screen shape beside that screen's own step.
 9. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -264,24 +273,27 @@ def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
 
 
 def profile_call(torch, run, label, warm_wall, top=6):
-    """One more warm call (``run()``) under ``torch.profiler``: the card's
-    busy time (the sum of the kernels' device time; one stream, so kernels
-    never overlap), its share of this call's wall time and of
-    ``warm_wall``, the same call's wall time without the profiler (which
-    slows the host), and the kernels that take the most device time.  The
-    ``sgl_prox`` kernels the profiler saw on the card, graph replays
-    included, must equal the wrapper's launch count for the same call."""
+    """One more warm call (``run()``) under ``torch.profiler`` (operator
+    input shapes recorded): the card's busy time (the sum of the kernels'
+    device time; one stream, so kernels never overlap), its share of this
+    call's wall time and of ``warm_wall``, the same call's wall time
+    without the profiler (which slows the host), and the kernels that take
+    the most device time.  The ``sgl_prox`` kernels the profiler saw on the
+    card, graph replays included, must equal the wrapper's launch count for
+    the same call.  Returns (idle share, run's result, the profile, the
+    launch counts of the call)."""
     from repro_torch.kernels import ops
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counted = ops.launch_counts()["sgl_prox"]
+    counts = ops.launch_counts()
+    counted = counts["sgl_prox"]
     by_name, n_kernels, n_prox = {}, 0, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -300,7 +312,69 @@ def profile_call(torch, run, label, warm_wall, top=6):
         f"of the unprofiled warm wall {warm_wall:.3f} s")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         say(f"[{label}]   {us / 1e3:10.3f} ms  {name[:100]}")
-    return 1 - busy / warm_wall
+    return 1 - busy / warm_wall, out, prof, counts
+
+
+class ScreenRanges:
+    """Inside the block, every call of ``screening._grid_group_stats`` (the
+    grid screen's group statistics) runs in a profiler range named
+    ``grid_group_stats``, so that a profile can be read for the screen."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.core import screening
+        self.mod = screening
+        self.orig = orig = screening._grid_group_stats
+        record = self.torch.profiler.record_function
+
+        def ranged(*args, **kw):
+            with record("grid_group_stats"):
+                return orig(*args, **kw)
+
+        screening._grid_group_stats = ranged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._grid_group_stats = self.orig
+
+
+def require_fused_screen(torch, prof, res, counts, spec, label):
+    """In a profiled call of the float32 SGL path run under
+    ``ScreenRanges``: the ``screen_norms`` kernels the profiler saw on the
+    card equal the wrapper's launches and ``EngineStats.n_pallas_screens``
+    (and the screen ranges), and no operator inside the screen's group
+    statistics took a tensor of the padded layout (., G, n_max): no gather
+    or mask built a padded copy of the screen GEMM's output."""
+    G, n_max = spec.pad_index.shape
+    events = list(prof.events())
+    n_dev = sum(1 for ev in events
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ("screen_norms_small" in ev.name
+                     or "screen_norms_large" in ev.name))
+    cpu = [ev for ev in events
+           if ev.device_type == torch.autograd.DeviceType.CPU]
+    ranges = [(ev.thread, ev.time_range.start, ev.time_range.end)
+              for ev in cpu if ev.name == "grid_group_stats"]
+    inside = [ev for ev in cpu if ev.name != "grid_group_stats" and any(
+        ev.thread == t and a <= ev.time_range.start and ev.time_range.end <= b
+        for t, a, b in ranges)]
+    padded = sorted({ev.name for ev in inside
+                     if any(len(sh) == 3 and list(sh[1:]) == [G, n_max]
+                            for sh in (ev.input_shapes or []))})
+    say(f"[{label}] screen_norms kernels seen by the profiler {n_dev}, "
+        f"launches counted {counts['screen_norms']}, n_pallas_screens "
+        f"{res.stats.n_pallas_screens}, screen ranges {len(ranges)}; "
+        f"operators in the screen's group statistics "
+        f"{sorted({ev.name for ev in inside})}; of them on a (., {G}, "
+        f"{n_max}) tensor: {padded or 'none'}")
+    require(n_dev == counts["screen_norms"] == res.stats.n_pallas_screens
+            == len(ranges) > 0, f"{label}: screen_norms kernels {n_dev}, "
+            f"launches {counts['screen_norms']}, n_pallas_screens "
+            f"{res.stats.n_pallas_screens}, screen ranges {len(ranges)}: "
+            f"not all equal")
+    require(not padded, f"{label}: the screen built a padded copy ({padded})")
 
 
 def graph_vs_eager(torch, T, calls, label):
@@ -415,8 +489,13 @@ def main_path(torch, T, N=250, G=1000, n=10):
     require(len(sess.fista_graphs) == n_captures,
             "the warm call captured a graph")
     require_graph_route(warm, counts_w, calls_w, "synthetic1-f32-warm")
-    idle = profile_call(torch, lambda: sess.path(plan),
-                        "synthetic1-f32-profiled", warm_wall)
+    with ScreenRanges(torch):
+        idle, res_p, prof, counts_p = profile_call(
+            torch, lambda: sess.path(plan), "synthetic1-f32-profiled",
+            warm_wall)
+    require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
+                         "synthetic1-f32-profiled")
+    del prof
     say(f"[synthetic1] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
     graph_vs_eager(torch, T, calls, "synthetic1")
     from repro_torch.core.path_engine import _pow2_len
@@ -659,7 +738,7 @@ def sgl_cv_phase(torch, T, N=250, G=1000, n=10):
                        "screen_norms_folds", ("sgl_prox", "xtv"))
     require_graph_route(warm, counts_w, calls_w, "sgl-cv-f32-warm")
     idle = profile_call(torch, lambda: sess.cv(plan), "sgl-cv-f32-profiled",
-                        warm_wall)
+                        warm_wall)[0]
     say(f"[sgl-cv] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
     sess64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
                                         y.astype(np.float64), [n] * G,
@@ -819,32 +898,99 @@ def _poisoned(torch, rows, mask_rows, dev, scale=2.0):
     return torch.where(mask_rows.repeat(rows // G, 1), vals, 1e30).contiguous()
 
 
-def check_screen_norms(torch, L, mask, label):
+def _screen_poisoned(torch, L, spec):
+    """C (L, p + 2) on the card for ``spec``'s padded view: column p holds
+    1e30 and column p + 1 NaN, and every masked slot of the returned index
+    points at one of the two (alternately)."""
+    G, n_max = spec.pad_index.shape
+    p = spec.num_features
+    dev = spec.device
+    C = torch.randn(L, p + 2, device=dev) * 2
+    C[:, p], C[:, p + 1] = 1e30, float("nan")
+    alt = p + torch.arange(G * n_max, device=dev).reshape(G, n_max) % 2
+    idx = torch.where(spec.pad_mask, spec.pad_index, alt).contiguous()
+    return C, idx, spec.pad_mask
+
+
+def check_screen_norms(torch, L, spec, label, floor_ms=None):
+    """The fused screen statistics against their plain composition
+    (gather, mask, padded statistics) under 1e30 and NaN poison in every
+    masked slot: ``snorm2`` within rtol = atol = 1e-5, ``cinf`` (a max)
+    exactly, every output finite.  Timed as the path calls it (C of shape
+    (L, p), the spec's own index and mask) L2-warm (one C, back to back)
+    and L2-cold (a pool of copies of C over 100 MB), beside its bound and
+    the launch floor."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.screen_norms import screen_norms_cuda
-    G, n_max = mask.shape
-    R = L * G
-    poison = _poisoned(torch, R, mask, mask.device)
-    got = screen_norms_cuda(poison, mask)
-    want = ref.screen_norms_ref(poison, mask)
+    C, idx, mask = _screen_poisoned(torch, L, spec)
+    G, n_max = idx.shape
+    got = screen_norms_cuda(C, idx, mask)
+    want = ref.screen_norms_gather_ref(C, idx, mask)
     torch.cuda.synchronize()
-    errs = []
-    for g, w in zip(got, want):
+    for g in got:
         require(bool(torch.isfinite(g).all()),
                 f"screen_norms {label}: non-finite (poison leaked)")
-        require(bool(torch.allclose(g, w, **KERNEL_TOL)),
-                f"screen_norms {label}: outside rtol=atol=1e-5")
-        errs.append(float((g - w).abs().max()))
-    ms = time_ms(torch, lambda: screen_norms_cuda(poison, mask))
-    eager = eager_ms(torch, lambda: screen_norms_cuda(poison, mask))
-    plain = time_ms(torch, lambda: ref.screen_norms_ref(poison, mask))
-    b, by = bound_ms(4 * R * n_max + G * n_max + 8 * R, 6 * R * n_max)
-    say(f"[kernel screen_norms {label}] rows {R} (L {L} x G {G}) n_max "
-        f"{n_max} valid {float(mask.float().mean()):.3f} max_abs_err "
-        f"{max(errs):.3e} (tol rtol=atol=1e-5) ms {ms:.5f} eager_ms "
-        f"{eager:.5f} plain_ms {plain:.5f} bound_ms {b:.5f} ({by})")
-    return dict(max_abs_err=max(errs), ms=ms, eager_ms=eager, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None)
+    require(bool(torch.allclose(got[0], want[0], **KERNEL_TOL)),
+            f"screen_norms {label}: snorm2 outside rtol=atol=1e-5")
+    require(torch.equal(got[1], want[1]),
+            f"screen_norms {label}: cinf differs from the plain max")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    C = C[:, :spec.num_features].contiguous()    # the path's inputs
+    idx = spec.pad_index
+    ms = time_ms(torch, lambda: screen_norms_cuda(C, idx, mask))
+    eager = eager_ms(torch, lambda: screen_norms_cuda(C, idx, mask))
+    plain = time_ms(torch, lambda: ref.screen_norms_gather_ref(C, idx, mask))
+    n_copies = max(2, -(-100_000_000 // (4 * C.numel())))
+    pool = [C] + [C.clone() for _ in range(n_copies - 1)]
+    ms_cold = time_ms(torch, _cycling(
+        pool, lambda A: screen_norms_cuda(A, idx, mask)))
+    del pool
+    valid = int(mask.sum())
+    b, by = bound_ms(4 * L * valid + 9 * G * n_max + 8 * L * G,
+                     6 * L * valid)
+    say(f"[kernel screen_norms {label}] checked on C ({L}, {C.shape[1] + 2}) "
+        f"with 2 poison columns, timed on C {tuple(C.shape)}; G {G} n_max "
+        f"{n_max} valid {valid / (G * n_max):.3f} max_abs_err {err:.3e} "
+        f"(tol rtol=atol=1e-5, cinf exact) L2-warm ms {ms:.5f} L2-cold "
+        f"({n_copies} copies of C) ms {ms_cold:.5f}"
+        f"{'' if floor_ms is None else f' launch floor {floor_ms:.5f}'} "
+        f"eager_ms {eager:.5f} plain_ms {plain:.5f} bound_ms {b:.5f} ({by}); "
+        f"warm / bound {ms / b:.2f}")
+    return dict(max_abs_err=err, ms=ms, ms_l2_cold=ms_cold, eager_ms=eager,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                launch_floor_ms=floor_ms)
+
+
+def check_screen_step(torch, L, spec, label):
+    """The group-statistics step as the path runs it,
+    ``_grid_group_stats(spec, C, True)`` (the fused kernel and a ``sqrt``),
+    timed beside the gather and the mask that the unfused screen ran in
+    front of its kernel, on a C of the path's shape (L, p)."""
+    from repro_torch.core.screening import _grid_group_stats
+    C = torch.randn(L, spec.num_features, device=spec.device) * 2
+    step = time_ms(torch, lambda: _grid_group_stats(spec, C, True))
+    copy = time_ms(torch, lambda: torch.where(
+        spec.pad_mask[None], C[:, spec.pad_index], 0.0))
+    say(f"[screen step {label}] C {tuple(C.shape)}: _grid_group_stats(spec, "
+        f"C, True) ms {step:.5f}; the gather + where that the unfused "
+        f"screen ran before its kernel ms {copy:.5f}")
+    return step
+
+
+def check_screen_cv_shape(torch, R, spec, label):
+    """Data for a later decision (CV is not rerouted): the fused kernel at
+    the SGL CV's first stacked screen shape, beside that screen's own step
+    (gather, mask and ``screen_norms_folds``) on the same C."""
+    from repro_torch.core.screening import _grid_group_stats_folds
+    from repro_torch.kernels.screen_norms import screen_norms_cuda
+    C = torch.randn(R, spec.num_features, device=spec.device) * 2
+    fused = time_ms(torch, lambda: screen_norms_cuda(C, spec.pad_index,
+                                                     spec.pad_mask))
+    folds = time_ms(torch, lambda: _grid_group_stats_folds(
+        spec, C.reshape(1, R, -1), True))
+    say(f"[screen cv-shape {label}] C {tuple(C.shape)}: fused screen_norms "
+        f"ms {fused:.5f}; gather + where + screen_norms_folds + sqrt ms "
+        f"{folds:.5f}")
 
 
 def _bucket_spec(torch, T, sizes, keep, p_b, g_b):
@@ -983,14 +1129,15 @@ def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
     # the most iterations
     rows = {
         "xtv": check_xtv(torch, sess_main.problem.X, "synthetic1"),
-        "screen_norms": check_screen_norms(torch, shapes["L"], spec.pad_mask,
-                                           "synthetic1"),
+        "screen_norms": check_screen_norms(torch, shapes["L"], spec,
+                                           "synthetic1", floor),
         "sgl_prox": check_sgl_prox(torch, shapes["bucket_spec"],
                                    "synthetic1-bucket", floor),
     }
     # ragged shapes with live masks: Table 2's X and padded layouts
     rows["xtv"]["table2"] = check_xtv(torch, sess_ragged.problem.X, "table2")
-    check_screen_norms(torch, 8, rspec.pad_mask, "table2")
+    check_screen_norms(torch, 8, rspec, "table2", floor)
+    check_screen_step(torch, shapes["L"], spec, "synthetic1")
     check_sgl_prox(torch, rspec, "table2-full", floor)
     check_sgl_prox(torch, ragged_bucket, "table2-bucket", floor)
     check_sgl_prox(torch, spec, "synthetic1-full", floor)
@@ -1004,6 +1151,7 @@ def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
     (R, _, _), _ = snf_shape
     rows["screen_norms_folds"] = check_screen_norms_folds(
         torch, R, spec.pad_mask, "sgl-cv")
+    check_screen_cv_shape(torch, R, spec, "sgl-cv")
     check_screen_norms_folds(torch, 3 * 8, rspec.pad_mask, "table2-folds")
     (K, L, p), _, _ = dsf_shape
     rows["dpc_screen_folds"] = check_dpc_screen_folds(torch, K, L, p,

@@ -40,14 +40,14 @@ def _grid_group_stats(spec: GroupSpec, C: torch.Tensor, use_kernels: bool):
     """(||S_1(C_g)||, ||C_g||_inf) per grid row: (L, p) -> ((L, G), (L, G)).
 
     ``use_kernels`` routes the fused reduction through the ``screen_norms``
-    kernel on the padded (L*G, n_max) layout (float32 — callers must carry a
+    kernel, which reads C through the spec's padded view, so the padded
+    (L, G, n_max) copy of C never exists (float32 — callers must carry a
     nonzero ``safety`` inflation)."""
     if use_kernels:
         _require_f32_for_pallas(C.dtype)
         from ..kernels import ops as _kops
-        c_pad = torch.where(spec.pad_mask[None], C[:, spec.pad_index], 0.0)
-        snorm2, cinf = _kops.screen_norms_batched(c_pad.to(torch.float32),
-                                                  spec.pad_mask)
+        snorm2, cinf = _kops.screen_norms_gather(C, spec.pad_index,
+                                                 spec.pad_mask)
         return torch.sqrt(snorm2).to(C.dtype), cinf.to(C.dtype)
     L, G = C.shape[0], spec.num_groups
     shr = shrink(C)

@@ -31,7 +31,7 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # C signatures: every pointer and the stream as c_void_p, every size int64
 SIGNATURES = {
     "repro_xtv_f32": [_P, _P, _P, _P, _I64, _I64, _P],
-    "repro_screen_norms_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_screen_norms_f32": [_P] * 5 + [_I64] * 4 + [_P],
     "repro_sgl_prox_f32": [_P] * 7 + [_I64, _I64, _I64, _P],
     "repro_screen_norms_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_dpc_screen_folds_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],

@@ -64,17 +64,15 @@ def xtv(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _xtv.xtv_cuda(X, v)
 
 
-def screen_norms_batched(c_pad_grid: torch.Tensor, mask: torch.Tensor):
-    """c_pad_grid (L, G, n_max) with a shared (G, n_max) mask ->
-    (||S_1(c)||^2 (L, G), ||c||_inf (L, G)) float32.  The lambda-grid axis
-    is folded into the row axis; the mask is shared, never broadcast."""
-    L, G, n_max = c_pad_grid.shape
-    flat = c_pad_grid.reshape(L * G, n_max)
-    if _on_cpu(flat):
-        snorm2, cinf = ref.screen_norms_ref(flat, mask)
-    else:
-        snorm2, cinf = _screen_norms.screen_norms_cuda(flat, mask)
-    return snorm2.reshape(L, G), cinf.reshape(L, G)
+def screen_norms_gather(C: torch.Tensor, pad_index: torch.Tensor,
+                        pad_mask: torch.Tensor):
+    """C (R, p) read through the padded view ``pad_index`` / ``pad_mask``
+    (G, n_max) -> (||S_1(c)||^2 (R, G), ||c||_inf (R, G)) float32, masked
+    slots as 0.  The grid screen's group statistics: the lambda rows of the
+    screen GEMM's output, never copied into the padded layout."""
+    if _on_cpu(C):
+        return ref.screen_norms_gather_ref(C, pad_index, pad_mask)
+    return _screen_norms.screen_norms_cuda(C, pad_index, pad_mask)
 
 
 def screen_norms_folds(c_pad_folds: torch.Tensor, mask: torch.Tensor):

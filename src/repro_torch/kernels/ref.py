@@ -34,6 +34,19 @@ def screen_norms_ref(c_pad: torch.Tensor, mask: torch.Tensor):
     return snorm2, cinf
 
 
+def screen_norms_gather_ref(C: torch.Tensor, pad_index: torch.Tensor,
+                            pad_mask: torch.Tensor):
+    """Fused screening statistics read from C through the padded view: the
+    composition that the kernel fuses.  Gather C (R, p) by ``pad_index``
+    (G, n_max) with masked slots as 0, then ``screen_norms_ref`` on the
+    (R*G, n_max) layout.  Returns (||S_1(c_{r,g})||^2, ||c_{r,g}||_inf),
+    each (R, G), float32."""
+    (R, _), (G, n_max) = C.shape, pad_index.shape
+    c_pad = torch.where(pad_mask, C[:, pad_index], 0.0)
+    snorm2, cinf = screen_norms_ref(c_pad.reshape(R * G, n_max), pad_mask)
+    return snorm2.reshape(R, G), cinf.reshape(R, G)
+
+
 def sgl_prox_ref(v_pad: torch.Tensor, mask: torch.Tensor, t_l1,
                  t_group: torch.Tensor) -> torch.Tensor:
     """Fused SGL prox on the padded layout.

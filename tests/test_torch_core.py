@@ -249,6 +249,70 @@ def test_grid_group_stats_kernel_route_matches_plain_f32():
                                    atol=1e-5)
 
 
+def _permuted_specs(sizes, seed):
+    """The reference's and the port's spec for ``sizes`` with the features
+    renumbered by a random permutation, so no group is contiguous."""
+    jspec = J.GroupSpec.from_sizes(sizes)
+    ch = _children(jspec)
+    p = int(sum(sizes))
+    perm = np.random.default_rng(seed).permutation(p)
+    gid = np.empty(p, dtype=ch["group_ids"].dtype)
+    gid[perm] = ch["group_ids"]
+    ch["group_ids"] = gid
+    ch["pad_index"] = np.where(ch["pad_mask"], perm[ch["pad_index"]],
+                               0).astype(ch["pad_index"].dtype)
+    leaves, aux = jspec.tree_flatten()
+    jperm = J.GroupSpec.tree_unflatten(
+        aux, [ch[f] for f in convert.SPEC_FIELDS])
+    return jperm, convert.group_spec(ch, device=CPU)
+
+
+@pytest.mark.parametrize("sizes,permuted", [
+    (_ragged(21, 30, 9), False), (_ragged(22, 30, 9), True),
+    ([10] * 25, False), ([1] * 40, False), (_ragged(23, 8, 40), True)])
+def test_grid_group_stats_kernel_route_matches_reference_pallas(sizes,
+                                                                permuted):
+    """The port's kernel route (the fused plain version on the CPU) against
+    the reference's ``use_pallas=True`` route (gather, then the Pallas
+    kernel in interpret mode), float32, on contiguous and permuted specs."""
+    if permuted:
+        jspec, tspec = _permuted_specs(sizes, seed=len(sizes))
+    else:
+        jspec = J.GroupSpec.from_sizes(sizes)
+        tspec = T.GroupSpec.from_sizes(sizes, device=CPU)
+    C = (np.random.default_rng(len(sizes)).standard_normal(
+        (8, sum(sizes))) * 2).astype(np.float32)
+    got = tscreen._grid_group_stats(tspec, torch.from_numpy(C), True)
+    want = jscreen._grid_group_stats(jspec, jnp.asarray(C), True)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == (8, len(sizes))
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_grid_group_stats_kernel_route_reads_C_through_the_spec(
+        monkeypatch):
+    """The kernel route hands the screen GEMM's output itself and the
+    spec's padded view to ``ops.screen_norms_gather``: no padded copy of C
+    is built in front of the kernel."""
+    from repro_torch.kernels import ops
+    spec = T.GroupSpec.from_sizes(_ragged(24, 10, 5), device=CPU)
+    C = torch.randn(4, spec.num_features)
+    seen = []
+    real = ops.screen_norms_gather
+
+    def recording(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(ops, "screen_norms_gather", recording)
+    tscreen._grid_group_stats(spec, C, True)
+    assert len(seen) == 1
+    c_arg, idx_arg, mask_arg = seen[0]
+    assert c_arg is C
+    assert idx_arg is spec.pad_index and mask_arg is spec.pad_mask
+
+
 # ---------------------------------------------------------------------------
 # prox and solver
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ imports no JAX, so it runs on a machine that has only PyTorch; there, run
 (``--noconftest``: the repository's ``conftest.py`` imports JAX).
 
 Tolerances as in ``tests/test_torch_kernels.py``: rtol = atol = 1e-5 for
-the per-row statistics and the prox, ``2 * N * eps * sum|x_ij v_i|`` per
+the per-row statistics and the prox (the screen's ``cinf``, a max, exactly), ``2 * N * eps * sum|x_ij v_i|`` per
 column for the GEMV.  Masked slots hold 1e30 in the kernel's input and 0 in
 the plain version's.
 """
@@ -67,20 +67,97 @@ def test_xtv_kernel_matches_plain(dev, N, p, offset):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("L,G,n_max", [(1, 1, 1), (4, 37, 9), (128, 100, 10),
-                                       (3, 50, 70)])
-def test_screen_norms_kernel_matches_plain(dev, L, G, n_max):
+def _screen_inputs(gen, L, mask, idx, p, dev, offset=0):
+    """C (L, p + 2) on the card, its column p holding 1e30 and p + 1 NaN,
+    and the index with every masked slot pointing at one of the two
+    (alternately).  ``offset`` shifts C's first element off a 16-byte
+    boundary."""
+    G, n_max = mask.shape
+    flat = torch.randn(L * (p + 2) + offset, generator=gen) * 2
+    C = flat.to(dev)[offset:].view(L, p + 2)
+    C[:, p], C[:, p + 1] = 1e30, float("nan")
+    alt = p + torch.arange(G * n_max).reshape(G, n_max) % 2
+    idx = torch.where(mask, idx, alt)
+    return C, idx.to(dev), mask.to(dev)
+
+
+def _check_screen_norms(C, idx, mask):
+    """The fused kernel against its plain version: every output finite,
+    ``snorm2`` within rtol = atol = 1e-5, ``cinf`` (a max) exactly."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.screen_norms import screen_norms_cuda
+    s, i = screen_norms_cuda(C, idx, mask)
+    s_ref, i_ref = ref.screen_norms_gather_ref(C, idx, mask)
+    torch.cuda.synchronize()
+    assert s.shape == i.shape == (C.shape[0], mask.shape[0])
+    assert bool(torch.isfinite(s).all() and torch.isfinite(i).all())
+    torch.testing.assert_close(s, s_ref, **TOL)
+    assert torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("L,G,n_max", [(1, 1, 1), (4, 37, 9), (128, 1000, 10),
+                                       (3, 50, 70)])
+def test_screen_norms_kernel_matches_plain(dev, L, G, n_max):
+    """Contiguous ragged groups (the small path's staged spans and the
+    large path), every masked slot pointing at a 1e30 or a NaN column."""
     gen = torch.Generator().manual_seed(L * G * n_max)
-    mask = _mask(gen, G, n_max)
-    clean, poison = _poisoned(gen, L * G, mask, dev)
-    mask = mask.to(dev)
-    for a, b in zip(screen_norms_cuda(poison, mask),
-                    ref.screen_norms_ref(clean, mask)):
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(a).all())
-        torch.testing.assert_close(a, b, **TOL)
+    sizes = torch.randint(1, n_max + 1, (G,), generator=gen)
+    mask = torch.arange(n_max)[None, :] < sizes[:, None]
+    starts = torch.cumsum(sizes, 0) - sizes
+    idx = starts[:, None] + torch.arange(n_max)[None, :]
+    _check_screen_norms(*_screen_inputs(gen, L, mask, idx, int(sizes.sum()),
+                                        dev))
+
+
+@pytest.mark.parametrize("L,G,n_max,offset,keep", [
+    (8, 300, 10, 0, 0.8), (5, 40, 32, 0, 0.8), (3, 20, 45, 0, 0.8),
+    (8, 300, 10, 0, 1.0),                 # permuted uniform groups
+    (16, 129, 7, 1, 0.8), (16, 129, 7, 1, 1.0)])         # unaligned C
+def test_screen_norms_kernel_on_permuted_or_unaligned_spans(dev, L, G, n_max,
+                                                            offset, keep):
+    """A permuted ``pad_index`` (a tile's columns far apart: the gather
+    branch; with uniform groups, after the kernel's guess of a contiguous
+    window failed) and, with ``offset`` = 1, contiguous groups in a C whose
+    rows start off every 16-byte boundary (scalar heads and tails)."""
+    gen = torch.Generator().manual_seed(G * n_max + offset)
+    mask = torch.rand(G, n_max, generator=gen) < keep
+    mask[:, 0] = True
+    p = int(mask.sum())
+    cols = torch.arange(p) if offset else torch.randperm(p, generator=gen)
+    idx = torch.zeros(G, n_max, dtype=torch.int64)
+    idx[mask] = cols
+    _check_screen_norms(*_screen_inputs(gen, L, mask, idx, p, dev, offset))
+
+
+def test_screen_norms_kernel_on_table2_spec(dev):
+    """Table 2's ragged spec (p = 100 000, n_max = 9) at 8 grid rows."""
+    from repro_torch.core import GroupSpec
+    from repro_torch.data_synth import ragged_sizes
+    spec = GroupSpec.from_sizes(ragged_sizes(100_000, avg=4.5, seed=0),
+                                device="cpu")
+    assert spec.max_size == 9 and not bool(spec.pad_mask.all())
+    gen = torch.Generator().manual_seed(7)
+    _check_screen_norms(*_screen_inputs(gen, 8, spec.pad_mask,
+                                        spec.pad_index, 100_000, dev))
+
+
+def test_screen_norms_kernel_refuses_other_dtypes_and_layouts(dev):
+    from repro_torch.kernels.screen_norms import screen_norms_cuda
+    C = torch.randn(4, 12, device=dev)
+    idx = torch.arange(12, device=dev).reshape(3, 4)
+    mask = torch.ones(3, 4, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        screen_norms_cuda(C.double(), idx, mask)
+    with pytest.raises(TypeError):
+        screen_norms_cuda(C, idx.int(), mask)
+    with pytest.raises(TypeError):
+        screen_norms_cuda(C, idx, mask.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        screen_norms_cuda(torch.randn(12, 4, device=dev).T, idx, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        screen_norms_cuda(C, idx.cpu(), mask)
+    with pytest.raises(ValueError, match="shape"):
+        screen_norms_cuda(C, idx, mask[:2])
 
 
 def _bucket_spec(sizes, keep, p_b, g_b, dev):

@@ -82,8 +82,13 @@ def test_screen_norms_plain_matches_reference(L, G, n_max):
     mask = rng.random((G, n_max)) < 0.7
     mask[:, 0] = True
     c = np.where(mask[None], c, POISON).astype(np.float32)
-    s, i = ops.screen_norms_batched(torch.from_numpy(c),
-                                    torch.from_numpy(mask))
+    # the padded grid as C (L, G*n_max + 1) read through pad_index, every
+    # masked slot pointing at the last column, which holds 1e30
+    C = np.concatenate([c.reshape(L, G * n_max),
+                        np.full((L, 1), POISON, np.float32)], axis=1)
+    idx = np.where(mask, np.arange(G * n_max).reshape(G, n_max), G * n_max)
+    s, i = ops.screen_norms_gather(torch.from_numpy(C), torch.from_numpy(idx),
+                                   torch.from_numpy(mask))
     assert s.shape == (L, G) and i.shape == (L, G)
     flat = c.reshape(L * G, n_max)
     mflat = np.broadcast_to(mask[None], (L, G, n_max)).reshape(L * G, n_max)
@@ -95,6 +100,57 @@ def test_screen_norms_plain_matches_reference(L, G, n_max):
                                    **F32_TOL)
         np.testing.assert_allclose(i.numpy().ravel(), np.asarray(ir),
                                    **F32_TOL)
+
+
+def _ragged_poisoned_spec(rng, G, n_max):
+    """A ragged spec (some groups of size 0 when n_max = 1) whose masked
+    slots point at two extra columns, p (1e30) and p + 1 (NaN).  Returns
+    (jspec, pad_index, pad_mask, p) with numpy index and mask."""
+    lo = 0 if n_max == 1 else 1
+    sizes = rng.integers(lo, n_max + 1, size=G)
+    sizes[0] = n_max
+    p = int(sizes.sum())
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    mask = np.arange(n_max)[None, :] < sizes[:, None]
+    poison = p + (np.arange(G * n_max).reshape(G, n_max) % 2)
+    idx = np.where(mask, starts[:, None] + np.arange(n_max)[None, :], poison)
+    assert (~mask).any()
+    children = [sizes.astype(np.int32), starts.astype(np.int32),
+                np.repeat(np.arange(G), sizes).astype(np.int32),
+                np.sqrt(sizes.astype(np.float64)), idx.astype(np.int32),
+                mask, None]
+    jspec = J.GroupSpec.tree_unflatten((G, p, n_max, False), children)
+    return jspec, idx.astype(np.int64), mask, p
+
+
+@pytest.mark.parametrize("L", [1, 8])
+@pytest.mark.parametrize("n_max", [1, 9, 10, 17, 64])
+def test_screen_norms_gather_plain_matches_reference(L, n_max):
+    """The fused plain version (gather by ``pad_index``, then the padded
+    statistics) against the reference's ``_grid_group_stats`` kernel route
+    (its gather and the Pallas kernel in interpret mode) and against
+    ``jref.screen_norms_ref`` on the gathered layout; every masked slot
+    points at a 1e30 or a NaN column."""
+    from repro.core import screening as jscreen
+    rng = np.random.default_rng(100 * L + n_max)
+    G = 23
+    jspec, idx, mask, p = _ragged_poisoned_spec(rng, G, n_max)
+    C = (rng.standard_normal((L, p + 2)) * 2).astype(np.float32)
+    C[:, p], C[:, p + 1] = POISON, np.nan
+    s, i = tref.screen_norms_gather_ref(torch.from_numpy(C),
+                                        torch.from_numpy(idx),
+                                        torch.from_numpy(mask))
+    assert s.shape == (L, G) and i.shape == (L, G)
+    assert s.dtype == i.dtype == torch.float32
+    assert bool(torch.isfinite(s).all() and torch.isfinite(i).all())
+    jn, ji = jscreen._grid_group_stats(jspec, jnp.asarray(C), True)
+    np.testing.assert_allclose(np.sqrt(s.numpy()), np.asarray(jn), **F32_TOL)
+    np.testing.assert_allclose(i.numpy(), np.asarray(ji), **F32_TOL)
+    flat = np.where(mask[None], C[:, idx], 0.0).reshape(L * G, n_max)
+    mflat = np.broadcast_to(mask[None], (L, G, n_max)).reshape(L * G, n_max)
+    sr, ir = jref.screen_norms_ref(jnp.asarray(flat), jnp.asarray(mflat))
+    np.testing.assert_allclose(s.numpy().ravel(), np.asarray(sr), **F32_TOL)
+    np.testing.assert_allclose(i.numpy().ravel(), np.asarray(ir), **F32_TOL)
 
 
 @pytest.mark.parametrize("G,n_max,t_l1", [(1, 1, 0.0), (5, 17, 0.3),
@@ -236,8 +292,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     ops.reset_launch_counts()
     X = torch.randn(5, 7)
     ops.xtv(X, torch.randn(5))
-    ops.screen_norms_batched(torch.randn(2, 3, 4),
-                             torch.ones(3, 4, dtype=torch.bool))
+    ops.screen_norms_gather(torch.randn(2, 12), torch.arange(12).reshape(3, 4),
+                            torch.ones(3, 4, dtype=torch.bool))
     ops.sgl_prox(torch.randn(12), torch.arange(12).reshape(3, 4),
                  torch.ones(3, 4, dtype=torch.bool),
                  torch.zeros(12, dtype=torch.bool), torch.tensor([0.1]),
@@ -253,7 +309,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
 @pytest.mark.parametrize("launch,args", [
     (xtv_cuda, (torch.zeros(3, 4), torch.zeros(3))),
-    (screen_norms_cuda, (torch.zeros(6, 4),
+    (screen_norms_cuda, (torch.zeros(6, 12), torch.arange(12).reshape(3, 4),
                          torch.ones(3, 4, dtype=torch.bool))),
     (sgl_prox_cuda, (torch.zeros(12), torch.arange(12).reshape(3, 4),
                      torch.ones(3, 4, dtype=torch.bool),
