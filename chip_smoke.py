@@ -48,7 +48,31 @@ Phases (each fails loudly, with a non-zero exit):
 7. Nonnegative-Lasso cross-validation: the Table-3 data of phase 5, the
    plan of phase 6; every stacked screen through ``dpc_screen_folds``; a
    float64 reference.
-8. Each kernel against its plain PyTorch version on the card, at the
+8. Gap-Safe SGL path: phase 3's data and plan with ``screen='gapsafe'``
+   in float32 (two ``screen_norms`` launches a screen, TLFre's grid and
+   the Gap-Safe center row; ``sgl_prox`` once per FISTA iteration; ``xtv``
+   once per row solved), warm, profiled (2 x ``n_pallas_screens`` fused
+   screen kernels) and in float64; Gap-Safe keeps no more features than
+   TLFre on any row of the sequential screen.
+9. Adaptive weights on phase 3's data (``uniform(0.5, 2.0)``, seed 20):
+   group and feature weights under TLFre and Gap-Safe (``xtv`` once per
+   row solved and no other kernel: the fused prox and screen statistics
+   take one l1 threshold), and group weights alone under TLFre (the
+   kernel route of phase 3), float32 and float64.
+10. Gap-Safe nonnegative-Lasso path: phase 5's data and plan (``xtv``).
+11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold, warm and
+    float64 (two ``screen_norms_folds`` launches a stacked screen).
+12. Gap-Safe nonnegative-Lasso CV: phase 7's plan, cold, warm and
+    float64.
+13. Sparse-group logistic path: ``loss_logistic_bench`` of
+    ``benchmarks/paper_tables.py`` at full size, ``screen='gapsafe'``
+    against ``'none'``, float32 (graphed ``sgl_prox`` blocks, ``xtv``
+    once per row solved, one ``screen_norms`` launch a Gap-Safe screen)
+    and float64.
+    Phases 8-13 hold the bars of phases 3-7 (every accepted row
+    certified, float32 against float64, no float32 discard nonzero in
+    float64) and print their seconds and the float32 ``n_rejected``.
+14. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -64,7 +88,7 @@ Phases (each fails loudly, with a non-zero exit):
    (``_grid_group_stats(spec, C, True)``) beside the gather and mask that
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step.
-9. One JSON line ``{"kernels": [...]}``, then the last line
+15. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -72,6 +96,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -161,21 +186,35 @@ class GraphedSolves:
     longest one (a real segment's row) and, of the buckets they met, the
     spec of the one that ran the most iterations (the prox's busiest
     shape).  A solve that bypasses the hook only lowers the sum, which
-    ``require_graph_route`` then refuses."""
+    ``require_graph_route`` then refuses.  It also counts the SGL rows
+    solved by the eager ``fista_sgl`` (``eager_solves``), so ``rows``
+    counts every SGL row run."""
 
     def __init__(self):
         self.iters = 0
+        self.solves = 0              # graphed solves: one per row run
+        self.eager_solves = 0        # eager SGL solves: one per row run
         self.longest = None          # (iters, args, kwargs)
         self.by_bucket = {}          # (p_b, g_b) -> [iterations, spec]
+
+    @property
+    def rows(self):
+        return self.solves + self.eager_solves
 
     def __enter__(self):
         from repro_torch.core import path_engine
         self.mod = path_engine
         self.orig = orig = path_engine.fista_sgl_graphed
+        self.orig_eager = eager = path_engine.fista_sgl
+
+        def counted(*args, **kw):
+            self.eager_solves += 1
+            return eager(*args, **kw)
 
         def recorded(*args, **kw):
             res = orig(*args, **kw)
             self.iters += res.iters
+            self.solves += 1
             if self.longest is None or res.iters > self.longest[0]:
                 self.longest = (res.iters, args, kw)
             spec = args[2]
@@ -185,10 +224,12 @@ class GraphedSolves:
             return res
 
         path_engine.fista_sgl_graphed = recorded
+        path_engine.fista_sgl = counted
         return self
 
     def __exit__(self, *exc):
         self.mod.fista_sgl_graphed = self.orig
+        self.mod.fista_sgl = self.orig_eager
 
     @property
     def busiest_spec(self):
@@ -214,8 +255,10 @@ def run_path(torch, sess, plan, label):
         f"{int(res.iters.sum())} (accepted rows) fista iterations run "
         f"{st.fista_iters} (graphed {calls.iters}); solve "
         f"{1e6 * res.solve_time / max(st.fista_iters, 1):.2f} us per "
-        f"iteration; graphs captured {len(sess.fista_graphs)} (in "
-        f"the session); launches {json.dumps(counts)}")
+        f"iteration; kept features (solver columns, summed over rows) "
+        f"{int(res.kept_features.sum())}; graphs captured "
+        f"{len(sess.fista_graphs)} (in the session); launches "
+        f"{json.dumps(counts)}")
     require(np.isfinite(res.betas).all(), f"{label}: non-finite betas")
     return res, counts, wall, calls
 
@@ -238,13 +281,29 @@ def require_kernel_route(res, counts, label, kernels=PATH_KERNELS):
 
 
 def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
-                             safety):
-    """Sequential f32 kernel screen at every lambda from the f32 path's
-    certified dual at the previous lambda; every discarded feature must be
-    zero (|beta| <= 1e-6) in the float64 solution."""
-    from repro_torch.core.screening import tlfre_screen_grid
-    X, y, spec = prob32.X, prob32.y, prob32.spec
-    xty = X.T @ y
+                             safety, *, spec=None, screen="tlfre",
+                             kept=None):
+    """Sequential f32 screen at every lambda from the f32 path's certified
+    dual at the previous lambda; every discarded feature must be zero
+    (|beta| <= 1e-6) in the float64 solution.  ``spec`` (default: the
+    problem's) carries a plan's adaptive weights; ``screen='gapsafe'``
+    intersects the TLFre rule with the Gap-Safe ball around that dual (the
+    ball alone for a non-squared loss), routed as the path routes it (the
+    screen statistics' kernel whenever there are no feature weights).
+    ``kept``,
+    a list, receives per row (features TLFre keeps, features the Gap-Safe
+    ball alone keeps, features kept); a rule not run keeps all p."""
+    from repro_torch.core.screening import (gap_safe_grid_radii,
+                                            gap_safe_grid_radii_loss,
+                                            gap_safe_screen_grid,
+                                            tlfre_screen_grid)
+    X, y = prob32.X, prob32.y
+    spec = prob32.spec if spec is None else spec
+    loss = T.get_loss(prob32.loss)
+    squared = loss.name == "squared"
+    kernels = spec.feature_weights is None
+    r0 = loss.residual_at_zero(y)
+    xty = X.T @ r0
     lam_max_t, g_star = T.lambda_max_sgl(spec, xty, alpha)
     lam_max = float(lam_max_t)
     col_n, gspec = T.column_norms(X), T.group_spectral_norms(X, spec)
@@ -252,20 +311,39 @@ def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
     worst, n_discarded = 0.0, 0
     for j in range(1, len(lambdas)):
         lam_bar = float(lambdas[j - 1])
+        beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
+                               device=X.device)
         if lam_bar >= lam_max * (1.0 - 1e-12):
-            theta = y / lam_max
+            theta = r0 / lam_max
+            beta = torch.zeros_like(beta)
         else:
-            beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
-                                   device=X.device)
-            rho = (y - X @ beta) / lam_bar
+            rho = loss.residual(y, X @ beta) / lam_bar
             theta = T.dual_scaling_sgl(spec, X.T @ rho, alpha) * rho
-        n_vec = T.normal_vector_sgl(X, y, spec, lam_bar, lam_max, theta,
-                                    g_star)
         lam = torch.as_tensor([lambdas[j]], dtype=X.dtype, device=X.device)
-        _, fk, _ = tlfre_screen_grid(X, y, spec, alpha, lam, lam_bar, theta,
-                                     n_vec, col_n, gspec, safety=safety,
-                                     use_kernels=True)
-        dropped = ~fk[0].cpu().numpy()
+        keep = torch.ones(X.shape[1], dtype=torch.bool, device=X.device)
+        if squared:
+            n_vec = T.normal_vector_sgl(X, y, spec, lam_bar, lam_max, theta,
+                                        g_star)
+            _, fk, _ = tlfre_screen_grid(X, y, spec, alpha, lam, lam_bar,
+                                         theta, n_vec, col_n, gspec,
+                                         safety=safety, use_kernels=kernels)
+            keep = fk[0]
+        n_tlfre, n_ball = int(keep.sum()), X.shape[1]
+        if screen == "gapsafe":
+            fit = X @ beta
+            resid = loss.residual(y, fit)
+            pen = T.sgl_penalty(spec, beta, alpha)
+            radii = (gap_safe_grid_radii(y, lam, theta, resid, pen) if squared
+                     else gap_safe_grid_radii_loss(loss, y, lam, theta, fit,
+                                                   resid, pen))
+            _, fk = gap_safe_screen_grid(spec, alpha, X.T @ theta,
+                                         radii * (1.0 + safety), col_n,
+                                         gspec, use_kernels=kernels)
+            n_ball = int(fk[0].sum())
+            keep = keep & fk[0]
+        if kept is not None:
+            kept.append((n_tlfre, n_ball, int(keep.sum())))
+        dropped = ~keep.cpu().numpy()
         n_discarded += int(dropped.sum())
         if dropped.any():
             worst = max(worst, float(np.abs(betas64[j][dropped]).max()))
@@ -340,13 +418,16 @@ class ScreenRanges:
         self.mod._grid_group_stats = self.orig
 
 
-def require_fused_screen(torch, prof, res, counts, spec, label):
+def require_fused_screen(torch, prof, res, counts, spec, label,
+                         per_screen=1):
     """In a profiled call of the float32 SGL path run under
     ``ScreenRanges``: the ``screen_norms`` kernels the profiler saw on the
-    card equal the wrapper's launches and ``EngineStats.n_pallas_screens``
-    (and the screen ranges), and no operator inside the screen's group
-    statistics took a tensor of the padded layout (., G, n_max): no gather
-    or mask built a padded copy of the screen GEMM's output."""
+    card equal the wrapper's launches and ``per_screen`` times
+    ``EngineStats.n_pallas_screens`` (and the screen ranges; 2 under
+    Gap-Safe: TLFre's grid and the Gap-Safe center row), and no operator
+    inside the screen's group statistics took a tensor of the padded layout
+    (., G, n_max): no gather or mask built a padded copy of the screen
+    GEMM's output."""
     G, n_max = spec.pad_index.shape
     events = list(prof.events())
     n_dev = sum(1 for ev in events
@@ -369,9 +450,10 @@ def require_fused_screen(torch, prof, res, counts, spec, label):
         f"operators in the screen's group statistics "
         f"{sorted({ev.name for ev in inside})}; of them on a (., {G}, "
         f"{n_max}) tensor: {padded or 'none'}")
-    require(n_dev == counts["screen_norms"] == res.stats.n_pallas_screens
-            == len(ranges) > 0, f"{label}: screen_norms kernels {n_dev}, "
-            f"launches {counts['screen_norms']}, n_pallas_screens "
+    require(n_dev == counts["screen_norms"]
+            == per_screen * res.stats.n_pallas_screens == len(ranges) > 0,
+            f"{label}: screen_norms kernels {n_dev}, launches "
+            f"{counts['screen_norms']}, {per_screen} x n_pallas_screens "
             f"{res.stats.n_pallas_screens}, screen ranges {len(ranges)}: "
             f"not all equal")
     require(not padded, f"{label}: the screen built a padded copy ({padded})")
@@ -539,10 +621,13 @@ def nn_objectives(X, y, betas, lambdas):
             + np.asarray(lambdas) * B.sum(axis=1))
 
 
-def dpc_discards_are_zero(torch, T, prob32, res32, betas64, safety):
+def dpc_discards_are_zero(torch, T, prob32, res32, betas64, safety, *,
+                          screen="dpc"):
     """Sequential f32 DPC screen at every lambda from the f32 path's
-    certified dual at the previous lambda; every discarded feature must be
-    zero (|beta| <= 1e-6) in the float64 solution."""
+    certified dual at the previous lambda (``screen='gapsafe'``: intersected
+    with the Gap-Safe ball around that dual); every discarded feature must
+    be zero (|beta| <= 1e-6) in the float64 solution."""
+    from repro_torch.core.screening import gap_safe_grid_radii
     X, y = prob32.X, prob32.y
     xty = X.T @ y
     lam_max_t, i_star = T.lambda_max_nn(xty)
@@ -552,17 +637,22 @@ def dpc_discards_are_zero(torch, T, prob32, res32, betas64, safety):
     worst, n_discarded = 0.0, 0
     for j in range(1, len(lambdas)):
         lam_bar = float(lambdas[j - 1])
+        beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
+                               device=X.device)
         if lam_bar >= lam_max * (1.0 - 1e-12):
             theta = y / lam_max
+            beta = torch.zeros_like(beta)
         else:
-            beta = torch.as_tensor(res32.betas[j - 1], dtype=X.dtype,
-                                   device=X.device)
             rho = (y - X @ beta) / lam_bar
             theta = T.dual_scaling_nn(X.T @ rho) * rho
         n_vec = T.normal_vector_nn(X, y, lam_bar, lam_max, theta, i_star)
         lam = torch.as_tensor([lambdas[j]], dtype=X.dtype, device=X.device)
         fk, _ = T.dpc_screen_grid(X, y, lam, theta, n_vec, col_n,
                                   safety=safety)
+        if screen == "gapsafe":
+            radii = gap_safe_grid_radii(y, lam, theta, y - X @ beta,
+                                        torch.sum(beta)) * (1.0 + safety)
+            fk = fk & T.gap_safe_screen_grid_nn(X.T @ theta, radii, col_n)
         dropped = ~fk[0].cpu().numpy()
         n_discarded += int(dropped.sum())
         if dropped.any():
@@ -670,8 +760,10 @@ def run_cv(torch, sess, plan, label):
         f"{int(res.fold_iters.sum())} (accepted rows) fista iterations run "
         f"{st.fista_iters} (graphed {calls.iters}); solve "
         f"{1e6 * res.solve_time / max(st.fista_iters, 1):.2f} us per "
-        f"iteration; graphs captured {len(sess.fista_graphs)} (in "
-        f"the session); best_index {res.best_index} index_1se "
+        f"iteration; kept features (summed over folds and rows) "
+        f"{int(res.kept_features.sum())}; graphs captured "
+        f"{len(sess.fista_graphs)} (in the session); best_index "
+        f"{res.best_index} index_1se "
         f"{res.index_1se} launches {json.dumps(counts)}")
     require(np.isfinite(res.fold_betas).all() and
             np.isfinite(res.mean_mse).all(), f"{label}: non-finite result")
@@ -778,7 +870,349 @@ def nn_cv_phase(torch, T, N=250, p=10_000):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: each kernel against its plain version, and its time
+# phases 8-13: the Gap-Safe screen, adaptive weights, the logistic path
+# ---------------------------------------------------------------------------
+
+def spec_objectives(X, y, spec, alpha, lambdas, loss="squared"):
+    """Primal objective of each row of ``betas``, in float64 on the host,
+    for ``spec``'s (possibly weighted) SGL penalty and the loss;
+    ``.gap_scale`` is the loss's (0.5|y|^2, or N log 2 for logistic)."""
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    gid = spec.group_ids.cpu().numpy()
+    w = spec.weights.cpu().numpy()
+    fw = (np.ones(X.shape[1]) if spec.feature_weights is None
+          else spec.feature_weights.cpu().numpy())
+    G = spec.num_groups
+
+    def objectives(betas):
+        B = np.asarray(betas, dtype=np.float64)
+        U = B @ X64.T
+        if loss == "squared":
+            f = 0.5 * ((y64[None, :] - U) ** 2).sum(axis=1)
+        else:
+            f = (np.logaddexp(0.0, U) - y64[None, :] * U).sum(axis=1)
+        gn = np.sqrt(np.stack([np.bincount(gid, weights=b * b, minlength=G)
+                               for b in B]))
+        return f + np.asarray(lambdas) * (alpha * gn @ w + np.abs(B) @ fw)
+    objectives.gap_scale = (0.5 * float(y64 @ y64) if loss == "squared"
+                            else len(y64) * np.log(2.0))
+    return objectives
+
+
+def require_no_kernel(counts, label):
+    require(sum(counts.values()) == 0,
+            f"{label}: a kernel was launched ({counts}); this route runs "
+            f"none")
+
+
+def require_xtv_only(res, counts, calls, label):
+    """The feature-weighted float32 route: ``xtv`` certifies every SGL row
+    solved, and no other kernel runs (the fused prox and screen statistics
+    take one l1 threshold), nor does any graphed solve."""
+    require(counts["xtv"] == calls.rows > 0 and calls.solves == 0,
+            f"{label}: xtv launches {counts['xtv']}, rows solved "
+            f"{calls.rows} (graphed {calls.solves})")
+    require(sum(counts.values()) == counts["xtv"],
+            f"{label}: a kernel other than xtv was launched ({counts})")
+    require(res.stats.n_pallas_screens == 0,
+            f"{label}: a screen took the fused statistics")
+
+
+def require_discards(torch, T, sess32, res32, res64, plan, label, **kw):
+    """The f32 sequential screen's discards are zero in float64; returns
+    the per-row (TLFre kept, kept) pairs."""
+    kept = []
+    worst, n_disc = screen_discards_are_zero(
+        torch, T, sess32.problem, res32, res64.betas, plan.alpha,
+        plan.safety, kept=kept, **kw)
+    say(f"[{label}] f32 screen discarded {n_disc} feature-lambda pairs; "
+        f"max |beta_f64| over them = {worst:.3e} (must be <= 1e-6)")
+    require(n_disc > 0 and worst <= 1e-6,
+            f"{label}: the f32 screen discarded a feature active in the "
+            f"f64 solution")
+    return kept
+
+
+def warm_call(torch, sess, plan, label, verb="path"):
+    """The same call again on the same session: it must pay no new
+    compilation and capture no graph.  Returns its wall time."""
+    n_captures = len(sess.fista_graphs)
+    run = run_path if verb == "path" else run_cv
+    res, _, wall, _ = run(torch, sess, plan, f"{label}-warm")
+    require(res.stats.n_compilations == 0 and
+            len(sess.fista_graphs) == n_captures,
+            f"{label}-warm: compiled or captured")
+    say(f"[{label}] warm wall {wall:.3f} s")
+    return wall
+
+
+def f64_session(torch, T, X, y, sizes, loss="squared"):
+    make = T.Problem.sgl if loss == "squared" else T.Problem.sgl_logistic
+    return T.SGLSession(make(X.astype(np.float64), y.astype(np.float64),
+                             sizes, dtype=torch.float64))
+
+
+@contextlib.contextmanager
+def timed_phase(label):
+    """Prints the phase's seconds when it ends."""
+    t0 = time.perf_counter()
+    yield
+    say(f"[{label}] phase seconds {time.perf_counter() - t0:.3f}")
+
+
+def gapsafe_path_phase(torch, T, res_tlfre, N=250, G=1000, n=10):
+    """Phase 3's data and plan with ``screen='gapsafe'``: the float32 path
+    on the kernel route (two ``screen_norms`` launches a screen, one
+    ``sgl_prox`` per FISTA iteration, one ``xtv`` per row solved), a warm
+    call, a profiled warm call (2 x ``n_pallas_screens`` fused screen
+    kernels), the float64 reference and the bars."""
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    plan = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50, screen="gapsafe")
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))
+    res, counts, _, calls = run_path(torch, sess, plan, "gapsafe-sgl-f32")
+    require_kernel_route(res, counts, "gapsafe-sgl-f32")
+    require_graph_route(res, counts, calls, "gapsafe-sgl-f32")
+    st = res.stats
+    require(counts["screen_norms"] == 2 * st.n_pallas_screens,
+            f"gapsafe-sgl-f32: screen_norms launches {counts['screen_norms']}"
+            f" != 2 x n_pallas_screens {st.n_pallas_screens}")
+    require(counts["xtv"] == calls.solves,
+            f"gapsafe-sgl-f32: xtv launches {counts['xtv']} != rows solved "
+            f"{calls.solves}")
+    n_captures = len(sess.fista_graphs)
+    warm, counts_w, warm_wall, calls_w = run_path(torch, sess, plan,
+                                                  "gapsafe-sgl-f32-warm")
+    require(warm.stats.n_compilations == 0 and
+            len(sess.fista_graphs) == n_captures,
+            "gapsafe-sgl-f32-warm: compiled or captured")
+    require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-f32-warm")
+    with ScreenRanges(torch):
+        idle, res_p, prof, counts_p = profile_call(
+            torch, lambda: sess.path(plan), "gapsafe-sgl-f32-profiled",
+            warm_wall)
+    require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
+                         "gapsafe-sgl-f32-profiled", per_screen=2)
+    del prof
+    say(f"[gapsafe-sgl] warm wall {warm_wall:.3f} s, idle share {idle:.4f}, "
+        f"n_rejected {st.n_rejected}")
+    sess64 = f64_session(torch, T, X, y, [n] * G)
+    res64, counts64, _, _ = run_path(torch, sess64, plan, "gapsafe-sgl-f64")
+    require_no_kernel(counts64, "gapsafe-sgl-f64")
+    compare_paths(res, res64, plan, spec_objectives(
+        X, y, sess.problem.spec, 1.0, res.lambdas), "gapsafe-sgl")
+    kept = require_discards(torch, T, sess, res, res64, plan, "gapsafe-sgl",
+                            screen="gapsafe")
+    n_tl, n_ball, n_gs = (sum(k[i] for k in kept) for i in range(3))
+    say(f"[gapsafe-sgl] sequential screens keep, summed over rows: TLFre "
+        f"{n_tl}, the Gap-Safe ball alone {n_ball}, TLFre and Gap-Safe "
+        f"{n_gs} (rows where Gap-Safe discards more than TLFre alone: "
+        f"{sum(k[2] < k[0] for k in kept)}); solver columns summed over "
+        f"the path: TLFre path {int(res_tlfre.kept_features.sum())}, "
+        f"Gap-Safe path {int(res.kept_features.sum())}")
+    require(all(k[2] <= k[0] for k in kept),
+            "gapsafe-sgl: Gap-Safe kept more features than TLFre on a row")
+    return counts
+
+
+def weights_phase(torch, T, N=250, G=1000, n=10):
+    """Phase 3's data with adaptive weights from ``uniform(0.5, 2.0)`` (seed
+    20): group and feature weights under TLFre and Gap-Safe (``xtv`` for
+    every row; the prox and the screen statistics run plainly), then
+    group weights alone under TLFre (the kernel route of phase 3)."""
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    wr = np.random.default_rng(20)
+    gw, fw = wr.uniform(0.5, 2.0, G), wr.uniform(0.5, 2.0, G * n)
+    base = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50)
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))
+    sess64 = f64_session(torch, T, X, y, [n] * G)
+    out = {}
+    for screen in ("tlfre", "gapsafe"):
+        label = f"weighted-{screen}"
+        plan = base.with_(screen=screen, group_weights=gw, feature_weights=fw)
+        res, counts, _, calls = run_path(torch, sess, plan, f"{label}-f32")
+        require_xtv_only(res, counts, calls, f"{label}-f32")
+        say(f"[{label}] n_rejected {res.stats.n_rejected}")
+        warm_call(torch, sess, plan, f"{label}-f32")
+        res64, counts64, _, _ = run_path(torch, sess64, plan, f"{label}-f64")
+        require_no_kernel(counts64, f"{label}-f64")
+        spec = sess._effective(plan)[1]
+        compare_paths(res, res64, plan, spec_objectives(
+            X, y, spec, 1.0, res.lambdas), label)
+        require_discards(torch, T, sess, res, res64, plan, label, spec=spec,
+                         screen=screen)
+        out[label] = counts
+    label = "group-weighted"
+    plan = base.with_(group_weights=gw)
+    res, counts, _, calls = run_path(torch, sess, plan, f"{label}-f32")
+    require_kernel_route(res, counts, f"{label}-f32")
+    require_graph_route(res, counts, calls, f"{label}-f32")
+    warm_call(torch, sess, plan, f"{label}-f32")
+    res64, counts64, _, _ = run_path(torch, sess64, plan, f"{label}-f64")
+    require_no_kernel(counts64, f"{label}-f64")
+    spec = sess._effective(plan)[1]
+    compare_paths(res, res64, plan, spec_objectives(X, y, spec, 1.0,
+                                                    res.lambdas), label)
+    require_discards(torch, T, sess, res, res64, plan, label, spec=spec)
+    out[label] = counts
+    return out
+
+
+def gapsafe_nn_path_phase(torch, T, N=250, p=10_000):
+    """Phase 5's data and plan with ``screen='gapsafe'``: ``xtv`` only."""
+    from repro_torch.data_synth import synthetic_nn
+    X, y, _ = synthetic_nn(1, N=N, p=p, seed=1)
+    plan = T.Plan(n_lambdas=100, tol=1e-6, safety=1e-6, max_iter=6000,
+                  check_every=50, screen="gapsafe")
+    sess = T.SGLSession(T.Problem.nn_lasso(X, y))
+    res, counts, _, _ = run_path(torch, sess, plan, "gapsafe-nn-f32")
+    require(counts["xtv"] > 0 and sum(counts.values()) == counts["xtv"],
+            "gapsafe-nn-f32: xtv was not the only kernel launched")
+    require((res.betas >= 0).all(), "gapsafe-nn-f32: a negative coefficient")
+    say(f"[gapsafe-nn] n_rejected {res.stats.n_rejected}")
+    warm_call(torch, sess, plan, "gapsafe-nn-f32")
+    sess64 = T.SGLSession(T.Problem.nn_lasso(
+        X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
+    res64, counts64, _, _ = run_path(torch, sess64, plan, "gapsafe-nn-f64")
+    require_no_kernel(counts64, "gapsafe-nn-f64")
+
+    def objectives(betas):
+        return nn_objectives(X, y, betas, res.lambdas)
+    objectives.gap_scale = 0.5 * float(np.dot(y.astype(np.float64), y))
+    compare_paths(res, res64, plan, objectives, "gapsafe-nn")
+    worst, n_disc = dpc_discards_are_zero(torch, T, sess.problem, res,
+                                          res64.betas, plan.safety,
+                                          screen="gapsafe")
+    say(f"[gapsafe-nn] f32 DPC and Gap-Safe screen discarded {n_disc} "
+        f"feature-lambda pairs; max |beta_f64| over them = {worst:.3e} "
+        f"(must be <= 1e-6)")
+    require(n_disc > 0 and worst <= 1e-6,
+            "gapsafe-nn: the f32 screen discarded a feature active in the "
+            "f64 solution")
+    return counts
+
+
+def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
+    """Phase 6's plan with ``screen='gapsafe'``: two ``screen_norms_folds``
+    launches a stacked screen (TLFre's K x L rows, Gap-Safe's K rows),
+    ``sgl_prox`` on graphed blocks, ``xtv``; cold, warm, float64."""
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    plan = T.Plan(**CV_PLAN, screen="gapsafe")
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))
+    res, counts, _, calls = run_cv(torch, sess, plan, "gapsafe-sgl-cv-f32")
+    st = res.stats
+    require(st.n_pallas_screens == st.n_screens > 0 and
+            counts["screen_norms_folds"] == 2 * st.n_screens,
+            f"gapsafe-sgl-cv-f32: screen_norms_folds launches "
+            f"{counts['screen_norms_folds']} != 2 x stacked screens "
+            f"{st.n_screens}")
+    require(counts["sgl_prox"] > 0 and counts["xtv"] > 0 and
+            counts["screen_norms"] == counts["dpc_screen_folds"] == 0,
+            "gapsafe-sgl-cv-f32: wrong kernels launched")
+    require_graph_route(res, counts, calls, "gapsafe-sgl-cv-f32")
+    n_captures = len(sess.fista_graphs)
+    warm, counts_w, warm_wall, calls_w = run_cv(torch, sess, plan,
+                                                "gapsafe-sgl-cv-f32-warm")
+    require(warm.stats.n_compilations == 0 and
+            len(sess.fista_graphs) == n_captures,
+            "gapsafe-sgl-cv-f32-warm: compiled or captured")
+    require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-cv-f32-warm")
+    say(f"[gapsafe-sgl-cv] warm wall {warm_wall:.3f} s, n_rejected "
+        f"{st.n_rejected}")
+    sess64 = f64_session(torch, T, X, y, [n] * G)
+    res64, counts64, _, _ = run_cv(torch, sess64, plan, "gapsafe-sgl-cv-f64")
+    require_no_kernel(counts64, "gapsafe-sgl-cv-f64")
+    compare_cv(res, res64, "gapsafe-sgl-cv")
+    return counts
+
+
+def gapsafe_nn_cv_phase(torch, T, N=250, p=10_000):
+    """Phase 7's plan with ``screen='gapsafe'``: ``dpc_screen_folds`` once
+    a stacked screen, ``xtv``; float64 reference."""
+    from repro_torch.data_synth import synthetic_nn
+    X, y, _ = synthetic_nn(1, N=N, p=p, seed=1)
+    plan = T.Plan(**CV_PLAN, screen="gapsafe")
+    sess = T.SGLSession(T.Problem.nn_lasso(X, y))
+    res, counts, _, _ = run_cv(torch, sess, plan, "gapsafe-nn-cv-f32")
+    require_fold_route(res, counts, "gapsafe-nn-cv-f32", "dpc_screen_folds",
+                       ("xtv",))
+    say(f"[gapsafe-nn-cv] n_rejected {res.stats.n_rejected}")
+    warm_call(torch, sess, plan, "gapsafe-nn-cv-f32", verb="cv")
+    sess64 = T.SGLSession(T.Problem.nn_lasso(
+        X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
+    res64, counts64, _, _ = run_cv(torch, sess64, plan, "gapsafe-nn-cv-f64")
+    require_no_kernel(counts64, "gapsafe-nn-cv-f64")
+    compare_cv(res, res64, "gapsafe-nn-cv")
+    return counts
+
+
+def logistic_phase(torch, T, N=250, G=1000, n=10):
+    """``benchmarks/paper_tables.py:loss_logistic_bench`` at full size
+    (N=250, 1000 groups of 10, seed 7, alpha 0.9, 100 lambdas, min_ratio
+    0.1, tol 1e-6, max_iter 6000, check_every 50): ``screen='gapsafe'``
+    against ``'none'`` in float32 and float64.  In float32 the prox does
+    not depend on the loss, so FISTA replays graphed ``sgl_prox`` blocks;
+    ``xtv`` certifies every row, and each Gap-Safe screen's statistics are
+    one ``screen_norms`` launch on the center row.  The screened betas
+    within 1e-3 of the unscreened (the benchmark's own bar); float32
+    against float64 and the f32 screen's discards as in the other
+    phases."""
+    from repro_torch.data_synth import synthetic_logistic
+    X, y, _ = synthetic_logistic(N, G, n, seed=7)
+    X32, y32 = X.astype(np.float32), y.astype(np.float32)
+    plan = T.Plan(alpha=0.9, n_lambdas=100, min_ratio=0.1, tol=1e-6,
+                  max_iter=6000, check_every=50, screen="gapsafe")
+    sess = T.SGLSession(T.Problem.sgl_logistic(X32, y32, [n] * G))
+    sess64 = f64_session(torch, T, X, y, [n] * G, loss="logistic")
+    res, launches = {}, {}
+    for dt, ss in (("f32", sess), ("f64", sess64)):
+        for screen in ("gapsafe", "none"):
+            label = f"logistic-{screen}-{dt}"
+            r, counts, _, calls = run_path(torch, ss,
+                                           plan.with_(screen=screen), label)
+            res[screen, dt], launches[screen, dt] = r, counts
+            if dt == "f64":
+                require_no_kernel(counts, label)
+                continue
+            st = r.stats
+            require_graph_route(r, counts, calls, label)
+            require(counts["xtv"] == calls.rows > 0,
+                    f"{label}: xtv launches {counts['xtv']} != rows solved "
+                    f"{calls.rows}")
+            require(counts["screen_norms"] == st.n_pallas_screens
+                    == st.n_screens,
+                    f"{label}: screen_norms launches "
+                    f"{counts['screen_norms']}, n_pallas_screens "
+                    f"{st.n_pallas_screens}, screens {st.n_screens}")
+            require(counts["screen_norms_folds"] ==
+                    counts["dpc_screen_folds"] == 0,
+                    f"{label}: a fold kernel was launched")
+            warm_call(torch, ss, plan.with_(screen=screen), label)
+        agree = float(np.abs(res["gapsafe", dt].betas
+                             - res["none", dt].betas).max())
+        say(f"[logistic-{dt}] max|beta_gapsafe - beta_none| = {agree:.3e} "
+            f"(bound 1e-3)")
+        require(agree <= 1e-3, f"logistic-{dt}: the screened path drifts "
+                f"from the unscreened one")
+    say(f"[logistic] f32 Gap-Safe n_rejected "
+        f"{res['gapsafe', 'f32'].stats.n_rejected}")
+
+    compare_paths(res["gapsafe", "f32"], res["gapsafe", "f64"], plan,
+                  spec_objectives(X32, y32, sess.problem.spec, 0.9,
+                                  res["gapsafe", "f32"].lambdas,
+                                  loss="logistic"), "logistic")
+    require_discards(torch, T, sess, res["gapsafe", "f32"],
+                     res["gapsafe", "f64"], plan, "logistic",
+                     screen="gapsafe")
+    return launches["gapsafe", "f32"]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -1184,12 +1618,27 @@ def main() -> int:
     counts_nn = nn_path(torch, T)
     counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
     counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
+    new_paths = {}
+    with timed_phase("gapsafe-sgl"):
+        new_paths["synthetic1-gapsafe-path"] = gapsafe_path_phase(torch, T,
+                                                                  res)
+    with timed_phase("weights"):
+        for label, c in weights_phase(torch, T).items():
+            new_paths[f"synthetic1-{label}-path"] = c
+    with timed_phase("gapsafe-nn"):
+        new_paths["table3-nn-gapsafe-path"] = gapsafe_nn_path_phase(torch, T)
+    with timed_phase("gapsafe-sgl-cv"):
+        new_paths["sgl-cv-gapsafe"] = gapsafe_sgl_cv_phase(torch, T)
+    with timed_phase("gapsafe-nn-cv"):
+        new_paths["nn-cv-gapsafe"] = gapsafe_nn_cv_phase(torch, T)
+    with timed_phase("logistic"):
+        new_paths["logistic-gapsafe-path"] = logistic_phase(torch, T)
     rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                          snf_shape, dsf_shape)
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,
-               "nn-cv": counts_nn_cv}
+               "nn-cv": counts_nn_cv, **new_paths}
     own = {"screen_norms_folds": counts_sgl_cv,
            "dpc_screen_folds": counts_nn_cv}     # else the main path's
     kernels = []

@@ -4,7 +4,10 @@ Public surface:
   Problem, Plan, SGLSession   problem spec, run config, ``.path`` / ``.cv``
   GroupSpec                   group bookkeeping (ragged + padded views)
   lambda_max_sgl, dual_scaling_sgl, group_shrink_roots
+  SQUARED, LOGISTIC, get_loss the smooth data-fit terms
   tlfre_screen_grid, fista_sgl, sgl_path_batched
+  gap_safe_screen_grid, gap_safe_grid_radii(_loss)
+                              the Gap-Safe grid rules (beyond the paper)
   fista_sgl_graphed
                               the FISTA block replayed as a CUDA graph (card)
   lambda_max_nn, dual_scaling_nn, dpc_screen_grid, fista_nn_lasso,
@@ -14,16 +17,20 @@ Public surface:
 """
 from .groups import (GroupSpec, broadcast_to_features, group_max_abs,
                      group_norms, group_sum, pad_groups, resolve_device)
-from .fenchel import sgl_penalty, shrink, weighted_l1
-from .losses import SQUARED, SquaredLoss, get_loss
+from .fenchel import (sgl_dual_feasible, sgl_feasibility_margin,
+                      sgl_penalty, shrink, weighted_l1)
+from .losses import (LOGISTIC, SQUARED, LogisticLoss, Loss, SquaredLoss,
+                     get_loss)
 from .lambda_max import dual_scaling_sgl, group_shrink_roots, lambda_max_sgl
 from .estimation import normal_vector_sgl, project_out_normal
-from .screening import (grid_ball_geometry, grid_ball_geometry_folds,
+from .screening import (gap_safe_grid_radii, gap_safe_grid_radii_loss,
+                        gap_safe_screen_grid, gap_safe_screen_grid_folds,
+                        grid_ball_geometry, grid_ball_geometry_folds,
                         sup_shrink_norm, tlfre_screen_grid,
                         tlfre_screen_grid_folds)
 from .dpc import (dpc_screen_grid, dpc_screen_grid_folds, dual_scaling_nn,
-                  lambda_max_nn, normal_vector_nn, nn_dual_objective,
-                  nn_primal_objective)
+                  gap_safe_screen_grid_nn, lambda_max_nn, normal_vector_nn,
+                  nn_dual_objective, nn_primal_objective)
 from .prox import nn_lasso_prox, sgl_prox
 from .linalg import (column_norms, group_frobenius_norms,
                      group_spectral_norms, spectral_norm)

@@ -17,7 +17,11 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     stacked GEMMs, one per scheduler step.  On float32 problems the
     reductions after the GEMM run through the fold-stack kernels
     (``screen_norms_folds`` / ``dpc_screen_folds``), counted in
-    ``EngineStats.n_pallas_screens``; float64 runs never engage them.
+    ``EngineStats.n_pallas_screens``; float64 runs never engage them, nor
+    do adaptive feature weights.  ``screen='gapsafe'`` intersects each
+    fold's screen with the Gap-Safe ball around its latest certified dual:
+    GEMV-sized work, and for SGL one more ``screen_norms_folds`` launch of
+    K rows per stacked screen.
 
   * **Fold sweeps.**  A launch takes a cohort of folds on one common
     feature bucket.  The reference vmaps the single-fold sweep over the
@@ -35,9 +39,10 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     are ready).  ``schedule='lockstep'`` runs one cohort of every ready fold
     per step with one shared chunk length.
 
-Not ported yet, and refused with ``NotImplementedError``: the Gap-Safe
-screen in CV (ROADMAP queue 1, item 8), ``init=`` warm states and the
-``refine`` / ``stability`` verbs that use them (item 9), a fold mesh
+A loss whose masked rows do not vanish (logistic) is refused with
+``NotImplementedError``, as in the reference.  Not ported yet, and refused
+with ``NotImplementedError``: ``init=`` warm states and the ``refine`` /
+``stability`` verbs that use them (ROADMAP queue 1, item 9), a fold mesh
 (items 9 and 13) and feature sharding (item 13).
 """
 from __future__ import annotations
@@ -49,8 +54,8 @@ import numpy as np
 import torch
 
 from .dpc import dpc_screen_grid_folds
-from .fenchel import shrink
-from .groups import GroupSpec
+from .fenchel import sgl_penalty, shrink
+from .groups import GroupSpec, group_sum
 from .lambda_max import lambda_max_sgl
 from .linalg import group_spectral_norms, spectral_norm
 from .losses import SQUARED, get_loss
@@ -59,7 +64,8 @@ from .path_engine import (EngineStats, _expand_set, _feature_bucket,
                           _kernels_active, _pow2_len, _refuse_tf32, _sync,
                           margin_fill_nn, margin_fill_sgl, sweep_nn_core,
                           sweep_sgl_core)
-from .screening import _require_f32_for_pallas, tlfre_screen_grid_folds
+from .screening import (_require_f32_for_pallas, gap_safe_grid_radii,
+                        gap_safe_screen_grid_folds, tlfre_screen_grid_folds)
 
 SCHEDULES = ("elastic", "lockstep")
 
@@ -138,10 +144,7 @@ def _host(a) -> np.ndarray:
     return np.asarray(a, dtype=float)
 
 
-def _refuse_unported(screen: str, mesh, init, feature_shards) -> None:
-    if screen == "gapsafe":
-        raise NotImplementedError(
-            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+def _refuse_unported(mesh, init, feature_shards) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a fold mesh is not ported yet (ROADMAP queue 1, items 9 and 13)")
@@ -166,32 +169,51 @@ def _boundary_normals(Y, lam_bars, lam_maxs, theta_bars, n_bound):
 
 
 def _screen_folds_sgl(X, Y, spec, alpha, rem, lam_bars, lam_maxs, theta_bars,
-                      n_bound, col_n_f, gspec_f, safety, mus, *, screen: str,
-                      use_kernels: bool):
-    """Stacked TLFre screen for K folds x L lambdas: exactly one
-    ``(K*L, N) x (N, p)`` GEMM.  ``mus`` (None, or (K, p) per-fold column
-    means) applies the centering rank-one corrections.  Returns feat_keep
-    (K, L, p)."""
-    if screen == "gapsafe":
-        raise NotImplementedError(
-            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+                      n_bound, beta_prev, c_prev, masks, col_n_f, gspec_f,
+                      safety, mus, *, screen: str, use_kernels: bool):
+    """Stacked TLFre (+ optional Gap-Safe) screen for K folds x L lambdas:
+    exactly one ``(K*L, N) x (N, p)`` GEMM.  The Gap-Safe intersection adds
+    GEMV-sized work: each fold's ball center ``c_prev`` (K, p), the
+    correlation of its latest certified dual, is fixed across the grid, and
+    its radii come from the fold's latest certified ``beta_prev`` (K, p).
+    ``mus`` (None, or (K, p) per-fold column means) applies the centering
+    rank-one corrections.  Returns feat_keep (K, L, p)."""
     n_vecs = _boundary_normals(Y, lam_bars, lam_maxs, theta_bars, n_bound)
     _, fk, _ = tlfre_screen_grid_folds(X, Y, spec, alpha, rem, theta_bars,
                                        n_vecs, col_n_f, gspec_f,
                                        safety=safety, mus=mus,
                                        use_kernels=use_kernels)
+    if screen == "gapsafe":
+        fit = beta_prev @ X.T
+        if mus is not None:     # centered fit: (X - 1 mu^T) beta
+            fit = fit - torch.sum(beta_prev * mus, dim=1)[:, None]
+        resid = Y - masks * fit
+        pen = torch.stack([sgl_penalty(spec, b, alpha) for b in beta_prev])
+        radii = gap_safe_grid_radii(Y, rem, theta_bars, resid,
+                                    pen) * (1.0 + safety)
+        _, fk_dyn = gap_safe_screen_grid_folds(spec, alpha, c_prev, radii,
+                                               col_n_f, gspec_f,
+                                               use_kernels=use_kernels)
+        fk = fk & fk_dyn
     return fk
 
 
 def _screen_folds_nn(X, Y, rem, lam_bars, lam_maxs, theta_bars, n_bound,
-                     col_n_f, safety, *, screen: str, use_kernels: bool):
-    """Stacked DPC screen; one GEMM for all folds.  Returns (K, L, p)."""
-    if screen == "gapsafe":
-        raise NotImplementedError(
-            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+                     beta_prev, c_prev, masks, col_n_f, safety, *,
+                     screen: str, use_kernels: bool):
+    """Stacked DPC (+ optional Gap-Safe) screen; one GEMM for all folds.
+    Returns (K, L, p)."""
     n_vecs = _boundary_normals(Y, lam_bars, lam_maxs, theta_bars, n_bound)
     fk, _ = dpc_screen_grid_folds(X, Y, rem, theta_bars, n_vecs, col_n_f,
                                   safety=safety, use_kernels=use_kernels)
+    if screen == "gapsafe":
+        resid = Y - masks * (beta_prev @ X.T)
+        pen = torch.sum(beta_prev, dim=1)         # beta >= 0 => l1 = sum
+        radii = gap_safe_grid_radii(Y, rem, theta_bars, resid,
+                                    pen) * (1.0 + safety)
+        # gap_safe_screen_grid_nn of every fold at once
+        fk = fk & (c_prev[:, None, :] + radii[:, :, None]
+                   * col_n_f[:, None, :] >= 1.0)
     return fk
 
 
@@ -334,6 +356,7 @@ class _FoldEngine:
         self.min_bucket = min_bucket
         self.margin = margin
         self.kernels = kernels
+        self.screen_kernels = kernels    # the screen's reductions
         self.screen_mode = screen_mode
         self.stats = stats
         self.seen_keys = seen_keys
@@ -379,7 +402,7 @@ class _FoldEngine:
         ts = time.perf_counter()
         fk_np = self._screen_call(act, rem).cpu().numpy()   # one host read
         self.stats.n_screens += 1                           # ONE GEMM issued
-        self.stats.n_pallas_screens += int(self.kernels)
+        self.stats.n_pallas_screens += int(self.screen_kernels)
         self.screen_time += time.perf_counter() - ts
         return fk_np
 
@@ -562,6 +585,10 @@ class _SGLFoldEngine(_FoldEngine):
         self.gid = spec.group_ids.cpu().numpy()
         self.sizes_np = spec.sizes.cpu().numpy()
         self.weights_np = spec.weights.cpu().numpy()
+        self.fw_np = (None if spec.feature_weights is None
+                      else spec.feature_weights.cpu().numpy())
+        # the fused group statistics take one l1 threshold
+        self.screen_kernels = self.kernels and self.fw_np is None
         self.min_group_bucket = min_group_bucket
 
     def _screen_call(self, act: np.ndarray, rem: np.ndarray):
@@ -570,9 +597,11 @@ class _SGLFoldEngine(_FoldEngine):
             self.X, self.Y[a_idx], self.spec, self.alpha, self._dev(rem),
             self._dev(self.lam_bar[act]), self.lam_max_f[a_idx],
             self._dev(self.Theta[act]), self.n_bound[a_idx],
+            self._dev(self.Beta[act]), self._dev(self.Cprev[act]),
+            self.masks_d[a_idx],
             self.col_n_f[a_idx], self.gspec_f[a_idx], self.safety,
             self.mus_d[a_idx] if self.centered else None,
-            screen=self.screen_mode, use_kernels=self.kernels)
+            screen=self.screen_mode, use_kernels=self.screen_kernels)
 
     def make_launch(self, cohort) -> _Launch:
         ts = time.perf_counter()
@@ -586,7 +615,7 @@ class _SGLFoldEngine(_FoldEngine):
         for (k, _, _, _), S in zip(cohort, S_list):
             # same margin rule as the single-fold engine, per-fold c_prev
             margin_fill_sgl(S, self.Cprev[k], self.gid, self.sizes_np,
-                            self.weights_np, p_b, g_b)
+                            self.weights_np, p_b, g_b, self.fw_np)
 
         Ka = len(cohort)
         len2, lam_pads, valids = self._launch_args(cohort)
@@ -640,8 +669,9 @@ class _NNFoldEngine(_FoldEngine):
             self.X, self.Y[a_idx], self._dev(rem),
             self._dev(self.lam_bar[act]), self.lam_max_f[a_idx],
             self._dev(self.Theta[act]), self.n_bound[a_idx],
-            self.col_n_f[a_idx], self.safety, screen=self.screen_mode,
-            use_kernels=self.kernels)
+            self._dev(self.Beta[act]), self._dev(self.Cprev[act]),
+            self.masks_d[a_idx], self.col_n_f[a_idx], self.safety,
+            screen=self.screen_mode, use_kernels=self.kernels)
 
     def make_launch(self, cohort) -> _Launch:
         ts = time.perf_counter()
@@ -725,20 +755,28 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     ``compile_keys`` and ``fista_graphs`` as in ``sgl_path_batched``.
     Returns ``(betas (K, J, p), kept (K, J), iters (K, J), stats,
     (screen_time, solve_time, setup_time))``; grid points at or above a
-    fold's own lambda_max get exact zeros."""
+    fold's own lambda_max get exact zeros.
+
+    ``loss`` must support the masked-row embedding (``f(0, 0) == 0`` per
+    sample); the logistic loss does not and raises
+    ``NotImplementedError``.  With adaptive feature weights the screen's
+    fold-stack statistics and the fused prox (one l1 threshold each) run
+    plainly; ``xtv`` still certifies every row."""
     if screen not in ("tlfre", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
-    _refuse_unported(screen, mesh, init, feature_shards)
     loss = get_loss(loss)
-    if spec.feature_weights is not None:
+    if not loss.supports_masked_rows:
+        # the masked-row embedding needs f(0, 0) == 0 per sample so held-out
+        # rows drop out of every inner product; the logistic NLL has
+        # f(0, 0) = log 2, so fold batching would corrupt every certificate
         raise NotImplementedError(
-            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
-            "item 8)")
+            f"fold-batched paths require a loss whose masked rows vanish; "
+            f"{loss.name!r} does not support the masked-row embedding")
+    _refuse_unported(mesh, init, feature_shards)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev, dtype = X.device, X.dtype
     N, p = X.shape
-    G = spec.num_groups
     K = masks_np.shape[0]
     J = len(lambdas)
     centered = mus is not None
@@ -768,8 +806,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
                                        else X), spec)
             for k in range(K)])
     else:
-        gspec_f = torch.sqrt(torch.zeros((K, G), dtype=dtype, device=dev)
-                             .index_add_(1, spec.group_ids, col2_f))
+        gspec_f = torch.sqrt(group_sum(spec, col2_f))
     # boundary normal of Theorem 12 at each fold's own lambda_max, masked
     lam_max_np = lam_max_f.cpu().numpy().astype(float)
     lam_max_div = torch.as_tensor(np.where(lam_max_np > 0, lam_max_np, 1.0),
@@ -817,7 +854,7 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
     all-zero path and drops out."""
     if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
-    _refuse_unported(screen, mesh, init, feature_shards)
+    _refuse_unported(mesh, init, feature_shards)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev = X.device

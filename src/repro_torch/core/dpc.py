@@ -7,7 +7,7 @@ Theorem 21 the normal-cone dual ball, Theorem 22 the DPC rule:
     <x_i, o> + r * ||x_i|| < 1   =>   beta_i* = 0.
 
 The feature-sharded screens (``_feat``) wait for feature sharding (ROADMAP
-queue 1, item 13) and ``gap_safe_screen_grid_nn`` for Gap-Safe (item 8).
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -76,6 +76,13 @@ def dpc_screen_grid_folds(X, Y, lambdas, Theta_bar, N_vecs, col_norms_f,
             col_norms_f.to(torch.float32).contiguous()), radii
     omega = C + radii[:, :, None] * col_norms_f[:, None, :]
     return omega >= 1.0, radii
+
+
+def gap_safe_screen_grid_nn(c_theta, radii, col_norms):
+    """Gap-Safe DPC grid rules for a fixed feasible center: one GEMV, radii
+    vary per lambda.  Returns feat_keep (L, p)."""
+    omega = c_theta[None, :] + radii[:, None] * col_norms[None, :]
+    return omega >= 1.0
 
 
 def dual_scaling_nn(xt_rho: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _checked_weights(values, n: int, name: str,
+                     positive: bool = True) -> np.ndarray:
+    """``values`` as a float64 (n,) array; a wrong shape, or with
+    ``positive`` a value that is not > 0, raises ``ValueError``."""
+    arr = np.asarray(values, dtype=np.float64)
+    if arr.shape != (n,):
+        raise ValueError(f"{name} must have shape ({n},), got {arr.shape}")
+    if positive and not np.all(arr > 0):
+        raise ValueError(f"{name} must be strictly positive")
+    return arr
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
     sizes: torch.Tensor        # (G,) int64   features per group
@@ -120,19 +132,28 @@ class GroupSpec:
         if weights is None:
             w_np = np.sqrt(sizes_np.astype(np.float64))
         else:
-            w_np = np.asarray(weights, dtype=np.float64)
-            if w_np.shape != (G,):
-                raise ValueError("weights must have shape (G,)")
-        fw_np = None
-        if feature_weights is not None:
-            fw_np = np.asarray(feature_weights, dtype=np.float64)
-            if fw_np.shape != (p,):
-                raise ValueError("feature_weights must have shape (p,)")
-            if (fw_np <= 0).any():
-                raise ValueError("feature_weights must be strictly positive")
+            w_np = _checked_weights(weights, G, "weights", positive=False)
+        fw_np = (None if feature_weights is None else
+                 _checked_weights(feature_weights, p, "feature_weights"))
         return cls.from_arrays(
             sizes_np, starts_np, gid_np, w_np, pad_idx, pad_mask, fw_np,
             uniform=bool((sizes_np == sizes_np[0]).all()), device=device)
+
+    def reweighted(self, group_weights=None,
+                   feature_weights=None) -> "GroupSpec":
+        """This spec with adaptive ``group_weights`` (G,) and/or
+        per-feature l1 ``feature_weights`` (p,) in place of its own, each
+        strictly positive; with neither, this spec object itself."""
+        spec, dev = self, self.device
+        if group_weights is not None:
+            spec = dataclasses.replace(spec, weights=torch.as_tensor(
+                _checked_weights(group_weights, self.num_groups,
+                                 "group_weights"), device=dev))
+        if feature_weights is not None:
+            spec = dataclasses.replace(spec, feature_weights=torch.as_tensor(
+                _checked_weights(feature_weights, self.num_features,
+                                 "feature_weights"), device=dev))
+        return spec
 
     @classmethod
     def uniform_groups(cls, num_groups: int, group_size: int,
@@ -199,9 +220,18 @@ class GroupSpec:
 # ---------------------------------------------------------------------------
 
 def group_sum(spec: GroupSpec, x: torch.Tensor) -> torch.Tensor:
-    """Per-group sum of a (p,) vector -> (G,); empty groups give 0."""
-    out = torch.zeros(spec.num_groups, dtype=x.dtype, device=x.device)
-    return out.index_add_(0, spec.group_ids, x)
+    """Per-group sums over the last axis: (..., p) -> (..., G); empty
+    groups give 0.  The groups are contiguous runs of ``sizes`` (summing
+    to p), so a segment reduction adds each group's entries in feature
+    order and gives the same sums on every run; a scatter-add on the card
+    adds through atomics in no fixed order."""
+    rows = x.reshape(-1, spec.num_features).shape[0]
+    lengths = spec.sizes if rows == 1 else spec.sizes.repeat(rows)
+    # unsafe: no check of the lengths against x, which would read them on
+    # the host (and break a CUDA graph capture)
+    out = torch.segment_reduce(x.reshape(-1), "sum", lengths=lengths,
+                               unsafe=True)
+    return out.reshape(*x.shape[:-1], spec.num_groups)
 
 
 def group_norms(spec: GroupSpec, x: torch.Tensor) -> torch.Tensor:

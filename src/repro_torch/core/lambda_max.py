@@ -10,6 +10,8 @@ With ``z`` = |X_g^T y| sorted descending and ``rho`` in the segment
     (k - T) rho^2 - 2 ||z^(k)||_1 rho + ||z^(k)||^2 = 0,   T = (alpha w_g)^2.
 
 All segments are solved vectorised and the unique in-segment root selected.
+Adaptive per-feature l1 weights ``w_i`` generalise the equation to
+``sum_i (z_i/rho - w_i)_+^2 == T`` (``_padded_segment_roots_w``).
 """
 from __future__ import annotations
 
@@ -64,16 +66,68 @@ def _padded_segment_roots(z: torch.Tensor,
     return torch.max(cand, dim=1).values
 
 
+def _padded_segment_roots_w(z: torch.Tensor, w: torch.Tensor,
+                            target_sq: torch.Tensor) -> torch.Tensor:
+    """Adaptive-l1 generalisation: root of
+    ``sum_i (z_i/rho - w_i)_+^2 == target_sq`` per row.
+
+    z, w: (G, n_max) nonnegative (invalid slots zero in BOTH), target_sq:
+    (G,).  Feature i is active iff ``z_i/w_i > rho``, so segments are
+    ordered by the ratio; within segment k the equation is the quadratic
+
+        (||w^(k)||^2 - T) rho^2 - 2 <z^(k), w^(k)> rho + ||z^(k)||^2 = 0
+
+    which reduces to ``_padded_segment_roots`` when w == 1.  Padding slots
+    carry w == 0 and z == 0, so they never contribute.
+    """
+    tiny = 1e-30
+    ratio = torch.where(w > 0, z / torch.clamp(w, min=tiny), 0.0)
+    order = torch.argsort(ratio, dim=1, descending=True, stable=True)
+    zs = torch.gather(z, 1, order)
+    ws = torch.gather(w, 1, order)
+    rs = torch.gather(ratio, 1, order)
+    cs_zw = torch.cumsum(zs * ws, dim=1)
+    cs_z2 = torch.cumsum(zs * zs, dim=1)
+    cs_w2 = torch.cumsum(ws * ws, dim=1)
+
+    a = cs_w2 - target_sq[:, None]
+    b = -2.0 * cs_zw
+    c = cs_z2
+    disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+    sq = torch.sqrt(disc)
+    safe_a = torch.where(torch.abs(a) > tiny, a, tiny)
+    r_plus = (-b + sq) / (2.0 * safe_a)
+    r_minus = (-b - sq) / (2.0 * safe_a)
+    r_lin = torch.where(cs_zw > 0, cs_z2 / (2.0 * cs_zw), 0.0)
+    seg_tol = max(1e-9, 128.0 * torch.finfo(z.dtype).eps)
+    lin = torch.abs(a) <= seg_tol * torch.maximum(
+        cs_w2, target_sq[:, None].expand_as(cs_w2))
+
+    hi = rs                                              # bounds in rho
+    lo = torch.cat([rs[:, 1:], torch.zeros_like(rs[:, :1])], dim=1)
+    span = torch.clamp(hi[:, :1], min=1.0)
+    eps = seg_tol * span
+
+    def in_seg(r):
+        return (r >= lo - eps) & (r <= hi + eps) & (r > 0)
+
+    cand = torch.where(lin & in_seg(r_lin), r_lin, 0.0)
+    cand = torch.maximum(cand, torch.where(~lin & in_seg(r_plus), r_plus, 0.0))
+    cand = torch.maximum(cand,
+                         torch.where(~lin & in_seg(r_minus), r_minus, 0.0))
+    return torch.max(cand, dim=1).values
+
+
 def group_shrink_roots(spec: GroupSpec, c: torch.Tensor,
                        alpha) -> torch.Tensor:
-    """rho_g per group for c = X^T y (Lemma 9, weighted).  Shape (G,)."""
-    if spec.feature_weights is not None:
-        raise NotImplementedError(
-            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
-            "item 8)")
+    """rho_g per group for c = X^T y (Lemma 9, weighted).  Shape (G,).
+    The weights are float64 master data, cast to c's dtype."""
     z = pad_groups(spec, torch.abs(c))
     target_sq = (alpha * spec.weights.to(z.dtype)) ** 2
-    return _padded_segment_roots(z, target_sq)
+    if spec.feature_weights is None:
+        return _padded_segment_roots(z, target_sq)
+    w = pad_groups(spec, spec.feature_weights.to(z.dtype))
+    return _padded_segment_roots_w(z, w, target_sq)
 
 
 def lambda_max_sgl(spec: GroupSpec, xty: torch.Tensor, alpha):

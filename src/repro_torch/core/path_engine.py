@@ -9,7 +9,10 @@ Each segment of the path does three things:
      shot: the Theorem-12 ball centers share ``theta_bar``, so the L
      screening GEMVs collapse into one (L, N) x (N, p) GEMM; the group
      statistics go through the ``screen_norms`` kernel.  Row 0 of the grid
-     (the next lambda) is the segment's safe base set.
+     (the next lambda) is the segment's safe base set.  ``screen='gapsafe'``
+     intersects it with the Gap-Safe ball around the latest certified dual
+     (a GEMV-sized step: the center is fixed across the grid, only the
+     radii vary); a non-squared loss screens with that ball alone.
 
   2. **Speculative bucketed sweep with certification.**  The next ``m``
      lambdas are solved on one feature set S = safe base set + nearby-row
@@ -31,9 +34,13 @@ replay of a captured CUDA graph (``solver.fista_sgl_graphed``).  Sweep
 shapes are counted with the reference's compile keys, so
 ``EngineStats.n_compilations`` reports the same numbers (a warm second call
 reports 0).  The kernels run for float32 on CUDA (``_kernels_active``) and
-never for float64.  The nonnegative-Lasso path has the same three steps
-with the DPC grid rule (Theorem 22) and the prox ``(v - t*lam)_+``; its
-only kernel is the ``xtv`` certification GEMV.
+never for float64.  Each kernel is gated on the function it computes:
+``xtv`` certifies every row whatever the loss or weights; ``sgl_prox``
+and the ``screen_norms`` group statistics take one l1 threshold, so they
+run whenever the spec carries no adaptive feature weights, whatever the
+loss.  The nonnegative-Lasso path has the same three steps with the DPC
+grid rule (Theorem 22) and the prox ``(v - t*lam)_+``; its only kernel is
+the ``xtv`` certification GEMV.
 """
 from __future__ import annotations
 
@@ -44,8 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dpc import (dpc_screen_grid, dual_scaling_nn, lambda_max_nn,
-                  normal_vector_nn)
+from .dpc import (dpc_screen_grid, dual_scaling_nn, gap_safe_screen_grid_nn,
+                  lambda_max_nn, normal_vector_nn)
 from .estimation import normal_vector_sgl
 from .fenchel import sgl_penalty
 from .groups import GroupSpec
@@ -54,7 +61,9 @@ from .linalg import (column_norms, group_frobenius_norms,
                      group_spectral_norms, spectral_norm)
 from .losses import SQUARED, get_loss
 from .path import PathResult, _bucket, default_lambda_grid
-from .screening import _require_f32_for_pallas, tlfre_screen_grid
+from .screening import (_require_f32_for_pallas, gap_safe_grid_radii,
+                        gap_safe_grid_radii_loss, gap_safe_screen_grid,
+                        tlfre_screen_grid)
 from .solver import fista_nn_lasso, fista_sgl, fista_sgl_graphed
 
 
@@ -65,8 +74,9 @@ class EngineStats:
     ``n_segments`` counts sweep round-trips, ``n_compilations`` distinct
     sweep shapes (the reference's jit compilations), ``n_rejected``
     speculative rows whose certificate failed, ``n_pallas_screens`` grid
-    screens that ran through the fused kernels (always 0 on float64
-    paths), ``fista_iters`` the FISTA iterations run (rejected rows'
+    screens whose group statistics ran through the fused kernels (always
+    0 on float64 paths and under feature weights; on a float32 logistic
+    path, unlike the reference's, every screen), ``fista_iters`` the FISTA iterations run (rejected rows'
     included).  ``fold_sweeps`` (fold drivers only) counts, per fold, the
     sweep launches the fold took part in."""
     n_segments: int = 0
@@ -134,6 +144,17 @@ def _padded_prox(spec: GroupSpec):
     return prox
 
 
+def _scatter_beta(beta_sub, col_dev, p: int):
+    """The full (p,) coefficient vector of a bucketed row, on its device:
+    the row's first ``len(col_dev)`` entries go to columns ``col_dev``
+    (``None``: the row spans every column already)."""
+    if col_dev is None:
+        return beta_sub
+    out = torch.zeros(p, dtype=beta_sub.dtype, device=beta_sub.device)
+    out[col_dev] = beta_sub[:col_dev.shape[0]]
+    return out
+
+
 def _pow2_len(m: int) -> int:
     b = 1
     while b < m:
@@ -173,14 +194,16 @@ def _expand_set(base, fk_np, cap: int):
 
 
 def margin_fill_sgl(S, c_prev_np, gid, sizes_np, weights_np, p_b: int,
-                    g_b: int):
+                    g_b: int, feature_weights_np=None):
     """Fill spare bucket capacity with whole groups ranked by their dual
     correlation (Lemma-9 margin at the latest exact dual ``c_prev``).
+    With adaptive l1 weights the shrinkage threshold is per-feature.
     Mutates ``S``."""
     if S.all():
         return
     G = len(sizes_np)
-    shr = np.sign(c_prev_np) * np.maximum(np.abs(c_prev_np) - 1.0, 0.0)
+    thresh = 1.0 if feature_weights_np is None else feature_weights_np
+    shr = np.sign(c_prev_np) * np.maximum(np.abs(c_prev_np) - thresh, 0.0)
     score = np.sqrt(np.bincount(gid, weights=shr * shr,
                                 minlength=G)) / weights_np
     g_S = np.unique(gid[S])
@@ -245,9 +268,12 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
     """The SGL sweep over the rows of ``lams`` (a device grid; ``valid``
     marks the real rows); see ``_certified_rows``.
 
-    With the kernels on the card, each row's FISTA replays its blocks from
-    a CUDA graph in ``graphs`` (``fista_sgl_graphed``); elsewhere it runs
-    ``fista_sgl`` eagerly (through the plain prox on the CPU).
+    ``use_kernels`` runs the certification GEMV through ``xtv``, and,
+    when ``sub_spec`` carries no feature weights (the fused prox takes one
+    l1 threshold), FISTA through ``sgl_prox``: on the card each row replays
+    its blocks from a CUDA graph in ``graphs`` (``fista_sgl_graphed``);
+    elsewhere ``fista_sgl`` runs eagerly (through the plain prox on the
+    CPU).
 
     ``mu`` (optional, (p,)): per-fold column means for leakage-free
     centering.  The certification GEMV runs against the SHARED design, so
@@ -255,11 +281,12 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
     ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked)."""
     tol = loss.effective_tol(tol, y.dtype)
     kw = dict(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
-    if use_kernels and X_sub.device.type == "cuda":
+    fused = use_kernels and sub_spec.feature_weights is None
+    if fused and X_sub.device.type == "cuda":
         kw["graphs"] = graphs
         solve = fista_sgl_graphed
     else:
-        kw["prox"] = _padded_prox(sub_spec) if use_kernels else None
+        kw["prox"] = _padded_prox(sub_spec) if fused else None
         solve = fista_sgl
 
     def solve_row(lam, b):
@@ -320,21 +347,28 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     """Batched SGL path: grid screening, speculative bucketed sweeps with
     per-row certification.  ``X``, ``y`` and ``spec`` lie on one device.
 
+    ``screen='gapsafe'`` intersects the TLFre screen with the Gap-Safe ball
+    around the latest certified dual (both balls hold the dual optimum).
+    ``loss`` (a ``core.losses`` singleton or name) swaps the smooth
+    data-fit term; a non-squared loss screens with the Gap-Safe ball only
+    (TLFre's Theorem-12 ball is squared-loss algebra).  On the float32
+    kernel route ``xtv`` runs for every loss and weighting; ``sgl_prox``
+    and ``screen_norms`` take one l1 threshold and run whenever the spec
+    has no adaptive feature weights.
+
     ``use_kernels=True`` with a float64 problem raises ``TypeError``: the
     float32 kernels would void the float64 exactness of the screen.
     ``compile_keys`` is an optional persistent set of sweep-shape keys and
     ``fista_graphs`` an optional persistent cache of captured FISTA blocks
     (both owned by ``SGLSession``)."""
-    if screen == "gapsafe":
-        raise NotImplementedError(
-            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
-    if screen not in ("tlfre", "none"):
+    if screen not in ("tlfre", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
     loss = get_loss(loss)
-    if spec.feature_weights is not None:
-        raise NotImplementedError(
-            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
-            "item 8)")
+    squared = loss.name == "squared"
+    if not squared and screen == "tlfre":
+        raise ValueError(
+            f"screen='tlfre' requires squared loss (Theorem 12 is "
+            f"squared-loss algebra); use screen='gapsafe' for {loss.name}")
     if use_kernels and X.dtype == torch.float64:
         _require_f32_for_pallas(X.dtype)
     if X.device != y.device or X.device != spec.device:
@@ -344,6 +378,8 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     N, p = X.shape
     G = spec.num_groups
     kernels = _kernels_active(use_kernels, dtype, dev)
+    # the fused group statistics take one l1 threshold
+    fused_screen = kernels and spec.feature_weights is None
 
     t0 = time.perf_counter()
     r0 = loss.residual_at_zero(y)
@@ -374,11 +410,14 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     gid = spec.group_ids.cpu().numpy()
     sizes_np = spec.sizes.cpu().numpy()
     weights_np = spec.weights.cpu().numpy()
+    fw_np = (None if spec.feature_weights is None
+             else spec.feature_weights.cpu().numpy())
     gap_scale = loss.gap_scale_host(y)
 
     theta_bar = r0 / lam_max            # exact dual at lam_max (Thm 8)
     c_prev = xty / lam_max              # X^T theta_bar
     lam_bar = lam_max
+    beta_dev = torch.zeros(p, dtype=dtype, device=dev)   # Gap-Safe only
     beta_full = np.zeros(p)
     seen_keys = compile_keys if compile_keys is not None else set()
     graphs = fista_graphs if fista_graphs is not None else {}
@@ -394,15 +433,38 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         ts = time.perf_counter()
         if screen == "none":
             fk_np = np.ones((J - j, p), dtype=bool)
+        elif not squared:
+            # no Theorem-12 ball: the Gap-Safe ball around the latest
+            # certified dual is the only safe rule
+            fit = X @ beta_dev
+            resid = loss.residual(y, fit)
+            radii = gap_safe_grid_radii_loss(
+                loss, y, rem, theta_bar, fit, resid,
+                sgl_penalty(spec, beta_dev, alpha)) * (1.0 + safety)
+            _, fk = gap_safe_screen_grid(spec, alpha, c_prev, radii, col_n,
+                                         gspec, use_kernels=fused_screen)
+            fk_np = fk[:L_rem].cpu().numpy()        # one host read
+            stats.n_screens += 1
+            stats.n_pallas_screens += int(fused_screen)
         else:
             n_vec = normal_vector_sgl(X, y, spec, lam_bar, lam_max,
                                       theta_bar, g_star)
             _, fk, _ = tlfre_screen_grid(
                 X, y, spec, alpha, rem, lam_bar, theta_bar, n_vec, col_n,
-                gspec, safety=safety, use_kernels=kernels)
+                gspec, safety=safety, use_kernels=fused_screen)
+            if screen == "gapsafe":
+                # both balls hold the dual optimum, so their intersection
+                # screens harder than either alone
+                radii = gap_safe_grid_radii(
+                    y, rem, theta_bar, y - X @ beta_dev,
+                    sgl_penalty(spec, beta_dev, alpha)) * (1.0 + safety)
+                _, fk_dyn = gap_safe_screen_grid(spec, alpha, c_prev, radii,
+                                                 col_n, gspec,
+                                                 use_kernels=fused_screen)
+                fk = fk & fk_dyn
             fk_np = fk[:L_rem].cpu().numpy()        # one host read
             stats.n_screens += 1
-            stats.n_pallas_screens += int(kernels)
+            stats.n_pallas_screens += int(fused_screen)
         screen_time += time.perf_counter() - ts
 
         row_counts = fk_np.sum(axis=1)
@@ -413,6 +475,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
             lam_bar = float(lambdas[j + k - 1])
             theta_bar = r0 / lam_bar
             c_prev = xty / lam_bar
+            beta_dev = torch.zeros(p, dtype=dtype, device=dev)
             beta_full = np.zeros(p)
             j += k
             continue
@@ -425,21 +488,21 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         g_S = np.unique(gid[S])
         g_b = min(_bucket(len(g_S) + 2, min_group_bucket), G + 1)
         margin_fill_sgl(S, c_prev.cpu().numpy(), gid, sizes_np, weights_np,
-                        p_b, g_b)
+                        p_b, g_b, fw_np)
 
         m = min(J - j, spec_m)
 
         # ---- bucketed reduced problem + one sweep over the chunk --------
         ts = time.perf_counter()
         if S.all():
-            sub_spec, col_idx = spec, np.arange(p)
+            sub_spec, col_idx, col_dev = spec, np.arange(p), None
             X_sub, L_sub = X, L_full
             p_b, g_b = p, G
         else:
             sub_spec, col_idx = spec.bucketed_subset(S, p_b, g_b)
+            col_dev = torch.as_tensor(col_idx, device=dev)
             X_sub = torch.zeros((N, p_b), dtype=dtype, device=dev)
-            X_sub[:, :len(col_idx)] = X[:, torch.as_tensor(col_idx,
-                                                           device=dev)]
+            X_sub[:, :len(col_idx)] = X[:, col_dev]
             L_sub = spectral_norm(X_sub, iters=25) ** 2
         beta0 = np.zeros(p_b)
         beta0[:len(col_idx)] = beta_full[col_idx]
@@ -484,6 +547,8 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         kept_feat[j:j + k] = len(col_idx)       # columns entering the solver
         kept_grp[j:j + k] = len(np.unique(gid[S]))
         beta_full = chunk_rows[-1]
+        if screen == "gapsafe":         # the next screen's radii read it
+            beta_dev = _scatter_beta(betas_b[k - 1], col_dev, p)
         lam_bar = float(lam_chunk[k - 1])
         stats.n_segments += 1
         stats.buckets.append((p_b, g_b, m, k))
@@ -511,13 +576,11 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
                           compile_keys: Optional[set] = None) -> PathResult:
     """Batched nonnegative-Lasso path: whole-grid DPC screens, speculative
     bucketed sweeps with per-row certification (the single-device branch of
-    the reference).  ``use_kernels`` / ``compile_keys`` as in
-    ``sgl_path_batched``; the only kernel on this path is the ``xtv``
-    certification GEMV."""
-    if screen == "gapsafe":
-        raise NotImplementedError(
-            "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
-    if screen not in ("dpc", "none"):
+    the reference).  ``screen='gapsafe'`` intersects the DPC screen with
+    the Gap-Safe ball around the latest certified dual.  ``use_kernels`` /
+    ``compile_keys`` as in ``sgl_path_batched``; the only kernel on this
+    path is the ``xtv`` certification GEMV."""
+    if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
     if use_kernels and X.dtype == torch.float64:
         _require_f32_for_pallas(X.dtype)
@@ -556,6 +619,7 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
     theta_bar = y / lam_max
     c_prev = xty / lam_max
     lam_bar = lam_max
+    beta_dev = torch.zeros(p, dtype=dtype, device=dev)
     beta_full = np.zeros(p)
     seen_keys = compile_keys if compile_keys is not None else set()
     spec_m = max(int(chunk_init), 1)
@@ -574,6 +638,11 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
                                      i_star)
             fk, _ = dpc_screen_grid(X, y, rem, theta_bar, n_vec, col_n,
                                     safety=safety)
+            if screen == "gapsafe":
+                radii = gap_safe_grid_radii(
+                    y, rem, theta_bar, y - X @ beta_dev,
+                    torch.sum(beta_dev)) * (1.0 + safety)   # beta >= 0
+                fk = fk & gap_safe_screen_grid_nn(c_prev, radii, col_n)
             fk_np = fk[:L_rem].cpu().numpy()        # one host read
             stats.n_screens += 1
         screen_time += time.perf_counter() - ts
@@ -585,6 +654,7 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
             lam_bar = float(lambdas[j + k - 1])
             theta_bar = y / lam_bar
             c_prev = xty / lam_bar
+            beta_dev = torch.zeros(p, dtype=dtype, device=dev)
             beta_full = np.zeros(p)
             j += k
             continue
@@ -599,14 +669,14 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
 
         ts = time.perf_counter()
         if S.all():
-            col_idx = np.arange(p)
+            col_idx, col_dev = np.arange(p), None
             X_sub, L_sub = X, L_full
             p_b = p
         else:
             col_idx = np.nonzero(S)[0]
+            col_dev = torch.as_tensor(col_idx, device=dev)
             X_sub = torch.zeros((N, p_b), dtype=dtype, device=dev)
-            X_sub[:, :len(col_idx)] = X[:, torch.as_tensor(col_idx,
-                                                           device=dev)]
+            X_sub[:, :len(col_idx)] = X[:, col_dev]
             L_sub = spectral_norm(X_sub, iters=25) ** 2
         beta0 = np.zeros(p_b)
         beta0[:len(col_idx)] = beta_full[col_idx]
@@ -644,6 +714,8 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         iters[j:j + k] = iters_b[:k]
         kept_feat[j:j + k] = len(col_idx)       # columns entering the solver
         beta_full = chunk_rows[-1]
+        if screen == "gapsafe":
+            beta_dev = _scatter_beta(betas_b[k - 1], col_dev, p)
         lam_bar = float(lam_chunk[k - 1])
         stats.n_segments += 1
         stats.buckets.append((p_b, 0, m, k))

@@ -1,8 +1,9 @@
 """Declarative problem / plan specification (PyTorch port).
 
   * ``Problem`` — WHAT is being solved: the design matrix, the response,
-    the group structure (SGL) and the penalty family (``sgl`` or
-    ``nn_lasso``), as tensors on one device.
+    the group structure (SGL), the penalty family (``sgl`` or
+    ``nn_lasso``) and the loss (``squared`` or ``logistic``), as tensors on
+    one device.
   * ``Plan`` — HOW to solve it: lambda grid, alpha, screening rule and
     engine knobs.  It keeps the reference's fields; ``use_pallas`` becomes
     ``use_kernels``.  A value this port does not implement yet raises
@@ -20,10 +21,14 @@ import torch
 from .groups import GroupSpec, resolve_device
 
 PENALTIES = ("sgl", "nn_lasso")
+LOSSES = ("squared", "logistic")
 
-# screening rules per penalty family; "auto" resolves to the first entry
+# screening rules per penalty family; "auto" resolves to the first entry.
+# TLFre's dual geometry is squared-loss-only, so a non-squared loss
+# restricts to the Gap-Safe family.
 _SCREENS = {"sgl": ("tlfre", "gapsafe", "none"),
             "nn_lasso": ("dpc", "gapsafe", "none")}
+_SCREENS_NON_SQUARED = ("gapsafe", "none")
 
 
 def as_group_spec(groups, p: int, device) -> GroupSpec:
@@ -66,6 +71,9 @@ class Problem:
         if self.penalty not in PENALTIES:
             raise ValueError(f"unknown penalty {self.penalty!r}; "
                              f"expected one of {PENALTIES}")
+        if self.loss not in LOSSES:
+            raise ValueError(f"unknown loss {self.loss!r}; "
+                             f"expected one of {LOSSES}")
         if self.penalty == "sgl" and self.spec is None:
             raise ValueError("penalty='sgl' requires a GroupSpec")
         if self.penalty == "nn_lasso" and self.loss != "squared":
@@ -76,6 +84,9 @@ class Problem:
         if self.X.shape[0] != self.y.shape[0]:
             raise ValueError(f"X has {self.X.shape[0]} rows, "
                              f"y has {self.y.shape[0]}")
+        if self.loss == "logistic" and not bool(
+                torch.all((self.y == 0.0) | (self.y == 1.0))):
+            raise ValueError("loss='logistic' requires labels in {0, 1}")
 
     @classmethod
     def sgl(cls, X, y, groups=None, dtype=None, device=None) -> "Problem":
@@ -86,6 +97,18 @@ class Problem:
         X = _as_tensor(X, dtype, device)
         y = _as_tensor(y, X.dtype, device)
         return cls(X=X, y=y, spec=as_group_spec(groups, X.shape[1], device))
+
+    @classmethod
+    def sgl_logistic(cls, X, y, groups=None, dtype=None,
+                     device=None) -> "Problem":
+        """Sparse-group logistic regression: the SGL penalty on the
+        binomial negative log-likelihood.  ``y`` must be 0/1 labels.
+        ``device`` and ``dtype`` as in ``Problem.sgl``."""
+        device = resolve_device(device)
+        X = _as_tensor(X, dtype, device)
+        y = _as_tensor(y, X.dtype, device)
+        return cls(X=X, y=y, spec=as_group_spec(groups, X.shape[1], device),
+                   loss="logistic")
 
     @classmethod
     def nn_lasso(cls, X, y, dtype=None, device=None) -> "Problem":
@@ -163,29 +186,42 @@ class Plan:
         return dataclasses.replace(self, **overrides)
 
     def resolved_loss(self, problem_loss: str = "squared") -> str:
+        """The effective loss: the plan's explicit choice, or the
+        problem's (``loss='auto'``, the default)."""
         loss = problem_loss if self.loss == "auto" else self.loss
-        if loss == "logistic":
-            raise NotImplementedError(
-                "loss='logistic' is not ported yet (ROADMAP queue 1, item 10)")
-        if loss != "squared":
-            raise ValueError(f"unknown loss {loss!r}")
+        if loss not in LOSSES:
+            raise ValueError(f"unknown loss {loss!r}; "
+                             f"expected one of {('auto',) + LOSSES}")
         return loss
 
-    def resolved_screen(self, penalty: str = "sgl") -> str:
+    def resolved_screen(self, penalty: str = "sgl",
+                        loss: str = "squared") -> str:
         allowed = _SCREENS[penalty]
+        if loss != "squared":
+            allowed = _SCREENS_NON_SQUARED
         screen = allowed[0] if self.screen == "auto" else self.screen
         if screen not in allowed:
             raise ValueError(f"screen={screen!r} is not valid for "
-                             f"penalty={penalty!r}; expected one of "
-                             f"{('auto',) + allowed}")
-        if screen == "gapsafe":
-            raise NotImplementedError(
-                "screen='gapsafe' is not ported yet (ROADMAP queue 1, item 8)")
+                             f"penalty={penalty!r} with loss={loss!r}; "
+                             f"expected one of {('auto',) + allowed}")
         return screen
 
-    def validate_for_penalty(self, penalty: str) -> None:
+    def validate_for_penalty(self, penalty: str,
+                             loss: str = "squared") -> None:
         """Penalty-level validation (no Problem instance needed)."""
-        self.resolved_screen(penalty)
+        self.resolved_screen(penalty, loss)
+        if loss != "squared":
+            if self.engine != "batched":
+                raise ValueError(f"loss={loss!r} requires engine='batched' "
+                                 "(the legacy per-lambda engine is "
+                                 "squared-only)")
+            if int(self.feature_shards) > 1:
+                raise ValueError(f"loss={loss!r} does not support "
+                                 "feature_shards (the sharded screens are "
+                                 "squared-only)")
+        if self.feature_weights is not None and int(self.feature_shards) > 1:
+            raise ValueError("adaptive feature_weights do not support "
+                             "feature_shards; drop one or the other")
         if self.schedule not in ("elastic", "lockstep"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.chunk_cap < 2:
@@ -200,9 +236,12 @@ class Plan:
                              "nonnegativity geometry)")
 
     def validate(self, problem: Problem) -> None:
-        """Refuse what the verbs of this port cannot run yet."""
-        self.resolved_loss(problem.loss)
-        self.validate_for_penalty(problem.penalty)
+        """The reference's validation, then a refusal of what the verbs of
+        this port cannot run yet."""
+        loss = self.resolved_loss(problem.loss)
+        if problem.penalty == "nn_lasso" and loss != "squared":
+            raise ValueError("nn_lasso supports only the squared loss")
+        self.validate_for_penalty(problem.penalty, loss)
         if problem.penalty == "nn_lasso" and (
                 self.group_weights is not None
                 or self.feature_weights is not None):
@@ -214,10 +253,6 @@ class Plan:
                 "the batched engine is (ROADMAP queue 1, item 16)")
         if self.engine != "batched":
             raise ValueError(f"unknown engine {self.engine!r}")
-        if self.group_weights is not None or self.feature_weights is not None:
-            raise NotImplementedError(
-                "adaptive weights are not ported yet (ROADMAP queue 1, "
-                "item 8)")
         if int(self.feature_shards) > 1:
             raise NotImplementedError(
                 "feature_shards > 1 is not ported yet (ROADMAP queue 1, "

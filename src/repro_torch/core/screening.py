@@ -4,11 +4,16 @@ port of the grid form the path engine runs.
 Layer 1 (group):    s_g* < alpha*w_g                        => beta_g* = 0
 Layer 2 (feature):  |x_i^T o| + r*||x_i||_2 <= 1            => beta_i* = 0
 
-where ``o``/``r`` are the Theorem-12 dual-ball center/radius and s_g* is the
-closed-form sup of Theorem 15:
+where ``o``/``r`` are the Theorem-12 dual-ball center/radius (or the
+beyond-paper Gap-Safe ball) and s_g* is the closed-form sup of Theorem 15:
 
     ||c||_inf >= 1 :  s* = ||S_1(c)|| + r
     ||c||_inf <  1 :  s* = (||c||_inf + r - 1)_+
+
+With adaptive per-feature weights ``w`` the exact sup has no weighted
+closed form; ``S_w`` is 1-Lipschitz, so ``||S_w(c)|| + r`` is a safe
+(conservative) sup and the feature threshold becomes ``w_i``.  The weighted
+rules run no kernel: ``screen_norms`` takes one l1 threshold.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 
 from .estimation import project_out_normal
 from .fenchel import shrink
-from .groups import GroupSpec
+from .groups import GroupSpec, group_sum
+from .losses import SQUARED
 
 
 def sup_shrink_norm(c_shrink_norm, c_inf, r):
@@ -51,8 +57,7 @@ def _grid_group_stats(spec: GroupSpec, C: torch.Tensor, use_kernels: bool):
         return torch.sqrt(snorm2).to(C.dtype), cinf.to(C.dtype)
     L, G = C.shape[0], spec.num_groups
     shr = shrink(C)
-    c_norm = torch.sqrt(torch.zeros((L, G), dtype=C.dtype, device=C.device)
-                        .index_add_(1, spec.group_ids, shr * shr))
+    c_norm = torch.sqrt(group_sum(spec, shr * shr))
     # empty groups keep the -inf initial value, as jax.ops.segment_max does
     c_inf = torch.full((L, G), float("-inf"), dtype=C.dtype,
                        device=C.device).scatter_reduce_(
@@ -83,20 +88,30 @@ def _grid_group_stats_folds(spec: GroupSpec, C: torch.Tensor,
     return c_norm.reshape(K, L, G), c_inf.reshape(K, L, G)
 
 
+def _weighted_shrink_norms(spec: GroupSpec, C: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """``||S_w(C_g)||`` per row and group: (R, p) -> (R, G)."""
+    shr = shrink(C, w[None, :])
+    return torch.sqrt(group_sum(spec, shr * shr))
+
+
 def _grid_rules(spec: GroupSpec, alpha, C, radii, col_norms, group_specnorms,
                 use_kernels: bool = False):
-    """Theorems 15/16 evaluated for every (lambda, group/feature) pair."""
-    if spec.feature_weights is not None:
-        raise NotImplementedError(
-            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
-            "item 8)")
+    """Theorems 15/16 evaluated for every (lambda, group/feature) pair.
+    ``C`` is (L, p), or (1, p) for one center shared by the grid's L
+    radii."""
     r_g = radii[:, None] * group_specnorms[None, :]
-    c_norm, c_inf = _grid_group_stats(spec, C, use_kernels)
-    s = sup_shrink_norm(c_norm, c_inf, r_g)
+    if spec.feature_weights is None:
+        c_norm, c_inf = _grid_group_stats(spec, C, use_kernels)
+        s = sup_shrink_norm(c_norm, c_inf, r_g)
+        thresh = 1.0
+    else:
+        w = spec.feature_weights.to(C.dtype)
+        s = _weighted_shrink_norms(spec, C, w) + r_g
+        thresh = w[None, :]
     group_keep = s >= alpha * spec.weights[None, :]    # compared in float64
-
     t = torch.abs(C) + radii[:, None] * col_norms[None, :]
-    feat_keep = (t > 1.0) & group_keep[:, spec.group_ids]
+    feat_keep = (t > thresh) & group_keep[:, spec.group_ids]
     return group_keep, feat_keep
 
 
@@ -136,18 +151,23 @@ def grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs):
 def _grid_rules_folds(spec: GroupSpec, alpha, C, radii, col_norms_f,
                       group_specnorms_f, use_kernels: bool = False):
     """Theorems 15/16 for every (fold, lambda, group/feature) triple.
-    ``C`` (K, L, p), ``radii`` (K, L), per-fold norms (K, p) / (K, G)."""
-    if spec.feature_weights is not None:
-        raise NotImplementedError(
-            "adaptive feature weights are not ported yet (ROADMAP queue 1, "
-            "item 8)")
+    ``C`` (K, L, p), or (K, 1, p) for one center per fold shared by its
+    grid, ``radii`` (K, L), per-fold norms (K, p) / (K, G).  Adaptive
+    weights take the conservative bound of ``_grid_rules``."""
+    K, L, p = C.shape
     r_g = radii[:, :, None] * group_specnorms_f[:, None, :]
-    c_norm, c_inf = _grid_group_stats_folds(spec, C, use_kernels)
-    s = sup_shrink_norm(c_norm, c_inf, r_g)
-    group_keep = s >= alpha * spec.weights[None, None, :]
-
     t = torch.abs(C) + radii[:, :, None] * col_norms_f[:, None, :]
-    feat_keep = (t > 1.0) & group_keep[:, :, spec.group_ids]
+    if spec.feature_weights is None:
+        c_norm, c_inf = _grid_group_stats_folds(spec, C, use_kernels)
+        s = sup_shrink_norm(c_norm, c_inf, r_g)
+        thresh = 1.0
+    else:
+        w = spec.feature_weights.to(C.dtype)
+        s = _weighted_shrink_norms(spec, C.reshape(K * L, p), w).reshape(
+            K, L, spec.num_groups) + r_g
+        thresh = w[None, None, :]
+    group_keep = s >= alpha * spec.weights[None, None, :]
+    feat_keep = (t > thresh) & group_keep[:, :, spec.group_ids]
     return group_keep, feat_keep
 
 
@@ -191,3 +211,67 @@ def tlfre_screen_grid(X, y, spec: GroupSpec, alpha, lambdas, lam_bar,
     group_keep, feat_keep = _grid_rules(spec, alpha, C, radii, col_norms,
                                         group_specnorms, use_kernels)
     return group_keep, feat_keep, radii
+
+
+# ---------------------------------------------------------------------------
+# Gap-Safe grid rules (beyond the paper): a fixed feasible dual center
+# ---------------------------------------------------------------------------
+
+def gap_safe_screen_grid(spec: GroupSpec, alpha, c_theta, radii, col_norms,
+                         group_specnorms, use_kernels: bool = False):
+    """Gap-Safe grid rules for a FIXED feasible dual center theta.
+
+    SGL dual feasibility does not depend on lambda, so one feasible theta
+    (the exact dual at the previous solved point) certifies a ball at
+    every remaining lambda with radius sqrt(2*gap_l)/lam_l; the screening
+    GEMM collapses to the GEMV ``c_theta = X^T theta``.  The reference
+    runs the rules on ``c_theta`` broadcast to (L, p); here ``_grid_rules``
+    takes the (1, p) row, so the group statistics are evaluated once
+    (through ``screen_norms`` with ``use_kernels``) and broadcast across
+    the grid: the same answers, without L copies of the row.  Returns
+    (group_keep (L, G), feat_keep (L, p))."""
+    return _grid_rules(spec, alpha, c_theta[None, :], radii, col_norms,
+                       group_specnorms, use_kernels)
+
+
+def gap_safe_screen_grid_folds(spec: GroupSpec, alpha, c_thetas, radii,
+                               col_norms_f, group_specnorms_f,
+                               use_kernels: bool = False):
+    """Fold-batched Gap-Safe grid rules: per-fold fixed centers
+    ``c_thetas`` (K, p), per-(fold, lambda) radii (K, L).  The group
+    statistics are evaluated once per fold on the (K, 1, p) layout (one
+    ``screen_norms_folds`` launch with ``use_kernels``) and broadcast
+    across the grid.  Returns (group_keep (K, L, G), feat_keep (K, L,
+    p))."""
+    return _grid_rules_folds(spec, alpha, c_thetas[:, None, :], radii,
+                             col_norms_f, group_specnorms_f, use_kernels)
+
+
+def gap_safe_grid_radii(y, lambdas, theta, resid, penalty):
+    """sqrt(2 * gap_l) / lam_l per grid point, for a primal iterate beta
+    with residual ``resid = y - X beta`` and penalty ``Omega(beta)`` (so
+    P_l = 0.5||resid||^2 + lam_l * Omega) and a feasible dual theta: the
+    squared loss through ``gap_safe_grid_radii_loss``, which gives the
+    shapes (one path, or K folds)."""
+    return gap_safe_grid_radii_loss(SQUARED, y, lambdas, theta, None, resid,
+                                    penalty)
+
+
+def gap_safe_grid_radii_loss(loss, y, lambdas, theta, fit, resid, penalty):
+    """Loss-generic Gap-Safe grid radii: ``sqrt(2 * gamma * gap_l) /
+    lam_l`` per grid point (the dual is ``lam^2/gamma``-strongly concave
+    for a loss with smoothness constant ``gamma``).  ``fit = X beta``,
+    ``resid = loss.residual(y, fit)``; ``theta`` must be dual-feasible.
+    ``y``, ``theta``, ``resid`` (N,) with ``lambdas`` (L,) and a scalar
+    ``penalty`` give (L,); the squared loss also takes K folds at once,
+    (K, N) with (K, L) and (K,), and gives (K, L)."""
+    penalty = torch.as_tensor(penalty, dtype=lambdas.dtype,
+                              device=lambdas.device)
+    p_smooth = loss.primal_value(y, fit, resid)
+    dual = loss.dual_value(y[..., None, :], theta[..., None, :],
+                           lambdas[..., None])
+    gap = torch.clamp(p_smooth[..., None] + lambdas * penalty[..., None]
+                      - dual, min=0.0)
+    if loss.gamma != 1.0:
+        gap = loss.gamma * gap
+    return torch.sqrt(2.0 * gap) / lambdas

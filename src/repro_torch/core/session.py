@@ -7,8 +7,11 @@ counts the shapes a run meets for the first time: a second
 ``session.path(plan)`` or ``session.cv(plan)`` over the same buckets reports
 zero.  Beside it, the session owns the CUDA graphs of the SGL FISTA block
 (``fista_graphs``), captured on the card at the first solve of each shape,
-so a warm call captures none.  ``X^T y`` and the per-alpha ``lambda_max``
-grid anchor are computed once per session.
+so a warm call captures none.  ``X^T y`` (for a non-squared loss, ``X^T``
+times the loss's residual at beta = 0) and the per-alpha ``lambda_max``
+grid anchor are computed once per session.  Adaptive ``Plan.group_weights``
+/ ``Plan.feature_weights`` overlay the problem's spec for one call
+(``_effective``).
 
 ``refine`` and ``stability`` are not ported yet (ROADMAP queue 1, item 9).
 """
@@ -22,6 +25,7 @@ from .cv import (CVResult, _cv_statistics, _masks_from_folds, kfold_indices,
                  nn_fold_paths, per_fold_centering, sgl_fold_paths)
 from .dpc import lambda_max_nn
 from .lambda_max import lambda_max_sgl
+from .losses import get_loss
 from .path_engine import EngineStats, nn_lasso_path_batched, sgl_path_batched
 from .problem import Plan, Problem
 
@@ -43,7 +47,10 @@ class SGLSession:
         self.fista_graphs: dict = {}     # captured FISTA blocks (card)
         self.stats = EngineStats()       # aggregate over the session
         self._lam_max_cache: dict = {}   # grid-anchor cache (see lambda_max)
-        self._xty = problem.X.T @ problem.y
+        # the grid anchor correlates X with the loss's residual at beta = 0
+        # (y for squared loss, y - 1/2 for logistic)
+        self._xty = problem.X.T @ get_loss(problem.loss).residual_at_zero(
+            problem.y)
 
     def _resolve(self, plan: Optional[Plan], overrides: dict) -> Plan:
         plan = self.default_plan if plan is None else plan
@@ -51,6 +58,18 @@ class SGLSession:
             plan = plan.with_(**overrides)
         plan.validate(self.problem)
         return plan
+
+    def _effective(self, plan: Plan):
+        """(loss name, effective GroupSpec) for this plan.  Adaptive
+        ``plan.group_weights`` / ``plan.feature_weights`` overlay the
+        problem's spec; with neither set the problem's spec object is
+        returned unchanged."""
+        loss = plan.resolved_loss(self.problem.loss)
+        spec = self.problem.spec
+        if spec is None:
+            return loss, None
+        return loss, spec.reweighted(plan.group_weights,
+                                     plan.feature_weights)
 
     def lambda_max(self, alpha: float = 1.0) -> float:
         """Full-data grid anchor, cached per alpha on the session's
@@ -66,13 +85,18 @@ class SGLSession:
                 self.problem.spec, self._xty, alpha)[0])
         return self._lam_max_cache[alpha]
 
-    def _grid(self, plan: Plan):
+    def _grid(self, plan: Plan, spec=None):
         """(lambdas, lam_max): an explicit grid is anchored at its largest
-        value, as in the reference."""
+        value, as in the reference.  ``spec`` (default: the problem's)
+        anchors a reweighted plan at ITS lambda_max; the per-alpha cache
+        serves only the problem's own spec."""
         if plan.lambdas is not None:
             lambdas = np.asarray(plan.lambdas, dtype=float)
             return lambdas, float(lambdas.max())
-        lam_max = self.lambda_max(plan.alpha)
+        if spec is None or spec is self.problem.spec:
+            lam_max = self.lambda_max(plan.alpha)
+        else:
+            lam_max = float(lambda_max_sgl(spec, self._xty, plan.alpha)[0])
         if self.problem.penalty == "nn_lasso" and lam_max <= 0:
             raise ValueError("max_i <x_i, y> <= 0: nonnegative Lasso "
                              "solution is identically zero")
@@ -82,7 +106,8 @@ class SGLSession:
         """Solve one lambda path; compiled buckets persist across calls."""
         plan = self._resolve(plan, overrides)
         prob = self.problem
-        screen = plan.resolved_screen(prob.penalty)
+        loss, spec = self._effective(plan)
+        screen = plan.resolved_screen(prob.penalty, loss)
         common = dict(lambdas=plan.lambdas, n_lambdas=plan.n_lambdas,
                       min_ratio=plan.min_ratio, screen=screen, tol=plan.tol,
                       max_iter=plan.max_iter, safety=plan.safety,
@@ -93,11 +118,10 @@ class SGLSession:
                       compile_keys=self.compile_keys)
         if prob.penalty == "sgl":
             res = sgl_path_batched(
-                prob.X, prob.y, prob.spec, plan.alpha,
+                prob.X, prob.y, spec, plan.alpha,
                 specnorm_method=plan.specnorm_method,
                 min_group_bucket=plan.min_group_bucket,
-                fista_graphs=self.fista_graphs,
-                loss=plan.resolved_loss(prob.loss), **common)
+                fista_graphs=self.fista_graphs, loss=loss, **common)
         else:
             res = nn_lasso_path_batched(prob.X, prob.y, **common)
         self.stats.merge(res.stats)
@@ -125,8 +149,9 @@ class SGLSession:
         full-data lambda_max."""
         plan = self._resolve(plan, overrides)
         prob = self.problem
-        screen = plan.resolved_screen(prob.penalty)
-        lambdas, lam_max = self._grid(plan)
+        loss, spec = self._effective(plan)
+        screen = plan.resolved_screen(prob.penalty, loss)
+        lambdas, lam_max = self._grid(plan, spec)
         folds, masks, mus, y_means, y_rows = self._fold_setup(plan)
         common = dict(screen=screen, tol=plan.tol, max_iter=plan.max_iter,
                       safety=plan.safety, check_every=plan.check_every,
@@ -137,11 +162,10 @@ class SGLSession:
                       feature_shards=plan.feature_shards)
         if prob.penalty == "sgl":
             betas, kept, iters, stats, times = sgl_fold_paths(
-                prob.X, y_rows, prob.spec, plan.alpha, masks, lambdas,
+                prob.X, y_rows, spec, plan.alpha, masks, lambdas,
                 specnorm_method=plan.specnorm_method,
                 min_group_bucket=plan.min_group_bucket, mus=mus,
-                fista_graphs=self.fista_graphs,
-                loss=plan.resolved_loss(prob.loss), **common)
+                fista_graphs=self.fista_graphs, loss=loss, **common)
         else:
             betas, kept, iters, stats, times = nn_fold_paths(
                 prob.X, y_rows, masks, lambdas, **common)

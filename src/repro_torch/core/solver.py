@@ -52,20 +52,28 @@ def fista_sgl(X, y, spec: GroupSpec, lam, alpha, lipschitz, beta0, *,
               prox=None, loss=SQUARED) -> SolveResult:
     """FISTA with O'Donoghue-Candes adaptive restart for problem (3).
 
-    ``lam`` and ``lipschitz`` (the design bound ``||X||^2``) are scalars or
+    ``lam`` and ``lipschitz`` (the design bound ``||X||^2`` for every
+    loss; the loss's smoothness ``gamma`` is applied here) are scalars or
     0-d tensors.  ``prox`` optionally overrides the
     ``(z, t_l1, t_group) -> z'`` proximal step — the engine injects the
     fused CUDA kernel here; ``t_l1`` reaches it as a 1-element device
-    tensor.  The gap is read on the host once every ``check_every``
-    iterations and tested against ``tol * gap_scale``.
+    tensor, or as a (p,) tensor of per-feature thresholds when the spec
+    carries adaptive feature weights (the engine runs the plain prox then).
+    The gap is read on the host once every ``check_every`` iterations and
+    tested against ``tol * gap_scale``.
     """
     dtype, dev = X.dtype, X.device
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
     lipschitz = torch.as_tensor(lipschitz, dtype=dtype, device=dev)
+    if loss.gamma != 1.0:
+        lipschitz = lipschitz * loss.gamma
     beta0 = beta0.to(dtype)
     tol = loss.effective_tol(tol, dtype)
     t_step = 1.0 / lipschitz
-    t_l1 = (t_step * lam).reshape(1)               # lam2 = lam
+    if spec.feature_weights is None:
+        t_l1 = (t_step * lam).reshape(1)           # lam2 = lam
+    else:
+        t_l1 = t_step * lam * spec.feature_weights.to(dtype)
     t_group = t_step * lam * alpha * spec.weights.to(dtype)
     threshold = tol * loss.gap_scale(y)
     if prox is None:
@@ -208,15 +216,22 @@ def fista_sgl_graphed(X, y, spec: GroupSpec, lam, alpha, lipschitz, beta0,
     than the engine's compile keys, so every capture coincides with a
     counted compilation.  The host reads the gap once per block, as
     ``fista_sgl`` does, so the iterates and iteration counts are the same.
-    Card, float32 only; a failed capture raises."""
+    Card, float32 and unit l1 weights only (the kernel takes one l1
+    threshold); any loss, whose ``gamma`` scales the step as in
+    ``fista_sgl``.  A failed capture raises."""
     dtype, dev = X.dtype, X.device
     if dev.type != "cuda" or dtype != torch.float32:
         raise ValueError("the graphed FISTA block runs float32 on the card")
+    if spec.feature_weights is not None:
+        raise ValueError("the graphed FISTA block takes one l1 threshold "
+                         "(no feature weights)")
     if max_iter <= 0:                   # no block runs
         return fista_sgl(X, y, spec, lam, alpha, lipschitz, beta0,
                          max_iter=max_iter, tol=tol, loss=loss)
     lam = torch.as_tensor(lam, dtype=dtype, device=dev)
     lipschitz = torch.as_tensor(lipschitz, dtype=dtype, device=dev)
+    if loss.gamma != 1.0:
+        lipschitz = lipschitz * loss.gamma
     tol = loss.effective_tol(tol, dtype)
     t_step = 1.0 / lipschitz
     t_l1 = (t_step * lam).reshape(1)

@@ -6,7 +6,8 @@ Synthetic 1: X ~ iid N(0,1).  Synthetic 2: rows ~ N(0, Sigma),
 Sigma_ij = 0.5^|i-j| (AR(1) recursion).  SGL beta*: gamma1 of the groups,
 then gamma2 of the features inside each selected group, drawn from N(0,1);
 nonnegative-Lasso beta*: |N(0,1)| on a fraction of the features;
-y = X beta* + 0.01 eps.
+y = X beta* + 0.01 eps.  The sparse-group logistic data copy the generator
+of ``benchmarks/paper_tables.py:loss_logistic_bench``.
 """
 from __future__ import annotations
 
@@ -71,3 +72,20 @@ def ragged_sizes(p: int, avg: float, seed: int = 0):
         sizes.append(s)
         left -= s
     return sizes
+
+
+def synthetic_logistic(N: int, G: int, n: int, seed: int = 7):
+    """Sparse-group logistic data: X ~ iid N(0,1), all features of a
+    twentieth of the groups (at least 2) drawn from N(0,1), labels
+    ``1[X beta / sqrt(n * hot) + 0.5 eps > 0]``.  (X float64 (N, G*n),
+    y float64 in {0, 1} (N,), beta* float64) as numpy."""
+    rng = np.random.default_rng(seed)
+    p = G * n
+    X = rng.standard_normal((N, p))
+    beta = np.zeros(p)
+    hot = rng.choice(G, max(G // 20, 2), replace=False)
+    for g in hot:
+        beta[g * n:(g + 1) * n] = rng.standard_normal(n)
+    logits = X @ beta / np.sqrt(n * len(hot))
+    y = (logits + 0.5 * rng.standard_normal(N) > 0).astype(float)
+    return X, y, beta

@@ -108,6 +108,10 @@ def test_bucketed_subset_matches_reference_with_garbage_bin(seed, p_b, g_b):
         want = np.asarray(getattr(J, fn)(jsub, jnp.asarray(x)))
         np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
         np.testing.assert_allclose(got, want, rtol=1e-12)
+    # rows of a (R, p) batch reduce as each row alone
+    rows = T.group_sum(tsub, _t(np.stack([x, -2.0 * x, x * x])))
+    for r, v in zip(rows, (x, -2.0 * x, x * x)):
+        assert torch.equal(r, T.group_sum(tsub, _t(v)))
     np.testing.assert_allclose(T.pad_groups(tsub, _t(x)).numpy(),
                                np.asarray(J.pad_groups(jsub, jnp.asarray(x))))
 

@@ -409,3 +409,164 @@ def test_warm_path_captures_no_graph(dev):
     assert warm.stats.n_compilations == 0
     assert ops.launch_counts()["sgl_prox"] == warm.stats.fista_iters
     np.testing.assert_array_equal(warm.iters, cold.iters)
+
+
+def _small_sgl(seed=0, N=60, p=120):
+    gen = np.random.default_rng(seed)
+    X = gen.standard_normal((N, p)).astype(np.float32)
+    beta = np.zeros(p, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(N)).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gap_safe_rules_on_the_card_match_plain(dev, weighted):
+    """The Gap-Safe grid rules on the card (the center row's statistics
+    through one ``screen_norms`` launch, unweighted; no kernel, weighted)
+    against the same rules on the CPU (the plain version): equal masks."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(4)
+    sizes = [int(s) for s in gen.integers(1, 10, size=300)]
+    p = sum(sizes)
+    kw = {}
+    if weighted:
+        kw = dict(weights=gen.uniform(0.5, 2.0, len(sizes)),
+                  feature_weights=gen.uniform(0.5, 2.0, p))
+    args = [torch.as_tensor(a.astype(np.float32)) for a in (
+        gen.standard_normal(p) * 1.5, gen.uniform(0.0, 0.3, 64),
+        gen.uniform(0.5, 2.0, p), gen.uniform(0.5, 3.0, len(sizes)))]
+    cpu = T.gap_safe_screen_grid(T.GroupSpec.from_sizes(sizes, device="cpu",
+                                                        **kw), 0.8, *args,
+                                 use_kernels=True)
+    ops.reset_launch_counts()
+    card = T.gap_safe_screen_grid(T.GroupSpec.from_sizes(sizes, device=dev,
+                                                         **kw), 0.8,
+                                  *(a.to(dev) for a in args),
+                                  use_kernels=True)
+    assert ops.launch_counts()["screen_norms"] == (0 if weighted else 1)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_small_gapsafe_path_on_the_card(dev):
+    """Float32 Gap-Safe SGL path on the card: two ``screen_norms`` launches
+    a screen (TLFre's grid and Gap-Safe's center row), one ``sgl_prox`` per
+    FISTA iteration; betas as the CPU kernel route's."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y = _small_sgl()
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16,
+                  screen="gapsafe")
+    ops.reset_launch_counts()
+    res = T.SGLSession(T.Problem.sgl(X, y, [6] * 20)).path(plan)
+    counts = ops.launch_counts()
+    st = res.stats
+    assert st.n_pallas_screens == st.n_screens > 0
+    assert counts["screen_norms"] == 2 * st.n_pallas_screens
+    assert counts["sgl_prox"] == st.fista_iters > 0 and counts["xtv"] > 0
+    cpu = T.SGLSession(T.Problem.sgl(X, y, [6] * 20, device="cpu")).path(
+        plan.with_(use_kernels=True))
+    np.testing.assert_allclose(res.betas, cpu.betas, atol=1e-4)
+
+
+def test_small_gapsafe_cv_on_the_card(dev):
+    """Float32 Gap-Safe SGL CV: two ``screen_norms_folds`` launches a
+    stacked screen (TLFre's K x L rows, Gap-Safe's K rows)."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y = _small_sgl(1)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=3, screen="gapsafe")
+    ops.reset_launch_counts()
+    res = T.SGLSession(T.Problem.sgl(X, y, [6] * 20)).cv(plan)
+    counts = ops.launch_counts()
+    st = res.stats
+    assert st.n_pallas_screens == st.n_screens > 0
+    assert counts["screen_norms_folds"] == 2 * st.n_screens
+    assert counts["sgl_prox"] > 0 and counts["xtv"] > 0
+    cpu = T.SGLSession(T.Problem.sgl(X, y, [6] * 20, device="cpu")).cv(
+        plan.with_(use_kernels=True))
+    np.testing.assert_allclose(res.fold_betas, cpu.fold_betas, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["feature_weights", "logistic"])
+def test_weighted_and_logistic_paths_route_kernels_by_function(dev, case):
+    """Each kernel runs where its function does.  Feature weights: ``xtv``
+    certifies every row, the prox and the screen statistics run plainly
+    (the fused ones take one l1 threshold) and the graphed block refuses
+    the spec.  Logistic loss: one ``screen_norms`` launch a Gap-Safe
+    screen, one ``sgl_prox`` a FISTA iteration on graphed blocks, ``xtv``
+    every row; betas as the CPU kernel route's, within 1e-4 of the
+    largest coefficient (both solves certified at tol 1e-6)."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y = _small_sgl(2)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16,
+                  screen="gapsafe")
+    if case == "logistic":
+        prob = T.Problem.sgl_logistic(X, (y > 0).astype(np.float32),
+                                      [6] * 20)
+        cpu_prob = T.Problem.sgl_logistic(X, (y > 0).astype(np.float32),
+                                          [6] * 20, device="cpu")
+    else:
+        prob = T.Problem.sgl(X, y, [6] * 20)
+        cpu_prob = T.Problem.sgl(X, y, [6] * 20, device="cpu")
+        plan = plan.with_(feature_weights=np.linspace(0.5, 2.0, 120))
+    ops.reset_launch_counts()
+    sess = T.SGLSession(prob)
+    res = sess.path(plan)
+    counts = ops.launch_counts()
+    st = res.stats
+    assert counts["xtv"] > 0 and st.n_screens > 0
+    assert counts["screen_norms_folds"] == counts["dpc_screen_folds"] == 0
+    if case == "logistic":
+        assert counts["screen_norms"] == st.n_pallas_screens == st.n_screens
+        assert counts["sgl_prox"] == st.fista_iters > 0
+        assert sess.fista_graphs
+    else:
+        assert counts["screen_norms"] == counts["sgl_prox"] == 0
+        assert st.n_pallas_screens == 0 and not sess.fista_graphs
+        with pytest.raises(ValueError, match="feature weights"):
+            T.fista_sgl_graphed(prob.X, prob.y, sess._effective(plan)[1],
+                                0.1, 1.0, 100.0,
+                                torch.zeros(120, device=dev), graphs={})
+    cpu = T.SGLSession(cpu_prob).path(plan.with_(use_kernels=True))
+    np.testing.assert_allclose(res.betas, cpu.betas,
+                               atol=1e-4 * max(1.0, np.abs(cpu.betas).max()))
+
+
+def test_plain_segment_sums_repeat_bitwise_on_the_card(dev):
+    """The plain group sums (``group_sum``: the plain prox, the penalty,
+    the weighted screen statistics) give the same bits on every call on
+    the card, also inside a CUDA graph, and match the CPU's within 1e-5
+    relative."""
+    import repro_torch.core as T
+    gen = np.random.default_rng(6)
+    sizes = [int(s) for s in gen.integers(1, 12, size=2000)]
+    spec = T.GroupSpec.from_sizes(sizes, device=dev)
+    # the first 400 features, in a bucket whose garbage bin exceeds n_max
+    sub, _ = spec.bucketed_subset(np.arange(sum(sizes)) < 400, 1024, 256)
+    assert int(sub.sizes[-1]) > sub.max_size
+    for sp in (spec, sub):
+        x = torch.as_tensor(gen.standard_normal((3, sp.num_features)),
+                            dtype=torch.float32, device=dev)
+        first = T.group_sum(sp, x)
+        assert all(torch.equal(T.group_sum(sp, x), first) for _ in range(20))
+        assert torch.equal(T.group_sum(sp, x[1]), first[1])
+        out = torch.empty_like(first[0])
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out.copy_(T.group_sum(sp, x[0]))
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            out.copy_(T.group_sum(sp, x[0]))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first[0])
+        cpu = T.group_sum(sp.to("cpu"), x.cpu())
+        np.testing.assert_allclose(first.cpu().numpy(), cpu.numpy(),
+                                   rtol=1e-5, atol=1e-5)

@@ -229,8 +229,6 @@ def test_cv_float64_with_kernels_requested_raises():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, screen="gapsafe")),
-     "item 8"),
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, mesh=object())),
      "items 9 and 13"),
     (lambda s: s.refine(factor=10), "item 9"),
@@ -241,12 +239,24 @@ def test_cv_float64_with_kernels_requested_raises():
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, feature_shards=2)),
      "item 13"),
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, loss="logistic")),
-     "item 10"),
+     "masked-row embedding"),
 ])
 def test_cv_unported_features_raise_not_implemented(call, item):
     _, st = _sessions("sgl")
     with pytest.raises(NotImplementedError, match=item):
         call(st)
+
+
+def test_cv_gapsafe_runs_and_matches_live_reference():
+    """``screen='gapsafe'`` in CV, once refused, runs: float64, betas and
+    MSE within 1e-8 of the reference (``tests/test_torch_gapsafe.py`` holds
+    the counters and both penalties)."""
+    sj, st = _sessions("sgl")
+    kw = dict(F64, screen="gapsafe")
+    rj, rt = sj.cv(J.Plan(**kw)), st.cv(T.Plan(**kw))
+    np.testing.assert_allclose(rt.fold_betas, rj.fold_betas, atol=1e-8)
+    np.testing.assert_allclose(rt.mse_path, rj.mse_path, atol=1e-8)
+    assert rt.stats.n_screens == rj.stats.n_screens > 0
 
 
 def test_cv_default_device_is_the_card(monkeypatch):

@@ -232,11 +232,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("screen", "gapsafe", "item 8"),
     ("engine", "legacy", "item 16"),
-    ("loss", "logistic", "item 10"),
-    ("feature_weights", np.ones(60), "item 8"),
-    ("group_weights", np.ones(15), "item 8"),
     ("feature_shards", 2, "item 13"),
 ])
 def test_unported_plan_values_raise_not_implemented(field, value, item):
@@ -244,6 +240,26 @@ def test_unported_plan_values_raise_not_implemented(field, value, item):
     sess = T.SGLSession(T.Problem.sgl(X, y, sizes, device="cpu"))
     with pytest.raises(NotImplementedError, match=item):
         sess.path(T.Plan(n_lambdas=4).with_(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("screen", "gapsafe"),
+    ("loss", "logistic"),
+    ("feature_weights", np.linspace(0.5, 2.0, 60)),
+    ("group_weights", np.linspace(0.5, 2.0, 15)),
+])
+def test_ported_plan_values_match_live_reference(field, value):
+    """The plan values this port once refused now run, and match the
+    reference: float64 at tol 1e-13, betas within 1e-8 and the engine's
+    counters equal.  ``loss='logistic'`` runs on 0/1 labels."""
+    X, y, sizes = make_problem()
+    if field == "loss":
+        y = (y > 0).astype(float)
+    kw = {"n_lambdas": 6, "tol": 1e-13, "max_iter": 200_000, field: value}
+    rj, rt, _ = _run_both(X, y, sizes, kw)
+    np.testing.assert_allclose(rt.betas, rj.betas, atol=1e-8)
+    assert np.abs(rt.betas).max() > 0.01
+    _assert_counters_equal(rj, rt)
 
 
 def test_kernels_active_rule():

@@ -18,7 +18,8 @@ screen covers 128 grid rows) it prints one JSON line with:
   step as the path runs it (for the first kind of tree: gather, mask,
   kernel and ``sqrt``);
 - the warm float32 path (``SGLSession.path``, calls 2-4 of one session):
-  wall and ``screen_time`` of each call, its ``n_pallas_screens`` and its
+  wall, ``screen_time`` and ``solve_time`` of each call, its FISTA
+  iterations and solve us per iteration, its ``n_pallas_screens`` and its
   ``screen_norms`` launches.
 
 Device times come from a CUDA graph of 20 calls, the median of 10 replays
@@ -117,6 +118,10 @@ def main() -> int:
         torch.cuda.synchronize()
         warm.append(dict(wall_s=time.perf_counter() - t0,
                          screen_s=res.screen_time,
+                         solve_s=res.solve_time,
+                         fista_iters=res.stats.fista_iters,
+                         solve_us_per_iter=1e6 * res.solve_time
+                         / max(res.stats.fista_iters, 1),
                          n_pallas_screens=res.stats.n_pallas_screens,
                          screen_norms_launches=ops.launch_counts()[
                              "screen_norms"]))
