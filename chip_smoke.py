@@ -72,7 +72,17 @@ Phases (each fails loudly, with a non-zero exit):
     Phases 8-13 hold the bars of phases 3-7 (every accepted row
     certified, float32 against float64, no float32 discard nonzero in
     float64) and print their seconds and the float32 ``n_rejected``.
-14. Each kernel against its plain PyTorch version on the card, at the
+14. The paper's per-lambda driver, ``Plan(engine='legacy')``, on the data
+    and plans of phases 3 and 5, float32 and float64: the float32 SGL
+    path launches ``xtv`` once a screen and once a solved row,
+    ``screen_norms`` once a screen (the one-ball (1, p) row) and
+    ``sgl_prox`` once a FISTA iteration (graphed blocks); the
+    nonnegative Lasso ``xtv`` alone, as often; float64 no kernel.  A warm
+    second float32 call captures no graph; float32 against float64 as in
+    phase 3; the float64 legacy betas within 1e-2 * max|beta| of the
+    float64 batched paths of phases 3 and 5.  Wall, solve us per FISTA
+    iteration, iterations and summed kept features are printed.
+15. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -87,8 +97,9 @@ Phases (each fails loudly, with a non-zero exit):
    Also the Synthetic-1 group-statistics step as the path runs it
    (``_grid_group_stats(spec, C, True)``) beside the gather and mask that
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
-   stacked screen shape beside that screen's own step.
-15. One JSON line ``{"kernels": [...]}``, then the last line
+   stacked screen shape beside that screen's own step, and
+   ``screen_norms`` on the legacy screen's (1, p) row.
+16. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -585,7 +596,7 @@ def main_path(torch, T, N=250, G=1000, n=10):
     # power of two (99 -> 128); the prox bucket that ran the most iterations
     shapes = {"L": _pow2_len(len(res.lambdas) - 1),
               "bucket_spec": calls.busiest_spec}
-    return sess, res, counts, shapes
+    return sess, res, counts, shapes, res64
 
 
 def ragged_path(torch, T, N=747, p=100_000):
@@ -711,7 +722,7 @@ def nn_path(torch, T, N=250, p=10_000):
     require(n_disc > 0 and worst <= 1e-6,
             "the f32 DPC screen discarded a feature active in the f64 "
             "solution")
-    return counts
+    return counts, res64
 
 
 # ---------------------------------------------------------------------------
@@ -1212,7 +1223,123 @@ def logistic_phase(torch, T, N=250, G=1000, n=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: each kernel against its plain version, and its time
+# phase 14: the paper's per-lambda driver (engine='legacy')
+# ---------------------------------------------------------------------------
+
+def run_legacy(torch, sess, plan, label):
+    """One ``Plan(engine='legacy')`` path with the launch counts reset just
+    before and read just after.  The per-lambda driver reports no
+    ``EngineStats``: its FISTA iterations are the rows' ``iters``, its
+    screens the rows below lambda_max, its solved rows those that kept a
+    feature."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with GraphedSolves() as calls:
+        t0 = time.perf_counter()
+        res = sess.path(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    iters = int(res.iters.sum())
+    screens = int((res.lambdas < res.lam_max * (1.0 - 1e-12)).sum())
+    solved = int((res.kept_features > 0).sum())
+    say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
+        f"{res.screen_time:.3f} + solve {res.solve_time:.3f} s; screens "
+        f"{screens} rows solved {solved} fista iterations {iters} (graphed "
+        f"{calls.iters}); solve {1e6 * res.solve_time / max(iters, 1):.2f} "
+        f"us per iteration; kept features (summed over rows) "
+        f"{int(res.kept_features.sum())}; graphs captured "
+        f"{len(sess.fista_graphs)} (in the session); launches "
+        f"{json.dumps(counts)}")
+    require(res.stats is None, f"{label}: the legacy driver reported stats")
+    require(np.isfinite(res.betas).all(), f"{label}: non-finite betas")
+    require(iters > 0 and solved > 0, f"{label}: nothing was solved")
+    return res, counts, calls, screens, solved
+
+
+def legacy_phase(torch, T, res_sgl64, res_nn64, N=250, G=1000, n=10,
+                 p_nn=10_000):
+    """The main path's and Table 3's data and plans with
+    ``Plan(engine='legacy')``, float32 and float64.  Float32 SGL: ``xtv``
+    once a screen (the GEMV ``X^T center``) and once a solved row (the
+    certification), ``screen_norms`` once a screen (the (1, p) row),
+    ``sgl_prox`` once a FISTA iteration, replayed from graphed blocks, and
+    a warm second call that captures no graph.  Float32 nonnegative Lasso:
+    ``xtv`` alone, as often.  Float64 runs no kernel.  Bars: float32
+    against float64 as ``compare_paths``; the float64 legacy betas within
+    1e-2 * max|beta| of the float64 batched path's."""
+    from repro_torch.data_synth import synthetic_nn, synthetic_sgl
+    plan = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50, engine="legacy")
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    Xn, yn, _ = synthetic_nn(1, N=N, p=p_nn, seed=1)
+    cases = {
+        "sgl": (T.SGLSession(T.Problem.sgl(X, y, [n] * G)),
+                f64_session(torch, T, X, y, [n] * G), res_sgl64, X, y),
+        "nn": (T.SGLSession(T.Problem.nn_lasso(Xn, yn)),
+               T.SGLSession(T.Problem.nn_lasso(
+                   Xn.astype(np.float64), yn.astype(np.float64),
+                   dtype=torch.float64)), res_nn64, Xn, yn),
+    }
+    launches = {}
+    for kind, (sess, sess64, batched64, Xk, yk) in cases.items():
+        label = f"legacy-{kind}"
+        res, counts, calls, screens, solved = run_legacy(
+            torch, sess, plan, f"{label}-f32")
+        iters = int(res.iters.sum())
+        require(counts["xtv"] == screens + solved,
+                f"{label}-f32: xtv launches {counts['xtv']} != screens "
+                f"{screens} + rows solved {solved}")
+        if kind == "sgl":
+            require(counts["screen_norms"] == screens,
+                    f"{label}-f32: screen_norms launches "
+                    f"{counts['screen_norms']} != screens {screens}")
+            require(counts["sgl_prox"] == iters == calls.iters
+                    and calls.solves == solved and calls.eager_solves == 0,
+                    f"{label}-f32: sgl_prox launches {counts['sgl_prox']}, "
+                    f"FISTA iterations {iters}, graphed {calls.iters}, "
+                    f"graphed solves {calls.solves} of {solved}")
+            others = ("screen_norms_folds", "dpc_screen_folds")
+        else:
+            others = ("screen_norms", "sgl_prox", "screen_norms_folds",
+                      "dpc_screen_folds")
+        require(all(counts[k] == 0 for k in others),
+                f"{label}-f32: a kernel off this route was launched "
+                f"({counts})")
+        launches[kind] = counts
+        n_captures = len(sess.fista_graphs)
+        res_w, _, _, _, _ = run_legacy(torch, sess, plan, f"{label}-f32-warm")
+        require(len(sess.fista_graphs) == n_captures,
+                f"{label}-f32-warm: the warm call captured a graph")
+        require(np.array_equal(res_w.iters, res.iters),
+                f"{label}-f32-warm: iterations differ from the cold call's")
+        res64, counts64, _, _, _ = run_legacy(torch, sess64, plan,
+                                              f"{label}-f64")
+        require_no_kernel(counts64, f"{label}-f64")
+        if kind == "sgl":
+            objectives = spec_objectives(Xk, yk, sess.problem.spec, 1.0,
+                                         res.lambdas)
+        else:
+            def objectives(betas, Xk=Xk, yk=yk, lambdas=res.lambdas):
+                return nn_objectives(Xk, yk, betas, lambdas)
+            objectives.gap_scale = 0.5 * float(np.dot(
+                yk.astype(np.float64), yk))
+        compare_paths(res, res64, plan, objectives, label)
+        dbeta = float(np.abs(res64.betas - batched64.betas).max())
+        dbound = 1e-2 * float(np.abs(batched64.betas).max())
+        say(f"[{label}] max|beta_legacy_f64 - beta_batched_f64| = "
+            f"{dbeta:.3e} (bound 1e-2 * max|beta| = {dbound:.3e}); kept "
+            f"features summed over rows: legacy {int(res.kept_features.sum())}"
+            f" (f32), {int(res64.kept_features.sum())} (f64); batched "
+            f"solver columns {int(batched64.kept_features.sum())} (f64)")
+        require(dbeta <= dbound,
+                f"{label}: the legacy path disagrees with the batched one")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -1571,6 +1698,7 @@ def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
     # ragged shapes with live masks: Table 2's X and padded layouts
     rows["xtv"]["table2"] = check_xtv(torch, sess_ragged.problem.X, "table2")
     check_screen_norms(torch, 8, rspec, "table2", floor)
+    check_screen_norms(torch, 1, spec, "synthetic1-legacy-row", floor)
     check_screen_step(torch, shapes["L"], spec, "synthetic1")
     check_sgl_prox(torch, rspec, "table2-full", floor)
     check_sgl_prox(torch, ragged_bucket, "table2-bucket", floor)
@@ -1613,9 +1741,9 @@ def main() -> int:
 
     card = environment(torch)
     build_kernels()
-    sess, res, counts, shapes = main_path(torch, T)
+    sess, res, counts, shapes, res64 = main_path(torch, T)
     sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
-    counts_nn = nn_path(torch, T)
+    counts_nn, res_nn64 = nn_path(torch, T)
     counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
     counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
     new_paths = {}
@@ -1633,6 +1761,10 @@ def main() -> int:
         new_paths["nn-cv-gapsafe"] = gapsafe_nn_cv_phase(torch, T)
     with timed_phase("logistic"):
         new_paths["logistic-gapsafe-path"] = logistic_phase(torch, T)
+    with timed_phase("legacy"):
+        legacy = legacy_phase(torch, T, res64, res_nn64)
+    new_paths["synthetic1-legacy-path"] = legacy["sgl"]
+    new_paths["table3-nn-legacy-path"] = legacy["nn"]
     rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                          snf_shape, dsf_shape)
 

@@ -41,9 +41,10 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
 
 A loss whose masked rows do not vanish (logistic) is refused with
 ``NotImplementedError``, as in the reference.  Not ported yet, and refused
-with ``NotImplementedError``: ``init=`` warm states and the ``refine`` /
-``stability`` verbs that use them (ROADMAP queue 1, item 9), a fold mesh
-(items 9 and 13) and feature sharding (item 13).
+with ``NotImplementedError``: ``init=`` warm states and the ``refine``
+verb that uses them (ROADMAP queue 1, item 21), ``stability`` (item 22), a
+fold mesh (item 25) and feature sharding (item 13).  ``sgl_cv`` and
+``nn_lasso_cv`` are the reference's legacy shims over ``SGLSession.cv``.
 """
 from __future__ import annotations
 
@@ -147,11 +148,11 @@ def _host(a) -> np.ndarray:
 def _refuse_unported(mesh, init, feature_shards) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "a fold mesh is not ported yet (ROADMAP queue 1, items 9 and 13)")
+            "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
     if init is not None:
         raise NotImplementedError(
             "init= (warm fold states, refine) is not ported yet (ROADMAP "
-            "queue 1, item 9)")
+            "queue 1, item 21)")
     if int(feature_shards) > 1:
         raise NotImplementedError(
             "feature_shards > 1 is not ported yet (ROADMAP queue 1, item 13)")
@@ -928,3 +929,54 @@ def _cv_statistics(X_np, y_np, folds, lambdas, betas, lam_max, kept, stats,
         lam_max=lam_max, kept_features=kept, stats=stats,
         screen_time=times[0], solve_time=times[1], setup_time=times[2],
         fold_iters=iters)
+
+
+# ---------------------------------------------------------------------------
+# Legacy entry points: thin shims over SGLSession.cv
+# ---------------------------------------------------------------------------
+
+def sgl_cv(X, y, spec, alpha, *, n_folds: int = 5, folds=None, lambdas=None,
+           n_lambdas: int = 100, min_ratio: float = 0.01,
+           screen: str = "tlfre", tol=1e-9, max_iter: int = 20000,
+           safety: float = 0.0, specnorm_method: str = "power",
+           check_every: int = 10, seed: int = 0, mesh=None,
+           min_bucket: int = 64, min_group_bucket: int = 16,
+           margin: float = 0.125, chunk_init: int = 8,
+           center: str = "global", device=None, dtype=None) -> CVResult:
+    """K-fold cross-validation for SGL over a shared lambda grid: a legacy
+    entry point, kept as a thin shim that builds a one-shot
+    ``Problem``/``Plan`` and runs ``SGLSession.cv`` (a persistent session
+    also reuses compiled buckets).  ``device`` and ``dtype`` as in
+    ``Problem.sgl``: ``device=None`` means the card."""
+    from .problem import Plan, Problem, warn_legacy_entry_point
+    from .session import SGLSession
+    warn_legacy_entry_point("sgl_cv", "SGLSession.cv")
+    plan = Plan(alpha=alpha, lambdas=lambdas, n_lambdas=n_lambdas,
+                min_ratio=min_ratio, screen=screen, tol=tol,
+                max_iter=max_iter, safety=safety,
+                specnorm_method=specnorm_method, check_every=check_every,
+                min_bucket=min_bucket, min_group_bucket=min_group_bucket,
+                margin=margin, chunk_init=chunk_init, n_folds=n_folds,
+                folds=folds, seed=seed, center=center, mesh=mesh)
+    return SGLSession(Problem.sgl(X, y, spec, dtype=dtype,
+                                  device=device)).cv(plan)
+
+
+def nn_lasso_cv(X, y, *, n_folds: int = 5, folds=None, lambdas=None,
+                n_lambdas: int = 100, min_ratio: float = 0.01,
+                screen: str = "dpc", tol=1e-9, max_iter: int = 20000,
+                safety: float = 0.0, check_every: int = 10, seed: int = 0,
+                mesh=None, min_bucket: int = 64, margin: float = 0.125,
+                chunk_init: int = 8, device=None, dtype=None) -> CVResult:
+    """K-fold cross-validation for the nonnegative Lasso (DPC screening):
+    the legacy shim over ``SGLSession.cv`` (see ``sgl_cv``)."""
+    from .problem import Plan, Problem, warn_legacy_entry_point
+    from .session import SGLSession
+    warn_legacy_entry_point("nn_lasso_cv", "SGLSession.cv")
+    plan = Plan(lambdas=lambdas, n_lambdas=n_lambdas, min_ratio=min_ratio,
+                screen=screen, tol=tol, max_iter=max_iter, safety=safety,
+                check_every=check_every, min_bucket=min_bucket,
+                margin=margin, chunk_init=chunk_init, n_folds=n_folds,
+                folds=folds, seed=seed, mesh=mesh)
+    return SGLSession(Problem.nn_lasso(X, y, dtype=dtype,
+                                       device=device)).cv(plan)

@@ -2,7 +2,8 @@
 
 Dual feasible set F = { theta : <x_i, theta> <= 1 } (Thm 19).  Theorem 20
 gives lambda_max = max_i <x_i, y> (signed, not the absolute value),
-Theorem 21 the normal-cone dual ball, Theorem 22 the DPC rule:
+Theorem 21 the normal-cone dual ball, Theorem 22 the DPC rule (one ball:
+``dpc_screen``; a whole grid: ``dpc_screen_grid``):
 
     <x_i, o> + r * ||x_i|| < 1   =>   beta_i* = 0.
 
@@ -13,13 +14,18 @@ from __future__ import annotations
 
 import torch
 
-from .screening import (_require_f32_for_pallas, grid_ball_geometry,
+from .estimation import DualBall, estimate_dual_ball
+from .screening import (_require_f32_for_pallas, _xtv, grid_ball_geometry,
                         grid_ball_geometry_folds)
 
 
 def lambda_max_nn(xty: torch.Tensor):
     """(lambda_max, argmax feature), both 0-d tensors — Theorem 20(iv)."""
     return torch.max(xty), torch.argmax(xty)
+
+
+def nn_dual_feasible(xt_theta: torch.Tensor, tol: float = 0.0):
+    return torch.all(xt_theta <= 1.0 + tol)
 
 
 def nn_dual_objective(y, theta, lam):
@@ -40,6 +46,22 @@ def normal_vector_nn(X, y, lam_bar: float, lam_max: float, theta_bar,
     if float(lam_bar) >= float(lam_max) * (1.0 - 1e-12):
         return X[:, int(i_star)]
     return y / lam_bar - theta_bar
+
+
+def dpc_screen(X, ball: DualBall, col_norms, safety: float = 0.0, *,
+               use_kernels: bool = False):
+    """Theorem 22 for one dual ball.  Returns feat_keep (p,) bool: False =>
+    certified zero.  ``use_kernels`` runs the GEMV ``X^T center`` through
+    ``xtv`` (float32: a float64 input raises ``TypeError``); the ``>= 1``
+    test stays plain."""
+    r = ball.radius * (1.0 + safety)
+    c = _xtv(X, ball.center, use_kernels).to(X.dtype)
+    return c + r * col_norms >= 1.0
+
+
+def estimate_dual_ball_nn(y, lam, lam_bar, theta_bar, n_vec) -> DualBall:
+    """Theorem 21(ii): the algebra of Theorem 12(ii)."""
+    return estimate_dual_ball(y, lam, lam_bar, theta_bar, n_vec)
 
 
 def dpc_screen_grid(X, y, lambdas, theta_bar, n_vec, col_norms,

@@ -10,10 +10,19 @@ with v = y/lam - theta_bar and v_perp its component orthogonal to n.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .fenchel import shrink
 from .groups import GroupSpec, broadcast_to_features
+
+
+@dataclasses.dataclass(frozen=True)
+class DualBall:
+    """Ball certified to contain the dual optimum."""
+    center: torch.Tensor   # (N,)
+    radius: torch.Tensor   # 0-d
 
 
 def project_out_normal(v, n_vec):
@@ -46,3 +55,27 @@ def normal_vector_sgl(X, y, spec: GroupSpec, lam_bar: float, lam_max: float,
                              w, 0.0)
         return X @ w_star
     return y / lam_bar - theta_bar
+
+
+def estimate_dual_ball(y, lam, lam_bar, theta_bar, n_vec) -> DualBall:
+    """Theorem 12(ii) (identical algebra for Theorem 21)."""
+    v = y / lam - theta_bar
+    v_perp = project_out_normal(v, n_vec)
+    return DualBall(center=theta_bar + 0.5 * v_perp,
+                    radius=0.5 * torch.linalg.vector_norm(v_perp))
+
+
+def gap_safe_ball(theta_feasible, primal_value, dual_value, lam,
+                  gamma: float = 1.0) -> DualBall:
+    """Beyond the paper: the Gap-Safe ball (Fercoq et al., 2015).  For a
+    loss with smoothness constant ``gamma`` (1 squared, 1/4 logistic) the
+    dual is ``lam^2/gamma``-strongly concave, so
+
+        ||theta* - theta|| <= sqrt(2 * gamma * gap) / lam .
+
+    The scaling is applied only for ``gamma != 1.0``, as in the
+    reference."""
+    gap = torch.clamp(torch.as_tensor(primal_value - dual_value), min=0.0)
+    if gamma != 1.0:
+        gap = gamma * gap
+    return DualBall(center=theta_feasible, radius=torch.sqrt(2.0 * gap) / lam)

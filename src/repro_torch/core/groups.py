@@ -215,6 +215,26 @@ class GroupSpec:
         return spec, col_idx
 
 
+    def subset(self, feat_keep: np.ndarray) -> tuple["GroupSpec", np.ndarray]:
+        """Reduced spec over the kept features, on this spec's device.
+
+        Keeps the ORIGINAL group weight for every surviving group (screened
+        features are provably zero, so the group norm over the survivors
+        equals the group norm over the full group) and the kept features'
+        weights.  Returns (spec, col_idx), ``col_idx`` mapping reduced
+        columns back to original columns."""
+        feat_keep = np.asarray(feat_keep, dtype=bool)
+        col_idx = np.nonzero(feat_keep)[0]
+        gid = self.group_ids.cpu().numpy()[col_idx]
+        kept_groups, counts = np.unique(gid, return_counts=True)
+        fw = (None if self.feature_weights is None
+              else self.feature_weights.cpu().numpy()[col_idx])
+        spec = GroupSpec.from_sizes(
+            counts, weights=self.weights.cpu().numpy()[kept_groups],
+            feature_weights=fw, device=self.device)
+        return spec, col_idx
+
+
 # ---------------------------------------------------------------------------
 # Segment reductions over the ragged view.
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .groups import GroupSpec, pad_groups
+from .fenchel import shrink
+from .groups import GroupSpec, group_norms, pad_groups
 
 
 def _padded_segment_roots(z: torch.Tensor,
@@ -135,6 +136,17 @@ def lambda_max_sgl(spec: GroupSpec, xty: torch.Tensor, alpha):
     0-d tensors on xty's device."""
     rho = group_shrink_roots(spec, xty, alpha)
     return torch.max(rho), torch.argmax(rho)
+
+
+def lambda1_max(spec: GroupSpec, xty: torch.Tensor, lam2):
+    """Corollary 10(i): lambda1_max(lambda2) = max_g ||S_{lam2}(X_g^T y)||
+    / w_g."""
+    return torch.max(group_norms(spec, shrink(xty, lam2)) / spec.weights)
+
+
+def lambda2_max(xty: torch.Tensor):
+    """Corollary 10(ii): lambda2_max = ||X^T y||_inf."""
+    return torch.max(torch.abs(xty))
 
 
 def dual_scaling_sgl(spec: GroupSpec, c: torch.Tensor, alpha) -> torch.Tensor:

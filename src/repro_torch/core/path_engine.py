@@ -61,7 +61,7 @@ from .linalg import (column_norms, group_frobenius_norms,
                      group_spectral_norms, spectral_norm)
 from .losses import SQUARED, get_loss
 from .path import PathResult, _bucket, default_lambda_grid
-from .screening import (_require_f32_for_pallas, gap_safe_grid_radii,
+from .screening import (_require_f32_for_pallas, _xtv, gap_safe_grid_radii,
                         gap_safe_grid_radii_loss, gap_safe_screen_grid,
                         tlfre_screen_grid)
 from .solver import fista_nn_lasso, fista_sgl, fista_sgl_graphed
@@ -88,15 +88,19 @@ class EngineStats:
     buckets: list = dataclasses.field(default_factory=list)  # (p_b, g_b, m, k)
     fold_sweeps: object = None   # (K,) launch counts from the last fold run
 
-    def merge(self, other: "EngineStats") -> None:
-        """Accumulate another run's counters (not its buckets, nor its
-        per-run ``fold_sweeps``) into this one."""
+    def merge(self, other: "EngineStats", *, buckets: bool = True) -> None:
+        """Accumulate another run's counters into this one, and its bucket
+        tuples unless ``buckets=False`` (long-lived aggregates such as a
+        session's pass False, so the list cannot grow without bound).  The
+        per-run ``fold_sweeps`` are not merged."""
         self.n_segments += other.n_segments
         self.n_screens += other.n_screens
         self.n_compilations += other.n_compilations
         self.n_rejected += other.n_rejected
         self.n_pallas_screens += other.n_pallas_screens
         self.fista_iters += other.fista_iters
+        if buckets:
+            self.buckets.extend(other.buckets)
 
 
 def _kernels_active(use_kernels: Optional[bool], dtype, device) -> bool:
@@ -123,13 +127,6 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _xtv(X, v, use_kernels: bool):
-    if use_kernels:
-        from ..kernels import ops as _kops
-        return _kops.xtv(X, v)
-    return X.T @ v
-
-
 def _padded_prox(spec: GroupSpec):
     """The fused SGL prox kernel on the flat vector, through ``spec``'s
     padded view.  Columns no valid slot covers (the garbage bin's columns
@@ -142,6 +139,20 @@ def _padded_prox(spec: GroupSpec):
                               spec.pad_uncovered, t_l1, t_group)
 
     return prox
+
+
+def _fista_route(X_sub, sub_spec: GroupSpec, use_kernels: bool,
+                 graphs: dict):
+    """(solve, kw) for the SGL solves of one reduced problem: replays of
+    graphed blocks (``fista_sgl_graphed``, cached in ``graphs``) on the
+    card's kernel route; elsewhere on the kernel route ``fista_sgl`` with
+    the fused prox (its plain version on the CPU); else ``fista_sgl`` with
+    the plain prox.  The fused prox takes one l1 threshold, so a spec with
+    feature weights takes the plain prox."""
+    fused = use_kernels and sub_spec.feature_weights is None
+    if fused and X_sub.device.type == "cuda":
+        return fista_sgl_graphed, {"graphs": graphs}
+    return fista_sgl, {"prox": _padded_prox(sub_spec) if fused else None}
 
 
 def _scatter_beta(beta_sub, col_dev, p: int):
@@ -268,26 +279,18 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
     """The SGL sweep over the rows of ``lams`` (a device grid; ``valid``
     marks the real rows); see ``_certified_rows``.
 
-    ``use_kernels`` runs the certification GEMV through ``xtv``, and,
-    when ``sub_spec`` carries no feature weights (the fused prox takes one
-    l1 threshold), FISTA through ``sgl_prox``: on the card each row replays
-    its blocks from a CUDA graph in ``graphs`` (``fista_sgl_graphed``);
-    elsewhere ``fista_sgl`` runs eagerly (through the plain prox on the
-    CPU).
+    ``use_kernels`` runs the certification GEMV through ``xtv``, and FISTA
+    on the route ``_fista_route`` picks: through ``sgl_prox`` when
+    ``sub_spec`` carries no feature weights, each row replaying its blocks
+    from a CUDA graph in ``graphs`` on the card.
 
     ``mu`` (optional, (p,)): per-fold column means for leakage-free
     centering.  The certification GEMV runs against the SHARED design, so
     the centered correlation is the rank-one correction
     ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked)."""
     tol = loss.effective_tol(tol, y.dtype)
-    kw = dict(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
-    fused = use_kernels and sub_spec.feature_weights is None
-    if fused and X_sub.device.type == "cuda":
-        kw["graphs"] = graphs
-        solve = fista_sgl_graphed
-    else:
-        kw["prox"] = _padded_prox(sub_spec) if fused else None
-        solve = fista_sgl
+    solve, kw = _fista_route(X_sub, sub_spec, use_kernels, graphs)
+    kw.update(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
 
     def solve_row(lam, b):
         res = solve(X_sub, y, sub_spec, lam, alpha, lipschitz, b, **kw)

@@ -13,6 +13,7 @@
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -29,6 +30,21 @@ LOSSES = ("squared", "logistic")
 _SCREENS = {"sgl": ("tlfre", "gapsafe", "none"),
             "nn_lasso": ("dpc", "gapsafe", "none")}
 _SCREENS_NON_SQUARED = ("gapsafe", "none")
+
+_WARNED: set = set()
+
+
+def warn_legacy_entry_point(name: str, replacement: str) -> None:
+    """One ``DeprecationWarning`` per legacy entry point per process: the
+    shims (``sgl_path(engine='batched')``, ``sgl_cv``, ...) call the same
+    engine with the same arguments, so a warning per call would be noise."""
+    if name in _WARNED:
+        return
+    _WARNED.add(name)
+    warnings.warn(
+        f"{name} is a legacy entry point kept as a thin shim; prefer "
+        f"{replacement} (see the Problem/Plan/Session migration guide in "
+        f"README.md)", DeprecationWarning, stacklevel=3)
 
 
 def as_group_spec(groups, p: int, device) -> GroupSpec:
@@ -222,6 +238,8 @@ class Plan:
         if self.feature_weights is not None and int(self.feature_shards) > 1:
             raise ValueError("adaptive feature_weights do not support "
                              "feature_shards; drop one or the other")
+        if self.engine not in ("batched", "legacy"):
+            raise ValueError(f"unknown engine {self.engine!r}")
         if self.schedule not in ("elastic", "lockstep"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.chunk_cap < 2:
@@ -230,6 +248,11 @@ class Plan:
             raise ValueError(f"unknown center mode {self.center!r}")
         if self.selection not in ("min", "1se"):
             raise ValueError(f"unknown selection rule {self.selection!r}")
+        if int(self.feature_shards) < 0:
+            raise ValueError("feature_shards must be >= 0")
+        if int(self.feature_shards) > 1 and self.engine != "batched":
+            raise ValueError("feature_shards > 1 requires engine='batched' "
+                             "(the legacy driver is single-device)")
         if penalty == "nn_lasso" and self.center == "per-fold":
             raise ValueError("per-fold centering is not defined for the "
                              "nonnegative Lasso (centering X breaks the "
@@ -247,22 +270,13 @@ class Plan:
                 or self.feature_weights is not None):
             raise ValueError("adaptive weights are SGL-only (the nn_lasso "
                              "penalty has no group/feature weights)")
-        if self.engine == "legacy":
-            raise NotImplementedError(
-                "engine='legacy' (the per-lambda driver) is not ported; "
-                "the batched engine is (ROADMAP queue 1, item 16)")
-        if self.engine != "batched":
-            raise ValueError(f"unknown engine {self.engine!r}")
         if int(self.feature_shards) > 1:
             raise NotImplementedError(
                 "feature_shards > 1 is not ported yet (ROADMAP queue 1, "
                 "item 13)")
-        if int(self.feature_shards) < 0:
-            raise ValueError("feature_shards must be >= 0")
         if self.mesh is not None:
             raise NotImplementedError(
-                "a fold mesh is not ported yet (ROADMAP queue 1, items 9 "
-                "and 13)")
+                "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
         if self.use_kernels and problem.dtype == torch.float64:
             from .screening import _require_f32_for_pallas
             _require_f32_for_pallas(problem.dtype)

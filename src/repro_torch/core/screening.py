@@ -1,5 +1,6 @@
 """TLFre: the two-layer screening rules (paper Theorems 15, 16, 17), PyTorch
-port of the grid form the path engine runs.
+port: the one-ball screen of the per-lambda driver (``tlfre_screen``) and
+the grid form the path engine runs.
 
 Layer 1 (group):    s_g* < alpha*w_g                        => beta_g* = 0
 Layer 2 (feature):  |x_i^T o| + r*||x_i||_2 <= 1            => beta_i* = 0
@@ -17,12 +18,22 @@ rules run no kernel: ``screen_norms`` takes one l1 threshold.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .estimation import project_out_normal
+from .estimation import DualBall, project_out_normal
 from .fenchel import shrink
-from .groups import GroupSpec, group_sum
+from .groups import GroupSpec, broadcast_to_features, group_sum
 from .losses import SQUARED
+
+
+@dataclasses.dataclass(frozen=True)
+class ScreenResult:
+    group_keep: torch.Tensor   # (G,) bool: False => group certified zero (L1)
+    feat_keep: torch.Tensor    # (p,) bool: False => feature certified zero
+    s_sup: torch.Tensor        # (G,) the Theorem-15 sup values
+    t_sup: torch.Tensor        # (p,) the Theorem-16 sup values
 
 
 def sup_shrink_norm(c_shrink_norm, c_inf, r):
@@ -40,6 +51,16 @@ def _require_f32_for_pallas(dtype) -> None:
             "use_kernels=True would round-trip float64 screening statistics "
             "through the float32 CUDA kernels; float64 exactness runs must "
             "use the plain path (use_kernels=False)")
+
+
+def _xtv(X, v, use_kernels: bool):
+    """``X^T v``: through the ``xtv`` kernel with ``use_kernels`` (float32;
+    a float64 input raises ``TypeError``), else a plain product."""
+    if use_kernels:
+        _require_f32_for_pallas(X.dtype)
+        from ..kernels import ops as _kops
+        return _kops.xtv(X, v)
+    return X.T @ v
 
 
 def _grid_group_stats(spec: GroupSpec, C: torch.Tensor, use_kernels: bool):
@@ -99,7 +120,8 @@ def _grid_rules(spec: GroupSpec, alpha, C, radii, col_norms, group_specnorms,
                 use_kernels: bool = False):
     """Theorems 15/16 evaluated for every (lambda, group/feature) pair.
     ``C`` is (L, p), or (1, p) for one center shared by the grid's L
-    radii."""
+    radii.  Returns (group_keep (L, G), feat_keep (L, p), s (L, G), t (L,
+    p)), ``s`` and ``t`` the Theorem-15/16 sups."""
     r_g = radii[:, None] * group_specnorms[None, :]
     if spec.feature_weights is None:
         c_norm, c_inf = _grid_group_stats(spec, C, use_kernels)
@@ -112,7 +134,37 @@ def _grid_rules(spec: GroupSpec, alpha, C, radii, col_norms, group_specnorms,
     group_keep = s >= alpha * spec.weights[None, :]    # compared in float64
     t = torch.abs(C) + radii[:, None] * col_norms[None, :]
     feat_keep = (t > thresh) & group_keep[:, spec.group_ids]
-    return group_keep, feat_keep
+    return group_keep, feat_keep, s, t
+
+
+def tlfre_screen(X, spec: GroupSpec, alpha, ball: DualBall,
+                 col_norms: torch.Tensor, group_specnorms: torch.Tensor,
+                 safety: float = 0.0, *,
+                 use_kernels: bool = False) -> ScreenResult:
+    """Apply (L1) and (L2) given one dual ball: the grid rules on the (1,
+    p) row ``X^T center`` with L = 1.
+
+    ``col_norms``: (p,) column l2 norms of X; ``group_specnorms``: (G,)
+    ``||X_g||_2``.  ``safety`` inflates the radius multiplicatively (a few
+    ULPs in float32; exactness runs use 0 in float64).  ``use_kernels``
+    runs the screening GEMV through ``xtv`` and, without feature weights,
+    the group statistics through one ``screen_norms`` launch (float32: a
+    float64 input raises ``TypeError``).  With adaptive feature weights the
+    sup is the conservative ``||S_w(c)|| + r`` and the feature test ``t >
+    w``."""
+    r = (ball.radius * (1.0 + safety)).reshape(1)
+    c = _xtv(X, ball.center, use_kernels).to(X.dtype)  # the screening GEMV
+    group_keep, feat_keep, s, t = _grid_rules(
+        spec, alpha, c[None, :], r, col_norms, group_specnorms, use_kernels)
+    return ScreenResult(group_keep[0], feat_keep[0], s[0], t[0])
+
+
+def screen_stats(spec: GroupSpec, res: ScreenResult):
+    """(#groups discarded, #features discarded by L1, #extra features
+    discarded by L2)."""
+    in_kept = broadcast_to_features(spec, res.group_keep)
+    return (torch.sum(~res.group_keep), torch.sum(~in_kept),
+            torch.sum(~res.feat_keep & in_kept))
 
 
 def grid_ball_geometry(y, lambdas, theta_bar, n_vec):
@@ -208,8 +260,8 @@ def tlfre_screen_grid(X, y, spec: GroupSpec, alpha, lambdas, lam_bar,
     centers, radii = grid_ball_geometry(y, lambdas, theta_bar, n_vec)
     radii = radii * (1.0 + safety)
     C = centers @ X                                                # (L, p)
-    group_keep, feat_keep = _grid_rules(spec, alpha, C, radii, col_norms,
-                                        group_specnorms, use_kernels)
+    group_keep, feat_keep, _, _ = _grid_rules(
+        spec, alpha, C, radii, col_norms, group_specnorms, use_kernels)
     return group_keep, feat_keep, radii
 
 
@@ -231,7 +283,7 @@ def gap_safe_screen_grid(spec: GroupSpec, alpha, c_theta, radii, col_norms,
     the grid: the same answers, without L copies of the row.  Returns
     (group_keep (L, G), feat_keep (L, p))."""
     return _grid_rules(spec, alpha, c_theta[None, :], radii, col_norms,
-                       group_specnorms, use_kernels)
+                       group_specnorms, use_kernels)[:2]
 
 
 def gap_safe_screen_grid_folds(spec: GroupSpec, alpha, c_thetas, radii,

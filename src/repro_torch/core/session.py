@@ -11,9 +11,13 @@ so a warm call captures none.  ``X^T y`` (for a non-squared loss, ``X^T``
 times the loss's residual at beta = 0) and the per-alpha ``lambda_max``
 grid anchor are computed once per session.  Adaptive ``Plan.group_weights``
 / ``Plan.feature_weights`` overlay the problem's spec for one call
-(``_effective``).
+(``_effective``).  ``Plan(engine='legacy')`` runs the paper's per-lambda
+driver (``core.path``) on the effective spec, with the session's graph
+cache and the plan's ``use_kernels`` (the reference's legacy route ignores
+``use_pallas``: it runs no kernel); it reports no ``EngineStats``.
 
-``refine`` and ``stability`` are not ported yet (ROADMAP queue 1, item 9).
+``refine`` and ``stability`` are not ported yet (ROADMAP queue 1, items 21
+and 22).
 """
 from __future__ import annotations
 
@@ -58,6 +62,11 @@ class SGLSession:
             plan = plan.with_(**overrides)
         plan.validate(self.problem)
         return plan
+
+    def _absorb(self, stats: EngineStats) -> None:
+        # buckets=False: the session aggregate lives as long as the
+        # session, so per-segment bucket tuples would pile up without bound
+        self.stats.merge(stats, buckets=False)
 
     def _effective(self, plan: Plan):
         """(loss name, effective GroupSpec) for this plan.  Adaptive
@@ -108,6 +117,19 @@ class SGLSession:
         prob = self.problem
         loss, spec = self._effective(plan)
         screen = plan.resolved_screen(prob.penalty, loss)
+        if plan.engine == "legacy":
+            from .path import _nn_lasso_path_legacy, _sgl_path_legacy
+            legacy = dict(lambdas=plan.lambdas, n_lambdas=plan.n_lambdas,
+                          min_ratio=plan.min_ratio, screen=screen,
+                          tol=plan.tol, max_iter=plan.max_iter,
+                          safety=plan.safety, check_every=plan.check_every,
+                          use_kernels=plan.use_kernels)
+            if prob.penalty == "sgl":
+                return _sgl_path_legacy(
+                    prob.X, prob.y, spec, plan.alpha,
+                    specnorm_method=plan.specnorm_method,
+                    graphs=self.fista_graphs, **legacy)
+            return _nn_lasso_path_legacy(prob.X, prob.y, **legacy)
         common = dict(lambdas=plan.lambdas, n_lambdas=plan.n_lambdas,
                       min_ratio=plan.min_ratio, screen=screen, tol=plan.tol,
                       max_iter=plan.max_iter, safety=plan.safety,
@@ -124,7 +146,7 @@ class SGLSession:
                 fista_graphs=self.fista_graphs, loss=loss, **common)
         else:
             res = nn_lasso_path_batched(prob.X, prob.y, **common)
-        self.stats.merge(res.stats)
+        self._absorb(res.stats)
         return res
 
     def _fold_setup(self, plan: Plan):
@@ -173,14 +195,14 @@ class SGLSession:
                              folds, np.asarray(lambdas, float), betas,
                              lam_max, kept, stats, times, iters=iters,
                              mus=mus, y_means=y_means)
-        self.stats.merge(stats)
+        self._absorb(stats)
         return res
 
     def refine(self, *args, **kwargs):
         raise NotImplementedError(
-            "SGLSession.refine is not ported yet (ROADMAP queue 1, item 9)")
+            "SGLSession.refine is not ported yet (ROADMAP queue 1, item 21)")
 
     def stability(self, *args, **kwargs):
         raise NotImplementedError(
             "SGLSession.stability is not ported yet (ROADMAP queue 1, "
-            "item 9)")
+            "item 22)")

@@ -112,6 +112,33 @@ def _sgl_block(X, y, t_step, t_l1, t_group, prox, beta, z, tk, n: int,
     return beta, z, tk
 
 
+def solve_sgl(X, y, spec: GroupSpec, lam, alpha, lipschitz, beta0=None, *,
+              max_iter: int = 20000, check_every: int = 10,
+              tol: float = 1e-9, loss=SQUARED, use_kernels: bool = False,
+              graphs=None) -> SolveResult:
+    """FISTA for problem (3) from ``beta0`` (zero by default).  ``tol`` is
+    a relative duality-gap tolerance (gap <= tol * loss.gap_scale(y);
+    0.5||y||^2 for the squared loss); ``lipschitz`` is the design bound
+    ``||X||^2`` for every loss.
+
+    ``use_kernels`` (float32 only: a float64 input raises ``TypeError``)
+    takes the path engine's route: without feature weights, through the
+    fused ``sgl_prox``, replayed from graphed blocks on the card (cached in
+    ``graphs``; a fresh cache by default) and eager through its plain
+    version on the CPU; with feature weights, the eager loop with the
+    plain prox."""
+    from .path_engine import _fista_route   # path_engine imports this module
+    from .screening import _require_f32_for_pallas
+    if use_kernels:
+        _require_f32_for_pallas(X.dtype)
+    if beta0 is None:
+        beta0 = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
+    solve, kw = _fista_route(X, spec, use_kernels,
+                             {} if graphs is None else graphs)
+    return solve(X, y, spec, lam, alpha, lipschitz, beta0, max_iter=max_iter,
+                 check_every=check_every, tol=tol, loss=loss, **kw)
+
+
 # ---------------------------------------------------------------------------
 # The FISTA block as a CUDA graph (the card's kernel route)
 # ---------------------------------------------------------------------------
@@ -307,3 +334,14 @@ def fista_nn_lasso(X, y, lam, lipschitz, beta0, *, max_iter: int = 20000,
     if theta is None:                   # max_iter <= 0: no check ran
         _, _, theta = _nn_gap(X, y, lam, beta)
     return SolveResult(beta, theta, gap, it)
+
+
+def solve_nn_lasso(X, y, lam, lipschitz, beta0=None, *,
+                   max_iter: int = 20000, check_every: int = 10,
+                   tol: float = 1e-9) -> SolveResult:
+    """FISTA for problem (80) with prox (v - t*lam)_+, from ``beta0``
+    (zero by default)."""
+    if beta0 is None:
+        beta0 = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
+    return fista_nn_lasso(X, y, lam, lipschitz, beta0, max_iter=max_iter,
+                          check_every=check_every, tol=tol)

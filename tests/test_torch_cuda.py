@@ -570,3 +570,70 @@ def test_plain_segment_sums_repeat_bitwise_on_the_card(dev):
         cpu = T.group_sum(sp.to("cpu"), x.cpu())
         np.testing.assert_allclose(first.cpu().numpy(), cpu.numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_tlfre_screen_on_the_card_matches_plain(dev):
+    """The one-ball TLFre screen of the per-lambda driver on the card:
+    exactly one ``xtv`` launch (the GEMV ``X^T center``) and one
+    ``screen_norms`` launch (the (1, p) row's statistics); keep masks equal
+    to the plain versions' on the CPU, sups within rtol = atol = 1e-5."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(7)
+    sizes = [int(s) for s in gen.integers(1, 10, size=300)]
+    p = sum(sizes)
+    X = gen.standard_normal((80, p)).astype(np.float32)
+    center = (gen.standard_normal(80) * 0.15).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (
+        X, center, np.linalg.norm(X, axis=0).astype(np.float32),
+        gen.uniform(1.0, 3.0, len(sizes)).astype(np.float32))]
+    radius = torch.tensor(0.02)
+
+    def screen(device):
+        Xd, c, cn, gs = (a.to(device) for a in args)
+        return T.tlfre_screen(Xd, T.GroupSpec.from_sizes(sizes,
+                                                         device=device),
+                              0.8, T.DualBall(c, radius.to(device)), cn, gs,
+                              safety=1e-6, use_kernels=True)
+    cpu = screen("cpu")
+    ops.reset_launch_counts()
+    card = screen(dev)
+    counts = ops.launch_counts()
+    assert counts["xtv"] == counts["screen_norms"] == 1
+    assert sum(counts.values()) == 2
+    assert 0 < int(cpu.group_keep.sum()) < len(sizes)
+    for f in ("group_keep", "feat_keep"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+    for f in ("s_sup", "t_sup"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy(),
+                                   getattr(cpu, f).numpy(), **TOL)
+
+
+def test_solve_sgl_graphed_matches_eager(dev):
+    """``solve_sgl(..., use_kernels=True)`` on the card replays graphed
+    blocks: the eager loop's iterations (``fista_sgl`` with the kernel
+    prox), betas within 1e-6 * max|beta|, one ``sgl_prox`` launch a FISTA
+    iteration; a second solve of the shape captures nothing."""
+    from repro_torch.core import fista_sgl, solve_sgl
+    from repro_torch.core.linalg import spectral_norm
+    from repro_torch.core.path_engine import _padded_prox
+    from repro_torch.kernels import ops
+    import repro_torch.core as T
+    X, y, sizes = _graph_problem()
+    spec = T.GroupSpec.from_sizes(sizes, device=dev)
+    Xd, yd = torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev)
+    L = spectral_norm(Xd) ** 2
+    lam = float(torch.max(torch.abs(Xd.T @ yd))) * 0.05
+    kw = dict(max_iter=6000, check_every=10, tol=1e-6)
+    eager = fista_sgl(Xd, yd, spec, lam, 1.0, L, torch.zeros_like(Xd[0]),
+                      prox=_padded_prox(spec), **kw)
+    graphs = {}
+    for _ in range(2):                  # captures, then replays
+        ops.reset_launch_counts()
+        graphed = solve_sgl(Xd, yd, spec, lam, 1.0, L, use_kernels=True,
+                            graphs=graphs, **kw)
+        assert len(graphs) == 1
+        assert ops.launch_counts()["sgl_prox"] == graphed.iters
+        assert graphed.iters == eager.iters > kw["check_every"]
+        scale = float(eager.beta.abs().max())
+        assert float((graphed.beta - eager.beta).abs().max()) <= 1e-6 * scale

@@ -79,10 +79,14 @@ def _run_both(X, y, sizes, plan_kw):
 
 
 def _assert_counters_equal(rj, rt):
+    """The engine's counters, where there are any (the legacy driver
+    reports none, on both sides), then iterations and kept sets."""
     sj, st = rj.stats, rt.stats
+    assert (sj is None) == (st is None)
     for f in ("n_segments", "n_screens", "n_compilations", "n_rejected",
               "n_pallas_screens", "buckets"):
-        assert getattr(st, f) == getattr(sj, f), f
+        if sj is not None:
+            assert getattr(st, f) == getattr(sj, f), f
     assert abs(int(rt.iters.sum()) - int(rj.iters.sum())) <= \
         0.1 * int(rj.iters.sum())
     np.testing.assert_array_equal(rt.kept_features, rj.kept_features)
@@ -232,7 +236,6 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("engine", "legacy", "item 16"),
     ("feature_shards", 2, "item 13"),
 ])
 def test_unported_plan_values_raise_not_implemented(field, value, item):
@@ -243,6 +246,7 @@ def test_unported_plan_values_raise_not_implemented(field, value, item):
 
 
 @pytest.mark.parametrize("field,value", [
+    ("engine", "legacy"),
     ("screen", "gapsafe"),
     ("loss", "logistic"),
     ("feature_weights", np.linspace(0.5, 2.0, 60)),
