@@ -60,10 +60,11 @@ Phases (each fails loudly, with a non-zero exit):
    take one l1 threshold), and group weights alone under TLFre (the
    kernel route of phase 3), float32 and float64.
 10. Gap-Safe nonnegative-Lasso path: phase 5's data and plan (``xtv``).
-11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold, warm and
-    float64 (two ``screen_norms_folds`` launches a stacked screen).
-12. Gap-Safe nonnegative-Lasso CV: phase 7's plan, cold, warm and
-    float64.
+11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold and warm (two
+    ``screen_norms_folds`` launches a stacked screen); float64 against
+    float32 at 20 lambdas.
+12. Gap-Safe nonnegative-Lasso CV: phase 7's plan, cold and warm;
+    float64 against float32 at 20 lambdas.
 13. Sparse-group logistic path: ``loss_logistic_bench`` of
     ``benchmarks/paper_tables.py`` at full size, ``screen='gapsafe'``
     against ``'none'``, float32 (graphed ``sgl_prox`` blocks, ``xtv``
@@ -82,7 +83,38 @@ Phases (each fails loudly, with a non-zero exit):
     phase 3; the float64 legacy betas within 1e-2 * max|beta| of the
     float64 batched paths of phases 3 and 5.  Wall, solve us per FISTA
     iteration, iterations and summed kept features are printed.
-15. Each kernel against its plain PyTorch version on the card, at the
+15. Warm two-stage refinement, ``benchmarks/paper_tables.py:session_bench``
+    at full size (Synthetic 1 with 0.5 std(y) of noise, K = 5, 100
+    lambdas, tol 3e-6, float32): ``cv``, ``refine(factor=10)`` and, at
+    check_every 10, ``refine(factor=3)``, each against a cold ``cv`` over
+    its refined grid (betas within 1e-2 * max|beta|, selection within one
+    step; the FISTA iterations of both printed), a warm repeat of ``cv``
+    and both refinements (no compilation, no capture); float64 ``cv`` + ``refine`` at 20 lambdas against float32's
+    on the same grids (the CV bars of phase 6); the nonnegative-Lasso
+    ``refine`` on the Table-3 data at 20 lambdas.  Each stacked screen one
+    ``screen_norms_folds`` (``dpc_screen_folds``) launch, every FISTA
+    iteration a graphed ``sgl_prox`` launch, ``xtv``.
+16. Stability selection at the ``stability_selection`` shim's defaults
+    (Synthetic 1, 50 half-row subsamples in batches of 10, 30 lambdas,
+    float32): the kernels of phase 15, every row certified, a warm repeat
+    that compiles and captures nothing; float64 at 10 subsamples and 10
+    lambdas on the same masks and grid: an activity decision differs only
+    where float64's |beta| is within 1e-2 * max|beta| of ``active_tol``.
+17. The estimators of ``repro_torch.api`` at float32: ``SGLCV`` (K = 5,
+    20 lambdas, Synthetic 1 + 3) and its ``session_.refine``,
+    ``SGLRegressor`` at its ``lambda_`` (within 1e-2 * max|coef|),
+    ``NNLassoCV`` (Table 3; coef >= 0), ``SGLClassifier``
+    (``loss_logistic_bench``'s data at 0.3 lambda_max; objective within its
+    certified gap of float64's).  Each route's launches are printed and
+    checked.
+18. Serving: ``SGLServer`` with 2 designs at Synthetic-1 width and 3
+    responses each, 5 folds, 20 lambdas, float32, drained cold and warm:
+    no job error, one fold-stacked engine call per design, no compilation
+    when warm, each job against a solo CV and refit (the CV bars); latency
+    per job printed.
+    Phases 15-18 print their seconds, float32 ``n_rejected`` and launches
+    by kernel.
+19. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -99,7 +131,7 @@ Phases (each fails loudly, with a non-zero exit):
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
    ``screen_norms`` on the legacy screen's (1, p) row.
-16. One JSON line ``{"kernels": [...]}``, then the last line
+20. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -1109,7 +1141,8 @@ def gapsafe_nn_path_phase(torch, T, N=250, p=10_000):
 def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     """Phase 6's plan with ``screen='gapsafe'``: two ``screen_norms_folds``
     launches a stacked screen (TLFre's K x L rows, Gap-Safe's K rows),
-    ``sgl_prox`` on graphed blocks, ``xtv``; cold, warm, float64."""
+    ``sgl_prox`` on graphed blocks, ``xtv``; cold, warm; float64 against
+    float32 at 20 lambdas."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
     plan = T.Plan(**CV_PLAN, screen="gapsafe")
@@ -1134,16 +1167,21 @@ def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-cv-f32-warm")
     say(f"[gapsafe-sgl-cv] warm wall {warm_wall:.3f} s, n_rejected "
         f"{st.n_rejected}")
+    # the float64 twin at 20 lambdas (its bars repeat phase 6's at 100),
+    # against a float32 call on the same plan
+    plan20 = plan.with_(n_lambdas=20)
+    res20, _, _, _ = run_cv(torch, sess, plan20, "gapsafe-sgl-cv-f32-20")
     sess64 = f64_session(torch, T, X, y, [n] * G)
-    res64, counts64, _, _ = run_cv(torch, sess64, plan, "gapsafe-sgl-cv-f64")
+    res64, counts64, _, _ = run_cv(torch, sess64, plan20,
+                                   "gapsafe-sgl-cv-f64")
     require_no_kernel(counts64, "gapsafe-sgl-cv-f64")
-    compare_cv(res, res64, "gapsafe-sgl-cv")
+    compare_cv(res20, res64, "gapsafe-sgl-cv")
     return counts
 
 
 def gapsafe_nn_cv_phase(torch, T, N=250, p=10_000):
     """Phase 7's plan with ``screen='gapsafe'``: ``dpc_screen_folds`` once
-    a stacked screen, ``xtv``; float64 reference."""
+    a stacked screen, ``xtv``; float64 against float32 at 20 lambdas."""
     from repro_torch.data_synth import synthetic_nn
     X, y, _ = synthetic_nn(1, N=N, p=p, seed=1)
     plan = T.Plan(**CV_PLAN, screen="gapsafe")
@@ -1153,11 +1191,15 @@ def gapsafe_nn_cv_phase(torch, T, N=250, p=10_000):
                        ("xtv",))
     say(f"[gapsafe-nn-cv] n_rejected {res.stats.n_rejected}")
     warm_call(torch, sess, plan, "gapsafe-nn-cv-f32", verb="cv")
+    # the float64 twin at 20 lambdas, as in phase 11
+    plan20 = plan.with_(n_lambdas=20)
+    res20, _, _, _ = run_cv(torch, sess, plan20, "gapsafe-nn-cv-f32-20")
     sess64 = T.SGLSession(T.Problem.nn_lasso(
         X.astype(np.float64), y.astype(np.float64), dtype=torch.float64))
-    res64, counts64, _, _ = run_cv(torch, sess64, plan, "gapsafe-nn-cv-f64")
+    res64, counts64, _, _ = run_cv(torch, sess64, plan20,
+                                   "gapsafe-nn-cv-f64")
     require_no_kernel(counts64, "gapsafe-nn-cv-f64")
-    compare_cv(res, res64, "gapsafe-nn-cv")
+    compare_cv(res20, res64, "gapsafe-nn-cv")
     return counts
 
 
@@ -1339,7 +1381,486 @@ def legacy_phase(torch, T, res_sgl64, res_nn64, N=250, G=1000, n=10,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: each kernel against its plain version, and its time
+# phases 15-18: model selection: refine, stability, the estimators, serving
+# ---------------------------------------------------------------------------
+
+def run_counted(torch, label, fn):
+    """``fn()`` with the launch counts reset just before and read just
+    after, inside ``GraphedSolves``.  Prints the wall time and the launches
+    by kernel; returns (result, counts, wall, calls)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with GraphedSolves() as calls:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    say(f"[{label}] wall {wall:.3f} s; graphed FISTA iterations "
+        f"{calls.iters} in {calls.solves} solves; launches "
+        f"{json.dumps(counts)}")
+    return out, counts, wall, calls
+
+
+def require_only(counts, label, kernels):
+    """Every kernel of ``kernels`` launched, and no other."""
+    for name in kernels:
+        require(counts[name] > 0, f"{label}: kernel {name} was not launched")
+    for name in set(counts) - set(kernels):
+        require(counts[name] == 0, f"{label}: kernel {name} was launched "
+                f"({counts})")
+
+
+def require_cv_route(res, counts, calls, label, fold_kernel, refits=0):
+    """A float32 fold-engine call on the card: each stacked screen one
+    ``fold_kernel`` launch; for SGL every FISTA iteration (the engine's,
+    and ``refits`` more of solo refits) a graphed ``sgl_prox`` launch."""
+    st = res.stats
+    require(st.n_pallas_screens == st.n_screens == counts[fold_kernel] > 0,
+            f"{label}: {fold_kernel} launches {counts[fold_kernel]}, "
+            f"stacked screens {st.n_screens}, n_pallas_screens "
+            f"{st.n_pallas_screens}: not all equal")
+    if fold_kernel == "screen_norms_folds":
+        require(counts["sgl_prox"] == st.fista_iters + refits
+                == calls.iters > 0 and calls.eager_solves == 0,
+                f"{label}: sgl_prox launches {counts['sgl_prox']}, FISTA "
+                f"iterations {st.fista_iters} + refits {refits}, graphed "
+                f"{calls.iters}, eager solves {calls.eager_solves}")
+        require_only(counts, label, (fold_kernel, "sgl_prox", "xtv"))
+    else:
+        require_only(counts, label, (fold_kernel, "xtv"))
+    say(f"[{label}] n_screens {st.n_screens} n_segments {st.n_segments} "
+        f"n_compilations {st.n_compilations} n_rejected {st.n_rejected} "
+        f"fista iterations {st.fista_iters}")
+
+
+def refine_phase(torch, T, N=250, G=1000, n=10):
+    """``benchmarks/paper_tables.py:session_bench`` at full size: Synthetic
+    1 with 0.5 std(y) of noise (seed 2), K = 5, 100 lambdas, tol 3e-6,
+    safety 1e-6, max_iter 6000, check_every 50, float32.  ``cv``, then
+    ``refine(factor=10)`` and, at check_every 10, ``refine(factor=3)``
+    (the refinement of the refinement), each against a cold ``cv`` on a
+    fresh session over its fine grid (``refine_against_cold``); the same
+    session's ``cv`` and both refinements again (no compilation, no
+    capture).  The FISTA iterations of each refinement and of its cold CV
+    are printed side by side, not required to differ: the seed changes
+    only each fold's first fine row, and in float32 that row converges
+    within the same gap checks from either start (the reference's too).
+    Float64 ``cv`` + ``refine`` at 20 lambdas on
+    float64's coarse grid and window against float32's, held by the CV
+    bars.  The nonnegative-Lasso ``refine`` on the Table-3 data at 20
+    lambdas (``dpc_screen_folds``, ``xtv``)."""
+    from repro_torch.data_synth import synthetic_nn, synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    y = y + np.std(y) * 0.5 * np.random.default_rng(2).standard_normal(
+        len(y)).astype(y.dtype)
+    plan = T.Plan(alpha=1.0, n_lambdas=100, tol=3e-6, safety=1e-6,
+                  max_iter=6000, check_every=50, n_folds=5)
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
+    coarse, counts_c, _, calls_c = run_counted(
+        torch, "refine-coarse-cv-f32", lambda: sess.cv(plan))
+    require_cv_route(coarse, counts_c, calls_c, "refine-coarse-cv-f32",
+                     "screen_norms_folds")
+    ref, counts = refine_against_cold(torch, T, sess, X, y, [n] * G, plan,
+                                      10.0, "refine-f32")
+    # the factor-10 window of this data reaches lambda_max, so its seed is
+    # the grid's first point: each fold's clamped lambda_max state.  The
+    # refinement of the refinement, by 3 and at check_every 10, seeds
+    # below it, from rebuilt duals
+    fine10 = dict(check_every=10)
+    ref3, counts3 = refine_against_cold(torch, T, sess, X, y, [n] * G, plan,
+                                        3.0, "refine-f32-by-3", **fine10)
+    require(ref3.warm_start_lambda < ref.fine.lambdas[0],
+            "refine-f32-by-3: seeded at the top of its coarse grid")
+    n_graphs = len(sess.fista_graphs)
+    walls = []
+    for label, call in (("cv", lambda: sess.cv(plan)),
+                        ("refine", lambda: sess.refine(factor=10.0)),
+                        ("refine-by-3",
+                         lambda: sess.refine(factor=3.0, **fine10))):
+        res, counts_w, wall_w, calls_w = run_counted(
+            torch, f"refine-f32-warm-{label}", call)
+        res = res if label == "cv" else res.fine
+        require(res.stats.n_compilations == 0 and
+                len(sess.fista_graphs) == n_graphs,
+                f"refine-f32-warm-{label}: compiled or captured")
+        require_cv_route(res, counts_w, calls_w, f"refine-f32-warm-{label}",
+                         "screen_norms_folds")
+        walls.append(wall_w)
+    say(f"[refine] warm cv {walls[0]:.3f} s + refine {walls[1]:.3f} s + "
+        f"refine by 3 {walls[2]:.3f} s")
+
+    # float64 reference at 20 lambdas: both dtypes on float64's coarse grid
+    # and around float64's selection, so that the fine grids are equal
+    plan20 = plan.with_(n_lambdas=20)
+    sess64 = f64_session(torch, T, X, y, [n] * G)
+    cv64, counts64, _, _ = run_counted(torch, "refine-cv-f64",
+                                       lambda: sess64.cv(plan20))
+    ref64, counts64r, _, _ = run_counted(
+        torch, "refine-f64", lambda: sess64.refine(
+            around=cv64.best_lambda, factor=10.0))
+    require_no_kernel(counts64, "refine-cv-f64")
+    require_no_kernel(counts64r, "refine-f64")
+    cv32 = sess.cv(plan20.with_(lambdas=cv64.lambdas))
+    ref32 = sess.refine(around=cv64.best_lambda, factor=10.0)
+    compare_cv(cv32, cv64, "refine-coarse-20")
+    require(np.allclose(ref32.fine.lambdas, ref64.fine.lambdas, rtol=1e-12),
+            "refine-20: the fine grids differ")
+    compare_cv(ref32.fine, ref64.fine, "refine-20")
+
+    Xn, yn, _ = synthetic_nn(1, N=N, p=G * n, seed=1)
+    plan_nn = T.Plan(**CV_PLAN).with_(n_lambdas=20)
+    sess_nn = T.SGLSession(T.Problem.nn_lasso(Xn, yn))
+    run_counted(torch, "refine-nn-cv-f32", lambda: sess_nn.cv(plan_nn))
+    ref_nn, counts_nn, _, calls_nn = run_counted(
+        torch, "refine-nn-f32", lambda: sess_nn.refine(factor=10.0))
+    require_cv_route(ref_nn.fine, counts_nn, calls_nn, "refine-nn-f32",
+                     "dpc_screen_folds")
+    require(bool((ref_nn.fine.fold_iters < plan_nn.max_iter).all()),
+            "refine-nn-f32: a row ran to max_iter (not certified)")
+    say(f"[refine-nn] lambda_ {ref_nn.lambda_:.6g} seeded at "
+        f"{ref_nn.warm_start_lambda:.6g}; FISTA iterations "
+        f"{ref_nn.total_iters}; n_rejected f32 "
+        f"{ref_nn.fine.stats.n_rejected}")
+    return {"refine": counts, "refine-by-3": counts3, "refine-nn": counts_nn}
+
+
+def refine_against_cold(torch, T, sess, X, y, sizes, plan, factor, label,
+                        **overrides):
+    """``sess.refine(factor, **overrides)`` after the session's last CV (or
+    refine), then a cold CV on a fresh session over the same fine grid
+    with the same overrides.  Both on the
+    kernel route; every refined row certified, the refined betas within
+    1e-2 * max|beta| of the cold ones and the selection within one step;
+    both runs' FISTA iterations printed."""
+    top = sess._last_cv.result.lambdas[0]
+    ref, counts, wall_r, calls = run_counted(
+        torch, label, lambda: sess.refine(factor=factor, **overrides))
+    fine = ref.fine
+    require_cv_route(fine, counts, calls, label, "screen_norms_folds")
+    cold, _, wall_cold, _ = run_counted(
+        torch, f"{label}-cold-cv", lambda: T.SGLSession(
+            T.Problem.sgl(X, y, sizes)).cv(plan.with_(lambdas=fine.lambdas,
+                                                      **overrides)))
+    cold_iters = int(cold.fold_iters.sum())
+    dbeta = float(np.abs(fine.fold_betas - cold.fold_betas).max())
+    dbound = 1e-2 * float(np.abs(cold.fold_betas).max())
+    at_top = ref.warm_start_lambda >= top
+    say(f"[{label}] window [{fine.lambdas.min():.6g}, "
+        f"{fine.lambdas.max():.6g}] around {ref.coarse.best_lambda:.6g}, "
+        f"seeded at {ref.warm_start_lambda:.6g} (top of the coarse grid "
+        f"{top:.6g}: {'yes' if at_top else 'no'}); lambda_ "
+        f"{ref.lambda_:.6g} (index {ref.index}, cold CV's "
+        f"{cold.best_index}); FISTA iterations {ref.total_iters} (accepted "
+        f"rows; run {fine.stats.fista_iters}) against the cold CV's "
+        f"{cold_iters} (run {cold.stats.fista_iters}): saving "
+        f"{cold_iters / max(ref.total_iters, 1):.3f}x; wall {wall_r:.3f} s "
+        f"against cold {wall_cold:.3f} s; new compilations "
+        f"{ref.new_compilations}; n_rejected f32 {fine.stats.n_rejected}; "
+        f"max|beta_refine - beta_cold| = {dbeta:.3e} (bound 1e-2 * "
+        f"max|beta| = {dbound:.3e})")
+    require(np.isfinite(fine.fold_betas).all() and
+            np.isfinite(fine.mean_mse).all(), f"{label}: non-finite")
+    require(bool((fine.fold_iters < plan.max_iter).all()),
+            f"{label}: a row ran to max_iter (not certified)")
+    require(dbeta <= dbound, f"{label}: refined betas disagree with the "
+            f"cold CV's")
+    require(abs(ref.index - cold.best_index) <= 1,
+            f"{label}: selection more than one step from the cold CV's")
+    return ref, counts
+
+
+class FoldBetas:
+    """Inside the block, records the (betas, iters) of every
+    ``sgl_fold_paths`` call a session makes."""
+
+    def __enter__(self):
+        from repro_torch.core import session
+        self.mod, self.orig = session, session.sgl_fold_paths
+        self.calls = []
+
+        def recorded(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append((out[0], out[2]))
+            return out
+
+        session.sgl_fold_paths = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sgl_fold_paths = self.orig
+
+    def betas(self):
+        return np.concatenate([b for b, _ in self.calls])
+
+    def iters(self):
+        return np.concatenate([i for _, i in self.calls])
+
+
+def stability_phase(torch, T, N=250, G=1000, n=10):
+    """Stability selection on Synthetic 1 at the ``stability_selection``
+    shim's defaults (50 subsamples of half the rows, batches of 10, 30
+    lambdas, min_ratio 0.05, tol 1e-7, the Frobenius group bound), float32:
+    every stacked screen one ``screen_norms_folds`` launch, ``sgl_prox``
+    graphed, ``xtv``; every accepted row certified; a warm second call that
+    compiles and captures nothing.  Float64 at 10 subsamples and 10
+    lambdas against float32 on the same masks and grid: a (subsample,
+    lambda, feature) is active in one dtype and not the other only where
+    float64's |beta| is within 1e-2 * max|beta| (the float32 bar on betas)
+    of ``active_tol``."""
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    plan = T.Plan(n_subsamples=50, subsample_frac=0.5, batch_size=10,
+                  n_lambdas=30, min_ratio=0.05, active_tol=1e-8, tol=1e-7,
+                  max_iter=20000, check_every=10, specnorm_method="fro")
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
+    with FoldBetas() as rec:
+        res, counts, wall, calls = run_counted(
+            torch, "stability-f32", lambda: sess.stability(plan))
+    require_cv_route(res, counts, calls, "stability-f32",
+                     "screen_norms_folds")
+    iters = rec.iters()
+    require(iters.shape == (50, 30) and bool((iters < plan.max_iter).all()),
+            "stability-f32: a row ran to max_iter (not certified)")
+    probs = res.selection_probs
+    say(f"[stability] selection_probs {probs.shape}, features with max_prob "
+        f">= 0.6: {int((res.max_probs >= 0.6).sum())}; n_rejected f32 "
+        f"{res.stats.n_rejected}; FISTA iterations {res.stats.fista_iters}")
+    require(np.isfinite(probs).all() and probs.min() >= 0 and
+            probs.max() <= 1, "stability-f32: probabilities out of [0, 1]")
+    n_graphs = len(sess.fista_graphs)
+    warm, _, wall_w, _ = run_counted(torch, "stability-f32-warm",
+                                     lambda: sess.stability(plan))
+    require(warm.stats.n_compilations == 0 and
+            len(sess.fista_graphs) == n_graphs,
+            "stability-f32-warm: compiled or captured")
+    require(np.array_equal(warm.selection_probs, probs),
+            "stability-f32-warm: probabilities differ from the cold call's")
+    say(f"[stability] cold {wall:.3f} s, warm {wall_w:.3f} s")
+
+    small = plan.with_(n_subsamples=10, n_lambdas=10)
+    sess64 = f64_session(torch, T, X, y, [n] * G)
+    with FoldBetas() as rec64:
+        s64, counts64, _, _ = run_counted(torch, "stability-f64",
+                                          lambda: sess64.stability(small))
+    require_no_kernel(counts64, "stability-f64")
+    with FoldBetas() as rec32:
+        s32, _, _, _ = run_counted(torch, "stability-f32-small", lambda:
+                                   sess.stability(small.with_(
+                                       lambdas=s64.lambdas)))
+    b32, b64 = rec32.betas(), rec64.betas()
+    tol = plan.active_tol
+    flips = (np.abs(b32) > tol) != (np.abs(b64) > tol)
+    band = 1e-2 * float(np.abs(b64).max()) + tol
+    worst = float(np.abs(b64[flips]).max()) if flips.any() else 0.0
+    dprob = float(np.abs(s32.selection_probs - s64.selection_probs).max())
+    say(f"[stability] f32 vs f64 (10 subsamples, 10 lambdas): "
+        f"{int(flips.sum())} of {flips.size} (subsample, lambda, feature) "
+        f"activity decisions differ, at float64 |beta| <= {worst:.3e} "
+        f"(bound 1e-2 * max|beta| + active_tol = {band:.3e}); max "
+        f"|prob_f32 - prob_f64| = {dprob:.3f}")
+    require(worst <= band, "stability: a float32 activity decision differs "
+            "from float64's at a feature far from active_tol")
+    return counts
+
+
+def estimators_phase(torch, T, N=250, G=1000, n=10):
+    """The estimators of ``api.py`` at float32 on the card: ``SGLCV`` on
+    Synthetic 1 with an intercept (y + 3), K = 5, 20 lambdas, then its
+    ``session_.refine``; ``SGLRegressor`` at ``SGLCV.lambda_`` (coef within
+    1e-2 * max|coef| of ``SGLCV.coef_``); ``NNLassoCV`` on the Table-3
+    data (coef >= 0); ``SGLClassifier`` on ``loss_logistic_bench``'s data
+    at 0.3 lambda_max, alpha 0.9 (its objective at most its certified gap
+    above the float64 fit's)."""
+    from repro_torch import api
+    from repro_torch.data_synth import (synthetic_logistic, synthetic_nn,
+                                        synthetic_sgl)
+    f32 = torch.float32
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    y = y + 3.0
+    sizes = [n] * G
+    kw = dict(tol=3e-6, max_iter=6000)
+    est, counts_cv, _, calls = run_counted(
+        torch, "sglcv-f32", lambda: api.SGLCV(
+            groups=sizes, n_folds=5, n_lambdas=20, safety=1e-5, dtype=f32,
+            **kw).fit(X, y))
+    require_cv_route(est.cv_result_, counts_cv, calls, "sglcv-f32",
+                     "screen_norms_folds", refits=est.n_iter_)
+    require(est.n_iter_ < kw["max_iter"], "sglcv-f32: the refit ran to "
+            "max_iter")
+    ref, counts_r, _, calls_r = run_counted(
+        torch, "sglcv-refine-f32", lambda: est.session_.refine(factor=10.0))
+    require_cv_route(ref.fine, counts_r, calls_r, "sglcv-refine-f32",
+                     "screen_norms_folds")
+    reg, counts_reg, _, calls_reg = run_counted(
+        torch, "sglregressor-f32", lambda: api.SGLRegressor(
+            lam=est.lambda_, groups=sizes, dtype=f32, **kw).fit(X, y))
+    require(counts_reg["sgl_prox"] == reg.n_iter_ == calls_reg.iters > 0,
+            "sglregressor-f32: sgl_prox launches are not its graphed FISTA "
+            "iterations")
+    require_only(counts_reg, "sglregressor-f32", ("sgl_prox",))
+    dcoef = float(np.abs(reg.coef_ - est.coef_).max())
+    cbound = 1e-2 * float(np.abs(est.coef_).max())
+    say(f"[estimators] SGLCV lambda_ {est.lambda_:.6g} (index "
+        f"{int(np.argmin(np.abs(est.lambdas_ - est.lambda_)))}), refit "
+        f"{est.n_iter_} iterations, intercept {est.intercept_:.4f}, "
+        f"score {est.score(X, y):.6f}; refine lambda_ {ref.lambda_:.6g}; "
+        f"SGLRegressor score {reg.score(X, y):.6f}, max|coef_reg - "
+        f"coef_cv| = {dcoef:.3e} (bound {cbound:.3e}); n_rejected f32 "
+        f"{est.cv_result_.stats.n_rejected}")
+    require(dcoef <= cbound, "SGLRegressor disagrees with SGLCV")
+
+    Xn, yn, _ = synthetic_nn(1, N=N, p=G * n, seed=1)
+    nn, counts_nn, _, calls_nn = run_counted(
+        torch, "nnlassocv-f32", lambda: api.NNLassoCV(
+            n_folds=5, n_lambdas=20, safety=1e-5, dtype=f32,
+            **kw).fit(Xn, yn))
+    require_cv_route(nn.cv_result_, counts_nn, calls_nn, "nnlassocv-f32",
+                     "dpc_screen_folds")
+    require(nn.coef_.min() >= 0.0, "NNLassoCV: a negative coefficient")
+    say(f"[estimators] NNLassoCV lambda_ {nn.lambda_:.6g}, refit "
+        f"{nn.n_iter_} iterations, score {nn.score(Xn, yn):.6f}, "
+        f"nnz {int((nn.coef_ > 0).sum())}")
+
+    Xl, yl, _ = synthetic_logistic(N, G, n, seed=7)
+    Xl32, yl32 = Xl.astype(np.float32), yl.astype(np.float32)
+    lam = 0.3 * f64_session(torch, T, Xl, yl, sizes,
+                            loss="logistic").lambda_max(0.9)
+    ckw = dict(lam=lam, alpha=0.9, groups=sizes, tol=1e-6, max_iter=6000)
+    clf, counts_clf, _, calls_clf = run_counted(
+        torch, "sglclassifier-f32", lambda: api.SGLClassifier(
+            dtype=f32, **ckw).fit(Xl32, yl32))
+    require(counts_clf["sgl_prox"] == clf.session_.stats.fista_iters
+            == calls_clf.iters > 0,
+            "sglclassifier-f32: sgl_prox launches are not its graphed FISTA "
+            "iterations")
+    require(counts_clf["xtv"] > 0 and counts_clf["screen_norms"] > 0,
+            "sglclassifier-f32: xtv or screen_norms was not launched")
+    require_only(counts_clf, "sglclassifier-f32",
+                 ("sgl_prox", "xtv", "screen_norms"))
+    clf64, counts64, _, _ = run_counted(
+        torch, "sglclassifier-f64", lambda: api.SGLClassifier(
+            dtype=torch.float64, **ckw).fit(Xl, yl))
+    require_no_kernel(counts64, "sglclassifier-f64")
+    objectives = spec_objectives(Xl32, yl32, clf.spec_, 0.9, [lam],
+                                 loss="logistic")
+    obj32 = float(objectives(clf.coef_[None, :])[0])
+    obj64 = float(objectives(clf64.coef_[None, :])[0])
+    gap_bound = 1.01 * max(ckw["tol"], 64 * EPS32) * objectives.gap_scale
+    say(f"[estimators] SGLClassifier at 0.3 lambda_max = {lam:.6g}: "
+        f"{clf.n_iter_} iterations, kept {clf.kept_features_}, accuracy "
+        f"{clf.score(Xl, yl):.4f} (f64 {clf64.score(Xl, yl):.4f}); "
+        f"objective f32 {obj32:.9g} - f64 {obj64:.9g} = {obj32 - obj64:.3e} "
+        f"(bound, the f32 certified gap {gap_bound:.3e})")
+    require(clf.n_iter_ < ckw["max_iter"],
+            "sglclassifier-f32: ran to max_iter")
+    require(obj32 - obj64 <= gap_bound,
+            "SGLClassifier: the float32 objective is above float64's by "
+            "more than its certified gap")
+    return {"sglcv": counts_cv, "sglcv-refine": counts_r,
+            "sglregressor": counts_reg, "nnlassocv": counts_nn,
+            "sglclassifier": counts_clf}
+
+
+def serving_phase(torch, T, N=250, G=1000, n=10):
+    """``SGLServer`` at Synthetic-1 width: 2 designs (250 x 10 000, 1000
+    groups of 10) with 3 responses each (``_synthetic_jobs``, seed 0), 5
+    folds, 20 lambdas, tol 1e-6 (the serve CLI's plan), float32; drained
+    cold, then warm.  Every job returns with ``error is None``; each
+    design's jobs share one fold-stacked engine call; every stacked screen
+    is one ``screen_norms_folds`` launch and every FISTA iteration (the
+    engine's and the refits') a graphed ``sgl_prox`` launch; the warm
+    drain adds no compilation and captures no graph.  Each job against a
+    solo CV of its own on the same folds and grid (the CV bars) and a solo
+    refit at the job's selection."""
+    from repro_torch.launch import sgl_serve
+    plan = T.Plan(n_folds=5, n_lambdas=20, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50)
+    jobs = sgl_serve._synthetic_jobs(np.random.default_rng(0), 2, 3, N, G, n)
+    sizes = [n] * G
+    server = sgl_serve.SGLServer(plan, dtype=torch.float32)
+
+    def drain():
+        for X, y in jobs:
+            server.submit(X, y, groups=sizes)
+        return server.drain()
+
+    out = {}
+    for label in ("cold", "warm"):
+        n_graphs = len(server.fista_graphs)
+        before = dict(screens=server.stats.n_screens,
+                      iters=server.stats.fista_iters)
+        res, counts, wall, calls = run_counted(torch, f"serve-{label}",
+                                               drain)
+        errors = {j: r.error for j, r in res.items() if r.error is not None}
+        require(not errors, f"serve-{label}: jobs failed: {errors}")
+        ids = sorted(res)
+        require(len(ids) == len(jobs), f"serve-{label}: jobs lost")
+        for r in res.values():
+            d = (r.job_id - ids[0]) // 3
+            require(r.batched_with == ids[3 * d:3 * d + 3],
+                    f"serve-{label}: job {r.job_id} batched with "
+                    f"{r.batched_with}")
+        screens = server.stats.n_screens - before["screens"]
+        iters = server.stats.fista_iters - before["iters"]
+        refits = sum(r.n_iter for r in res.values())
+        require(counts["screen_norms_folds"] == screens > 0,
+                f"serve-{label}: screen_norms_folds launches "
+                f"{counts['screen_norms_folds']} != stacked screens "
+                f"{screens}")
+        require(counts["sgl_prox"] == iters + refits == calls.iters > 0
+                and calls.eager_solves == 0,
+                f"serve-{label}: sgl_prox launches {counts['sgl_prox']}, "
+                f"FISTA iterations {iters} + refits {refits}, graphed "
+                f"{calls.iters}")
+        require_only(counts, f"serve-{label}",
+                     ("screen_norms_folds", "sgl_prox", "xtv"))
+        comp = sum({r.batched_with[0]: r.new_compilations
+                    for r in res.values()}.values())
+        lat = [r.latency for r in res.values()]
+        say(f"[serve-{label}] {len(jobs)} jobs in 2 fold-stacked batches; "
+            f"{wall:.3f} s, latency per job {np.mean(lat):.3f} s "
+            f"({wall / len(jobs):.3f} s wall / jobs); compilations {comp}; "
+            f"graphs captured {len(server.fista_graphs) - n_graphs}; "
+            f"stacked screens {screens}, FISTA iterations {iters} + refits "
+            f"{refits}")
+        if label == "warm":
+            require(comp == 0 and len(server.fista_graphs) == n_graphs,
+                    "serve-warm: compiled or captured")
+        out[label] = (res, counts)
+
+    res = out["cold"][0]
+    for t, (X, y) in enumerate(jobs):
+        r = res[sorted(res)[t]]
+        sess = T.SGLSession(T.Problem.sgl(X.astype(np.float32),
+                                          y.astype(np.float32), sizes))
+        cv = sess.cv(plan.with_(lambdas=r.lambdas))
+        fit = T.solve_sgl(sess.problem.X, sess.problem.y, sess.problem.spec,
+                          r.best_lambda, 1.0,
+                          float(T.spectral_norm(sess.problem.X)) ** 2,
+                          max_iter=plan.max_iter, check_every=10,
+                          tol=plan.tol, use_kernels=True,
+                          graphs=sess.fista_graphs)
+        dmse = float(np.max(np.abs(r.mean_mse - cv.mean_mse)
+                            / np.abs(cv.mean_mse)))
+        idx = int(np.argmin(np.abs(r.lambdas - r.best_lambda)))
+        coef = fit.beta.cpu().numpy()
+        dcoef = float(np.abs(r.coef - coef).max())
+        cbound = 1e-2 * float(np.abs(coef).max())
+        say(f"[serve] job {r.job_id}: best_lambda {r.best_lambda:.6g} "
+            f"(index {idx}; solo {cv.best_index}), refit {r.n_iter} "
+            f"iterations (solo {fit.iters}); max rel |mean_mse - solo| = "
+            f"{dmse:.3e} (bound 1e-2); max|coef - solo| = {dcoef:.3e} "
+            f"(bound {cbound:.3e})")
+        require(dmse <= 1e-2 and abs(idx - cv.best_index) <= 1 and
+                dcoef <= cbound, f"serve: job {r.job_id} disagrees with its "
+                f"solo CV and refit")
+    return out["cold"][1]
+
+
+# ---------------------------------------------------------------------------
+# phase 19: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -1765,6 +2286,16 @@ def main() -> int:
         legacy = legacy_phase(torch, T, res64, res_nn64)
     new_paths["synthetic1-legacy-path"] = legacy["sgl"]
     new_paths["table3-nn-legacy-path"] = legacy["nn"]
+    with timed_phase("refine"):
+        for label, c in refine_phase(torch, T).items():
+            new_paths[f"session-{label}"] = c
+    with timed_phase("stability"):
+        new_paths["stability"] = stability_phase(torch, T)
+    with timed_phase("estimators"):
+        for label, c in estimators_phase(torch, T).items():
+            new_paths[f"estimator-{label}"] = c
+    with timed_phase("serving"):
+        new_paths["serving"] = serving_phase(torch, T)
     rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                          snf_shape, dsf_shape)
 

@@ -1,5 +1,6 @@
 """Carry the reference's data across: numpy arrays in, port objects out, and
-a port ``PathResult`` back to numpy.
+a port ``PathResult`` back to numpy; the reference's warm fold state
+(``FoldState``) into the port's.
 
 The system runs no model, so the state that has to agree between the two
 packages is the problem itself: X, y and the seven children of the
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .core.cv import FoldState
 from .core.groups import GroupSpec
 from .core.path import PathResult
 from .core.problem import Problem
@@ -36,6 +38,14 @@ def problem(X, y, children: dict, dtype=None, device=None) -> Problem:
     return Problem.sgl(np.asarray(X), np.asarray(y),
                        group_spec(children, device="cpu"), dtype=dtype,
                        device=device)
+
+
+def fold_state(state) -> FoldState:
+    """The port's ``FoldState`` from the reference's (any object with
+    ``lam_bar``, ``theta``, ``c_theta`` and ``beta``), as float64 numpy
+    arrays."""
+    return FoldState(**{f: np.array(getattr(state, f), dtype=float)
+                        for f in ("lam_bar", "theta", "c_theta", "beta")})
 
 
 def path_result(res: PathResult) -> dict:

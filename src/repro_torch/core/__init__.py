@@ -2,8 +2,10 @@
 
 Public surface:
   Problem, Plan, SGLSession   problem spec, run config, ``.path`` / ``.cv``
+                              / ``.refine`` / ``.stability``
                               (``Plan(engine='legacy')``: the paper's
                               per-lambda driver)
+  RefineResult                warm two-stage grid refinement
   GroupSpec                   group bookkeeping (ragged + padded views)
   lambda_max_sgl, dual_scaling_sgl, group_shrink_roots,
   lambda1_max, lambda2_max
@@ -25,8 +27,11 @@ Public surface:
                               the FISTA block replayed as a CUDA graph (card)
   lambda_max_nn, dual_scaling_nn, dpc_screen_grid, fista_nn_lasso,
   nn_lasso_path_batched       the DPC nonnegative Lasso
-  kfold_indices, sgl_fold_paths, nn_fold_paths, CVResult
-                              fold-batched cross-validation
+  kfold_indices, sgl_fold_paths, nn_fold_paths, CVResult, FoldState
+                              fold-batched cross-validation (``init=``:
+                              warm fold states)
+  stability_selection, subsample_masks, StabilityResult
+                              stability selection (Meinshausen-Buhlmann)
 """
 from .groups import (GroupSpec, broadcast_to_features, group_max_abs,
                      group_norms, group_sum, pad_groups, resolve_device)
@@ -59,9 +64,10 @@ from .path import (PathResult, default_lambda_grid, nn_lasso_path,
                    rejection_ratios_sgl, sgl_path)
 from .path_engine import (EngineStats, nn_lasso_path_batched,
                           sgl_path_batched)
-from .cv import (CVResult, kfold_indices, nn_fold_paths, nn_lasso_cv,
-                 per_fold_centering, sgl_cv, sgl_fold_paths)
+from .cv import (CVResult, FoldState, StabilityResult, kfold_indices,
+                 nn_fold_paths, nn_lasso_cv, per_fold_centering, sgl_cv,
+                 sgl_fold_paths, stability_selection, subsample_masks)
 from .problem import Plan, Problem, as_group_spec, warn_legacy_entry_point
-from .session import SGLSession
+from .session import RefineResult, SGLSession
 
 __all__ = [n for n in dir() if not n.startswith("_")]

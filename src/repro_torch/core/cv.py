@@ -39,12 +39,22 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     are ready).  ``schedule='lockstep'`` runs one cohort of every ready fold
     per step with one shared chunk length.
 
+  * **Warm fold states.**  ``init=`` (a ``FoldState``: per-fold reference
+    lambda, exact dual, its correlation and the primal optimum) seeds the
+    engine's warm-start chain in place of each fold's lambda_max state;
+    ``SGLSession.refine`` builds one from a coarse CV.  The engine keeps
+    that chain on the host in float64, so loading it is a copy.
+
+  * **Stability selection.**  ``subsample_masks`` draws random row
+    subsamples; the fold drivers solve the grid on them as on folds
+    (``SGLSession.stability``, and the ``stability_selection`` shim).
+
 A loss whose masked rows do not vanish (logistic) is refused with
 ``NotImplementedError``, as in the reference.  Not ported yet, and refused
-with ``NotImplementedError``: ``init=`` warm states and the ``refine``
-verb that uses them (ROADMAP queue 1, item 21), ``stability`` (item 22), a
-fold mesh (item 25) and feature sharding (item 13).  ``sgl_cv`` and
-``nn_lasso_cv`` are the reference's legacy shims over ``SGLSession.cv``.
+with ``NotImplementedError``: a fold mesh (ROADMAP queue 1, item 25) and
+feature sharding (item 13).  ``sgl_cv``, ``nn_lasso_cv`` and
+``stability_selection`` are the reference's legacy shims over
+``SGLSession.cv`` and ``SGLSession.stability``.
 """
 from __future__ import annotations
 
@@ -96,6 +106,18 @@ def kfold_indices(n_samples: int, n_folds: int, seed: int = 0):
     return folds
 
 
+def subsample_masks(n_samples: int, n_subsamples: int, frac: float = 0.5,
+                    seed: int = 0) -> np.ndarray:
+    """(B, N) 0/1 masks of random row subsamples (stability selection);
+    numpy's generator makes them the reference's, row for row."""
+    rng = np.random.default_rng(seed)
+    m = max(1, int(round(frac * n_samples)))
+    masks = np.zeros((n_subsamples, n_samples))
+    for b in range(n_subsamples):
+        masks[b, rng.choice(n_samples, m, replace=False)] = 1.0
+    return masks
+
+
 def _masks_from_folds(folds, n_samples: int) -> np.ndarray:
     masks = np.zeros((len(folds), n_samples))
     for k, (train, _) in enumerate(folds):
@@ -139,20 +161,38 @@ class CVResult:
         return self.screen_time + self.solve_time + self.setup_time
 
 
+@dataclasses.dataclass
+class FoldState:
+    """Exact per-fold warm state at a reference lambda (one row per fold):
+    the carry the fold engine threads between segments, exported so
+    ``SGLSession.refine`` can seed a second, finer grid from a coarse run's
+    certified duals instead of starting again from lambda_max."""
+    lam_bar: np.ndarray          # (K,) reference lambda per fold
+    theta: np.ndarray            # (K, N) exact dual at lam_bar, masked
+    c_theta: np.ndarray          # (K, p) X_train^T theta (centered design)
+    beta: np.ndarray             # (K, p) primal optimum at lam_bar
+
+
+@dataclasses.dataclass
+class StabilityResult:
+    lambdas: np.ndarray          # (J,)
+    selection_probs: np.ndarray  # (J, p) P[feature active] over subsamples
+    max_probs: np.ndarray        # (p,) max over the grid (Meinshausen-
+    #                              Buhlmann stable set score)
+    n_subsamples: int
+    stats: EngineStats
+
+
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, dtype=float)
 
 
-def _refuse_unported(mesh, init, feature_shards) -> None:
+def _refuse_unported(mesh, feature_shards) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
-    if init is not None:
-        raise NotImplementedError(
-            "init= (warm fold states, refine) is not ported yet (ROADMAP "
-            "queue 1, item 21)")
     if int(feature_shards) > 1:
         raise NotImplementedError(
             "feature_shards > 1 is not ported yet (ROADMAP queue 1, item 13)")
@@ -379,6 +419,14 @@ class _FoldEngine:
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype or self.dtype, device=self.dev)
+
+    def load_init(self, init: FoldState) -> None:
+        """Seed the warm-start chain from an exact per-fold reference state
+        (``SGLSession.refine``)."""
+        self.lam_bar = np.asarray(init.lam_bar, dtype=float).copy()
+        self.Theta = np.asarray(init.theta, dtype=float).copy()
+        self.Cprev = np.asarray(init.c_theta, dtype=float).copy()
+        self.Beta = np.asarray(init.beta, dtype=float).copy()
 
     # -- shared pieces -------------------------------------------------------
 
@@ -752,8 +800,10 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     ``mus`` (optional, (K, p)): per-fold train-row column means for
     leakage-free centering; fold k then solves on ``M_k (X - 1 mu_k^T)``
     through rank-one corrections of the shared-X algebra, and the caller
-    supplies ``y`` rows centered by the per-fold means.  ``use_kernels``,
-    ``compile_keys`` and ``fista_graphs`` as in ``sgl_path_batched``.
+    supplies ``y`` rows centered by the per-fold means.  ``init`` (a
+    ``FoldState``) seeds each fold's warm-start chain at its ``lam_bar``
+    instead of its own lambda_max.  ``use_kernels``, ``compile_keys`` and
+    ``fista_graphs`` as in ``sgl_path_batched``.
     Returns ``(betas (K, J, p), kept (K, J), iters (K, J), stats,
     (screen_time, solve_time, setup_time))``; grid points at or above a
     fold's own lambda_max get exact zeros.
@@ -773,7 +823,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         raise NotImplementedError(
             f"fold-batched paths require a loss whose masked rows vanish; "
             f"{loss.name!r} does not support the masked-row embedding")
-    _refuse_unported(mesh, init, feature_shards)
+    _refuse_unported(mesh, feature_shards)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev, dtype = X.device, X.dtype
@@ -833,6 +883,8 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         gspec_f=gspec_f, lam_max_f=lam_max_f, n_bound=n_bound, mus_d=mus_d,
         mus64=mus64, min_group_bucket=min_group_bucket, loss=loss,
         graphs=fista_graphs if fista_graphs is not None else {})
+    if init is not None:
+        eng.load_init(init)
     for k in range(K):
         while (eng.j_pos[k] < J
                and lambdas[eng.j_pos[k]] >= lam_max_np[k] * (1.0 - 1e-12)):
@@ -851,11 +903,11 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
                   use_kernels=None, mesh=None, init=None, compile_keys=None,
                   feature_shards: int = 0):
     """Nonnegative-Lasso analogue of ``sgl_fold_paths`` (DPC screens, no
-    centering).  A fold whose ``max_i <x_i, y>`` is nonpositive has the
+    centering; ``init`` as there).  A fold whose ``max_i <x_i, y>`` is nonpositive has the
     all-zero path and drops out."""
     if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
-    _refuse_unported(mesh, init, feature_shards)
+    _refuse_unported(mesh, feature_shards)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev = X.device
@@ -882,6 +934,8 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
         screen_mode=screen, stats=stats, seen_keys=seen_keys,
         Y=Y, masks_d=masks_d, col_n_f=col_n_f, lam_max_f=lam_max_f,
         n_bound=n_bound)
+    if init is not None:
+        eng.load_init(init)
     for k in range(K):
         if lam_max_np[k] <= 0:
             eng.j_pos[k] = J                   # all-zero path for this fold
@@ -932,7 +986,7 @@ def _cv_statistics(X_np, y_np, folds, lambdas, betas, lam_max, kept, stats,
 
 
 # ---------------------------------------------------------------------------
-# Legacy entry points: thin shims over SGLSession.cv
+# Legacy entry points: thin shims over SGLSession.cv and .stability
 # ---------------------------------------------------------------------------
 
 def sgl_cv(X, y, spec, alpha, *, n_folds: int = 5, folds=None, lambdas=None,
@@ -980,3 +1034,33 @@ def nn_lasso_cv(X, y, *, n_folds: int = 5, folds=None, lambdas=None,
                 folds=folds, seed=seed, mesh=mesh)
     return SGLSession(Problem.nn_lasso(X, y, dtype=dtype,
                                        device=device)).cv(plan)
+
+
+def stability_selection(X, y, spec, alpha, *, n_subsamples: int = 50,
+                        frac: float = 0.5, lambdas=None, n_lambdas: int = 30,
+                        min_ratio: float = 0.05, active_tol: float = 1e-8,
+                        screen: str = "tlfre", tol=1e-7,
+                        max_iter: int = 20000, safety: float = 0.0,
+                        check_every: int = 10, seed: int = 0, mesh=None,
+                        batch_size: int = 10, specnorm_method: str = "fro",
+                        device=None, dtype=None) -> StabilityResult:
+    """Selection probabilities over random row subsamples, fold-batched: the
+    legacy shim over ``SGLSession.stability``.  Runs the SGL grid on
+    ``n_subsamples`` random ``frac``-subsamples (``batch_size`` at a time
+    through the fold engine) and reports the fraction of subsamples in
+    which each feature is active at each lambda.  ``specnorm_method``
+    defaults to the Frobenius bound: the per-subsample power iterations are
+    the only setup cost that grows with the batch, and the bound only
+    loosens the screen.  ``device`` and ``dtype`` as in ``sgl_cv``."""
+    from .problem import Plan, Problem, warn_legacy_entry_point
+    from .session import SGLSession
+    warn_legacy_entry_point("stability_selection", "SGLSession.stability")
+    plan = Plan(alpha=alpha, lambdas=lambdas, n_lambdas=n_lambdas,
+                min_ratio=min_ratio, screen=screen, tol=tol,
+                max_iter=max_iter, safety=safety,
+                specnorm_method=specnorm_method, check_every=check_every,
+                seed=seed, mesh=mesh, n_subsamples=n_subsamples,
+                subsample_frac=frac, active_tol=active_tol,
+                batch_size=batch_size)
+    return SGLSession(Problem.sgl(X, y, spec, dtype=dtype,
+                                  device=device)).stability(plan)

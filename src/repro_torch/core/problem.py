@@ -62,14 +62,19 @@ def as_group_spec(groups, p: int, device) -> GroupSpec:
     return spec
 
 
+def input_dtype(a, dtype=None) -> torch.dtype:
+    """The compute dtype for input ``a``: ``dtype`` if given, else ``a``'s
+    floating dtype (float32 for a non-floating input)."""
+    if dtype is not None:
+        return dtype
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.zeros(0, np.asarray(a).dtype))
+    return a.dtype if a.is_floating_point() else torch.float32
+
+
 def _as_tensor(a, dtype, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        t = torch.as_tensor(np.asarray(a))
-    if dtype is None:
-        dtype = t.dtype if t.is_floating_point() else torch.float32
-    return t.to(device=device, dtype=dtype).contiguous()
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device=device, dtype=input_dtype(t, dtype)).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,2 @@
+"""Entry points of the port that run as programs (``python -m
+repro_torch.launch.<name>``)."""

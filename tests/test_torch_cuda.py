@@ -637,3 +637,191 @@ def test_solve_sgl_graphed_matches_eager(dev):
         assert graphed.iters == eager.iters > kw["check_every"]
         scale = float(eager.beta.abs().max())
         assert float((graphed.beta - eager.beta).abs().max()) <= 1e-6 * scale
+
+
+# ---------------------------------------------------------------------------
+# Model selection on the card: refine, stability, the estimators, serving
+# ---------------------------------------------------------------------------
+
+def _f32_within(b32, b64, rel=1e-2):
+    """Float32 against float64: within ``rel * max|beta_64|``."""
+    scale = float(np.abs(b64).max())
+    assert scale > 0.1
+    assert float(np.abs(np.asarray(b32) - b64).max()) <= rel * scale
+
+
+def _noisy_sgl(seed=4, N=80, p=120):
+    """``_small_sgl`` with enough noise that the CV curve has an interior
+    minimum to refine around."""
+    gen = np.random.default_rng(seed)
+    X = gen.standard_normal((N, p)).astype(np.float32)
+    beta = np.zeros(p, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.5 * gen.standard_normal(N)).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.parametrize("penalty", ["sgl", "nn_lasso"])
+def test_refine_on_the_card_goes_through_the_kernels(dev, penalty):
+    """``cv`` then ``refine`` in float32: each stacked screen of the refine
+    is one ``screen_norms_folds`` (SGL) or ``dpc_screen_folds`` (nonnegative
+    Lasso) launch, ``xtv`` certifies, and SGL's FISTA iterations are
+    graphed ``sgl_prox`` launches; a warm repeat of both calls adds no
+    compilation and captures no graph; the refined betas within 1e-2 *
+    max|beta| of float64's on the card."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y = _noisy_sgl()
+    make = (lambda X, y, **kw: T.Problem.sgl(X, y, [6] * 20, **kw)) \
+        if penalty == "sgl" else T.Problem.nn_lasso
+    plan = T.Plan(n_lambdas=12, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=3)
+    sess = T.SGLSession(make(X, y))
+    sess.cv(plan)
+    ops.reset_launch_counts()
+    ref = sess.refine(factor=10.0)
+    counts = ops.launch_counts()
+    st = ref.fine.stats
+    fold_kernel = ("screen_norms_folds" if penalty == "sgl"
+                   else "dpc_screen_folds")
+    assert counts[fold_kernel] == st.n_pallas_screens == st.n_screens > 0
+    assert counts["xtv"] > 0 and counts["screen_norms"] == 0
+    if penalty == "sgl":
+        assert counts["sgl_prox"] == st.fista_iters > 0
+    else:
+        assert counts["sgl_prox"] == counts["screen_norms_folds"] == 0
+    n_graphs = len(sess.fista_graphs)
+    sess.cv(plan)
+    warm = sess.refine(factor=10.0)
+    assert warm.new_compilations == 0 and len(sess.fista_graphs) == n_graphs
+    sess64 = T.SGLSession(make(X.astype(np.float64), y.astype(np.float64)))
+    sess64.cv(plan)
+    ref64 = sess64.refine(factor=10.0)
+    _f32_within(ref.fine.fold_betas, ref64.fine.fold_betas)
+
+
+def _recording_fold_paths(monkeypatch):
+    """Wraps the session's ``sgl_fold_paths``; returns the list of the
+    betas (B, J, p) of every call."""
+    from repro_torch.core import session
+    seen, orig = [], session.sgl_fold_paths
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        seen.append(out[0])
+        return out
+    monkeypatch.setattr(session, "sgl_fold_paths", recorded)
+    return seen
+
+
+def test_stability_on_the_card_goes_through_the_kernels(dev, monkeypatch):
+    """``stability`` in float32 on float64's grid: every stacked screen one
+    ``screen_norms_folds`` launch, ``sgl_prox`` graphed, ``xtv``; a warm
+    repeat adds no compilation.  A (subsample, lambda, feature) is active
+    in one dtype and not the other only where float64's |beta| lies within
+    1e-2 * max|beta| of ``active_tol`` (the float32 bar on betas)."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    X, y = _small_sgl(5, N=80)
+    plan = T.Plan(n_subsamples=6, batch_size=3, n_lambdas=6, min_ratio=0.05,
+                  tol=1e-7, specnorm_method="fro", min_bucket=16)
+    seen = _recording_fold_paths(monkeypatch)
+    s64 = T.SGLSession(T.Problem.sgl(X.astype(np.float64),
+                                     y.astype(np.float64), [6] * 20)
+                       ).stability(plan)
+    b64 = np.concatenate(seen)
+    plan = plan.with_(lambdas=s64.lambdas)
+    sess = T.SGLSession(T.Problem.sgl(X, y, [6] * 20))
+    seen.clear()
+    ops.reset_launch_counts()
+    s32 = sess.stability(plan)
+    counts = ops.launch_counts()
+    b32 = np.concatenate(seen)
+    st = s32.stats
+    assert counts["screen_norms_folds"] == st.n_screens > 0
+    assert counts["sgl_prox"] == st.fista_iters > 0 and counts["xtv"] > 0
+    assert sess.stability(plan).stats.n_compilations == 0
+    tol = plan.active_tol
+    flips = (np.abs(b32) > tol) != (np.abs(b64) > tol)
+    band = 1e-2 * np.abs(b64).max() + tol
+    assert bool((np.abs(b64[flips]) <= band).all())
+    np.testing.assert_array_equal(s32.max_probs[:6], s64.max_probs[:6])
+
+
+def test_estimators_on_the_card_go_through_the_kernels(dev):
+    """``SGLCV`` float32: the CV's kernels and a graphed refit from the
+    session's cache (``sgl_prox`` beyond the CV's FISTA iterations);
+    ``NNLassoCV``: ``dpc_screen_folds`` and ``xtv``; ``SGLClassifier``:
+    ``screen_norms``, ``sgl_prox`` and ``xtv``.  Each float32 fit within
+    1e-2 * max|coef| of float64's on the card."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    X, y = _noisy_sgl(6)
+    y = y + 3.0
+    kw = dict(groups=[6] * 20, n_folds=3, n_lambdas=10, tol=1e-6,
+              safety=1e-5)
+    ops.reset_launch_counts()
+    cv32 = api.SGLCV(dtype=torch.float32, **kw).fit(X, y)
+    counts = ops.launch_counts()
+    st = cv32.cv_result_.stats
+    assert counts["screen_norms_folds"] == st.n_screens > 0
+    assert counts["sgl_prox"] == st.fista_iters + cv32.n_iter_
+    assert counts["xtv"] > 0
+    cv64 = api.SGLCV(dtype=torch.float64, **kw).fit(X, y)
+    assert cv32.lambda_ == pytest.approx(cv64.lambda_, rel=1e-5)
+    _f32_within(cv32.coef_, cv64.coef_)
+    ops.reset_launch_counts()
+    nn32 = api.NNLassoCV(n_folds=3, n_lambdas=10, tol=1e-6, safety=1e-5,
+                         dtype=torch.float32).fit(X, y)
+    counts = ops.launch_counts()
+    assert counts["dpc_screen_folds"] > 0 and counts["xtv"] > 0
+    assert counts["sgl_prox"] == counts["screen_norms_folds"] == 0
+    assert nn32.coef_.min() >= 0.0
+    labels = (y > 3.0).astype(np.float32)
+    ops.reset_launch_counts()
+    clf32 = api.SGLClassifier(lam=2.0, groups=[6] * 20, tol=1e-6,
+                              dtype=torch.float32).fit(X, labels)
+    counts = ops.launch_counts()
+    assert counts["screen_norms"] > 0 and counts["xtv"] > 0
+    assert counts["sgl_prox"] == clf32.n_iter_ > 0
+    clf64 = api.SGLClassifier(lam=2.0, groups=[6] * 20, tol=1e-6,
+                              dtype=torch.float64).fit(X, labels)
+    _f32_within(clf32.coef_, clf64.coef_)
+
+
+def test_server_on_the_card_stacks_folds_through_the_kernels(dev):
+    """``SGLServer`` float32 on the card: every job returns without error,
+    each design's jobs share one fold-stacked engine call whose stacked
+    screens are ``screen_norms_folds`` launches, the refits replay graphed
+    ``sgl_prox`` blocks; a warm drain adds no compilation; each job within
+    1e-2 * max|coef| of the float64 server's."""
+    from repro_torch.core import Plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sgl_serve
+    rng = np.random.default_rng(0)
+    jobs = sgl_serve._synthetic_jobs(rng, 2, 2, 60, 20, 6)
+    plan = Plan(n_folds=3, n_lambdas=8, tol=1e-6, safety=1e-5,
+                min_bucket=16)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        server = sgl_serve.SGLServer(plan, dtype=dtype)
+        for X, y in jobs:
+            server.submit(X, y, groups=[6] * 20)
+        ops.reset_launch_counts()
+        out[dtype] = server.drain()
+        counts = ops.launch_counts()
+        assert all(r.error is None for r in out[dtype].values())
+        assert out[dtype][0].batched_with == [0, 1]
+        if dtype == torch.float32:
+            assert counts["screen_norms_folds"] == \
+                server.stats.n_screens > 0
+            assert counts["sgl_prox"] == server.stats.fista_iters + sum(
+                r.n_iter for r in out[dtype].values())
+            for X, y in jobs:
+                server.submit(X, y, groups=[6] * 20)
+            assert all(r.new_compilations == 0
+                       for r in server.drain().values())
+        else:
+            assert sum(counts.values()) == 0
+    for jid, r in out[torch.float32].items():
+        _f32_within(r.coef, out[torch.float64][jid].coef)

@@ -231,11 +231,6 @@ def test_cv_float64_with_kernels_requested_raises():
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, mesh=object())),
      "item 25"),
-    (lambda s: s.refine(factor=10), "item 21"),
-    (lambda s: s.stability(T.Plan(n_lambdas=4)), "item 22"),
-    (lambda s: tcv.sgl_fold_paths(
-        s.problem.X, s.problem.y, s.problem.spec, 1.0, np.ones((2, 60)),
-        [1.0], init=object()), "item 21"),
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, feature_shards=2)),
      "item 13"),
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, loss="logistic")),
