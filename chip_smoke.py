@@ -58,7 +58,8 @@ Phases (each fails loudly, with a non-zero exit):
    group and feature weights under TLFre and Gap-Safe (``xtv`` once per
    row solved and no other kernel: the fused prox and screen statistics
    take one l1 threshold), and group weights alone under TLFre (the
-   kernel route of phase 3), float32 and float64.
+   kernel route of phase 3), float32; each against its float64 twin at
+   20 lambdas (a float32 call on the same plan).
 10. Gap-Safe nonnegative-Lasso path: phase 5's data and plan (``xtv``).
 11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold and warm (two
     ``screen_norms_folds`` launches a stacked screen); float64 against
@@ -114,7 +115,31 @@ Phases (each fails loudly, with a non-zero exit):
     per job printed.
     Phases 15-18 print their seconds, float32 ``n_rejected`` and launches
     by kernel.
-19. Each kernel against its plain PyTorch version on the card, at the
+19. Feature sharding, ``Plan(feature_shards=8)``, through the stacked
+    executor (every block on the card): phase 3's Synthetic-1 path in
+    float32, cold, warm (no compilation, no capture) and profiled (idle
+    share), held to phase 3's bars against its float64 path, every row
+    certified; ``xtv`` = 8 x rows certified (the setup's GEMVs are plain),
+    ``screen_norms`` = 8 x screens, ``sgl_prox`` = FISTA iterations.  A
+    float64 twin at 20 lambdas: kept sets equal to the unsharded float64
+    path's, betas within 1e-12, no kernel.  Table 2's shape with its last
+    7 groups dropped (18 184 groups, 8 blocks of unequal width, each
+    padded), 4 lambdas, sharded against unsharded (betas within 1e-2 *
+    max|beta|).  SGL CV, NN CV (K 5) and the NN path at 20 lambdas,
+    against their unsharded twins: ``screen_norms_folds`` /
+    ``dpc_screen_folds`` = 8 x stacked screens, NN path ``xtv`` = 8 x rows
+    certified.  Then two ``gloo`` ranks on the one card run the
+    Synthetic-1 path at 20 lambdas with ``feature_shards=2``, one block
+    each: both ranks' betas equal each other's and the stacked run's bit
+    for bit.  Each pair prints the card's peak allocation above what was
+    allocated before the call.  Each kernel is then held against its plain
+    version at the sharded route's own inputs (phase 20's tolerances):
+    ``xtv`` on a Synthetic-1 block and Table 2's widest block,
+    ``screen_norms`` at the recorded screen shapes on a Synthetic-1 local
+    spec and on the Table-2 block with the most pad columns (no group owns
+    them; 1e30 and NaN are poisoned into them), ``screen_norms_folds`` and
+    ``dpc_screen_folds`` at the sharded CVs' first per-block screen shapes.
+20. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -131,7 +156,7 @@ Phases (each fails loudly, with a non-zero exit):
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
    ``screen_norms`` on the legacy screen's (1, p) row.
-20. One JSON line ``{"kernels": [...]}``, then the last line
+21. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -393,16 +418,45 @@ def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
     return worst, n_discarded
 
 
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(torch, prof):
+    """The card's busy time in a profile, read from the raw trace (the
+    profiler's event objects for some 10^5 kernels take tens of seconds to
+    build): the device-side activities that occupy the card, kernels,
+    copies and sets, by name.  Device-side user annotations (the ranges of
+    ``record_function``) and synchronization records span work and are
+    left out; their time by activity type comes back beside.  Returns
+    (microseconds by name, kernels counted, ``sgl_prox`` kernels,
+    microseconds left out by activity type)."""
+    by_name, left_out, n_kernels, n_prox = {}, {}, 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = (ev.activity_type() if hasattr(ev, "activity_type") else
+                "gpu_user_annotation" if ev.is_user_annotation() else "kernel")
+        us = ev.duration_ns() / 1e3
+        if kind not in DEVICE_WORK:
+            left_out[kind] = left_out.get(kind, 0.0) + us
+            continue
+        name = ev.name()
+        n_kernels += 1
+        n_prox += "sgl_prox_flat_kernel" in name
+        by_name[name] = by_name.get(name, 0.0) + us
+    return by_name, n_kernels, n_prox, left_out
+
+
 def profile_call(torch, run, label, warm_wall, top=6):
     """One more warm call (``run()``) under ``torch.profiler`` (operator
-    input shapes recorded): the card's busy time (the sum of the kernels'
-    device time; one stream, so kernels never overlap), its share of this
-    call's wall time and of ``warm_wall``, the same call's wall time
-    without the profiler (which slows the host), and the kernels that take
-    the most device time.  The ``sgl_prox`` kernels the profiler saw on the
-    card, graph replays included, must equal the wrapper's launch count for
-    the same call.  Returns (idle share, run's result, the profile, the
-    launch counts of the call)."""
+    input shapes recorded): the card's busy time (``device_busy``; one
+    stream, so kernels never overlap), its share of this call's wall time
+    and of ``warm_wall``, the same call's wall time without the profiler
+    (which slows the host), and the kernels that take the most device
+    time.  The ``sgl_prox`` kernels the profiler saw on the card, graph
+    replays included, must equal the wrapper's launch count for the same
+    call.  Returns (idle share, run's result, the profile, the launch
+    counts of the call, the busy seconds)."""
     from repro_torch.kernels import ops
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -415,25 +469,37 @@ def profile_call(torch, run, label, warm_wall, top=6):
         wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     counted = counts["sgl_prox"]
-    by_name, n_kernels, n_prox = {}, 0, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            n_kernels += 1
-            n_prox += "sgl_prox_flat_kernel" in ev.name
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
+    by_name, n_kernels, n_prox, left_out = device_busy(torch, prof)
     busy = sum(by_name.values()) / 1e6
     say(f"[{label}] sgl_prox kernels seen by the profiler {n_prox}, "
         f"launches counted by the wrapper {counted}")
     require(n_prox == counted > 0, f"{label}: the profiler saw {n_prox} "
             f"sgl_prox kernels, the wrapper counted {counted}")
-    say(f"[{label}] wall {wall:.3f} s (profiler on); device kernels "
-        f"{n_kernels}, device busy {busy:.3f} s; idle share "
+    say(f"[{label}] wall {wall:.3f} s (profiler on); device kernels, copies "
+        f"and sets {n_kernels}, device busy {busy:.3f} s; idle share "
         f"{1 - busy / wall:.4f} of this wall, {1 - busy / warm_wall:.4f} "
-        f"of the unprofiled warm wall {warm_wall:.3f} s")
+        f"of the unprofiled warm wall {warm_wall:.3f} s; device-side "
+        f"records left out, s by type: "
+        f"{json.dumps({k: v / 1e6 for k, v in sorted(left_out.items())})}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         say(f"[{label}]   {us / 1e3:10.3f} ms  {name[:100]}")
-    return 1 - busy / warm_wall, out, prof, counts
+    return 1 - busy / warm_wall, out, prof, counts, busy
+
+
+def busy_from_events(torch, prof, label, busy):
+    """The busy time as the event objects give it (``prof.events()``, every
+    CUDA-side event, as this script read it before) beside
+    ``device_busy``'s, on the same profile."""
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    old = sum(ev.time_range.elapsed_us() for ev in events) / 1e6
+    notes = sum(ev.time_range.elapsed_us() for ev in events
+                if getattr(ev, "is_user_annotation", False)) / 1e6
+    say(f"[{label}] device busy from prof.events() (every CUDA-side event) "
+        f"{old:.6f} s over {len(events)} events, of them user annotations "
+        f"{notes:.6f} s; from the raw trace (kernels, copies, sets) "
+        f"{busy:.6f} s; relative difference "
+        f"{abs(old - busy) / max(busy, 1e-30):.3e}")
 
 
 class ScreenRanges:
@@ -615,11 +681,12 @@ def main_path(torch, T, N=250, G=1000, n=10):
             "the warm call captured a graph")
     require_graph_route(warm, counts_w, calls_w, "synthetic1-f32-warm")
     with ScreenRanges(torch):
-        idle, res_p, prof, counts_p = profile_call(
+        idle, res_p, prof, counts_p, busy = profile_call(
             torch, lambda: sess.path(plan), "synthetic1-f32-profiled",
             warm_wall)
     require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
                          "synthetic1-f32-profiled")
+    busy_from_events(torch, prof, "synthetic1-f32-profiled", busy)
     del prof
     say(f"[synthetic1] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
     graph_vs_eager(torch, T, calls, "synthetic1")
@@ -1032,7 +1099,7 @@ def gapsafe_path_phase(torch, T, res_tlfre, N=250, G=1000, n=10):
             "gapsafe-sgl-f32-warm: compiled or captured")
     require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-f32-warm")
     with ScreenRanges(torch):
-        idle, res_p, prof, counts_p = profile_call(
+        idle, res_p, prof, counts_p, _ = profile_call(
             torch, lambda: sess.path(plan), "gapsafe-sgl-f32-profiled",
             warm_wall)
     require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
@@ -1063,7 +1130,9 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     """Phase 3's data with adaptive weights from ``uniform(0.5, 2.0)`` (seed
     20): group and feature weights under TLFre and Gap-Safe (``xtv`` for
     every row; the prox and the screen statistics run plainly), then
-    group weights alone under TLFre (the kernel route of phase 3)."""
+    group weights alone under TLFre (the kernel route of phase 3); each
+    with its float64 twin at 20 lambdas against a float32 call on the
+    same plan."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
     wr = np.random.default_rng(20)
@@ -1072,6 +1141,21 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
                   max_iter=6000, check_every=50)
     sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))
     sess64 = f64_session(torch, T, X, y, [n] * G)
+
+    def f64_twin(plan, label, **kw):
+        # the float64 twin at 20 lambdas (its bars repeat the 100-lambda
+        # float32 route's), against a float32 call on the same plan
+        plan20 = plan.with_(n_lambdas=20)
+        res20 = run_path(torch, sess, plan20, f"{label}-f32-20")[0]
+        res64, counts64, _, _ = run_path(torch, sess64, plan20,
+                                         f"{label}-f64")
+        require_no_kernel(counts64, f"{label}-f64")
+        spec = sess._effective(plan)[1]
+        compare_paths(res20, res64, plan20, spec_objectives(
+            X, y, spec, 1.0, res20.lambdas), label)
+        require_discards(torch, T, sess, res20, res64, plan20, label,
+                         spec=spec, **kw)
+
     out = {}
     for screen in ("tlfre", "gapsafe"):
         label = f"weighted-{screen}"
@@ -1080,13 +1164,7 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
         require_xtv_only(res, counts, calls, f"{label}-f32")
         say(f"[{label}] n_rejected {res.stats.n_rejected}")
         warm_call(torch, sess, plan, f"{label}-f32")
-        res64, counts64, _, _ = run_path(torch, sess64, plan, f"{label}-f64")
-        require_no_kernel(counts64, f"{label}-f64")
-        spec = sess._effective(plan)[1]
-        compare_paths(res, res64, plan, spec_objectives(
-            X, y, spec, 1.0, res.lambdas), label)
-        require_discards(torch, T, sess, res, res64, plan, label, spec=spec,
-                         screen=screen)
+        f64_twin(plan, label, screen=screen)
         out[label] = counts
     label = "group-weighted"
     plan = base.with_(group_weights=gw)
@@ -1094,12 +1172,7 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     require_kernel_route(res, counts, f"{label}-f32")
     require_graph_route(res, counts, calls, f"{label}-f32")
     warm_call(torch, sess, plan, f"{label}-f32")
-    res64, counts64, _, _ = run_path(torch, sess64, plan, f"{label}-f64")
-    require_no_kernel(counts64, f"{label}-f64")
-    spec = sess._effective(plan)[1]
-    compare_paths(res, res64, plan, spec_objectives(X, y, spec, 1.0,
-                                                    res.lambdas), label)
-    require_discards(torch, T, sess, res, res64, plan, label, spec=spec)
+    f64_twin(plan, label)
     out[label] = counts
     return out
 
@@ -1860,7 +1933,395 @@ def serving_phase(torch, T, N=250, G=1000, n=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 19: each kernel against its plain version, and its time
+# phase 19: feature sharding, stacked on the card and across two ranks
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+
+
+def rows_run(res):
+    """Rows certified by a path: each segment's accepted rows, and the
+    failed row where it stopped early."""
+    return sum(k + (k < m) for _, _, m, k in res.stats.buckets)
+
+
+def require_sharded_path(res, counts, label, shards, screen_kernel=True):
+    """A float32 sharded path on the card: ``xtv`` once a block a certified
+    row (the setup's GEMVs are plain, as unsharded), ``screen_norms`` once
+    a block a screen, and for SGL ``sgl_prox`` once a FISTA iteration."""
+    st, rows = res.stats, rows_run(res)
+    want = {"xtv": shards * rows,
+            "screen_norms": shards * st.n_screens if screen_kernel else 0,
+            "sgl_prox": st.fista_iters if screen_kernel else 0,
+            "screen_norms_folds": 0, "dpc_screen_folds": 0}
+    say(f"[{label}] rows certified {rows}, screens {st.n_screens}: "
+        f"launches {json.dumps(counts)}, predicted {json.dumps(want)}")
+    require(counts == want and rows > 0, f"{label}: launches {counts} are "
+            f"not the predicted {want}")
+    require(st.n_pallas_screens == (st.n_screens if screen_kernel else 0),
+            f"{label}: n_pallas_screens {st.n_pallas_screens}")
+
+
+def compare_same_dtype(res, ref, label, betas="betas"):
+    """Two float32 runs of one problem (sharded and unsharded): betas
+    within 1e-2 * max|beta| (the float32 bar of PERF.md section 2)."""
+    a, b = getattr(res, betas), getattr(ref, betas)
+    dbeta = float(np.abs(a - b).max())
+    dbound = 1e-2 * float(np.abs(b).max())
+    say(f"[{label}] max|beta_sharded - beta_unsharded| = {dbeta:.3e} "
+        f"(bound {dbound:.3e})")
+    require(np.isfinite(a).all() and dbeta <= dbound,
+            f"{label}: the sharded run disagrees with the unsharded one")
+
+
+def _rank_path(rank, world, init_file, out_dir, plan_kw, N, G, n):
+    """One rank of the two-rank rehearsal (a spawned process): joins the
+    ``gloo`` group, runs the Synthetic-1 path with ``feature_shards=world``
+    on the card (block ``rank``) and writes its betas, launches and
+    collectives to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import repro_torch.core as T
+    from repro_torch.data_synth import synthetic_sgl
+    from repro_torch.distributed import feature_shard as fs
+    from repro_torch.kernels import ops
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1,
+                                seed=1)
+        sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))
+        if fs.resolve_feature_mesh(world) is None:
+            raise RuntimeError("the ranks did not get the process group")
+        ops.reset_launch_counts()
+        fs.reset_collective_counts()
+        res = sess.path(T.Plan(feature_shards=world, **plan_kw))
+        torch.cuda.synchronize()
+        np.save(f"{out_dir}/rank{rank}.npy", res.betas)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump({"launches": ops.launch_counts(),
+                       "collectives": fs.collective_counts(),
+                       "n_screens": res.stats.n_screens,
+                       "rows": rows_run(res)}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(torch, T, X, y, sizes, plan, world=2, timeout=300.0):
+    """The rehearsal of the distributed executor on one card: ``world``
+    ``gloo`` ranks share it, one block each, and each rank's betas must
+    equal the stacked executor's on the same plan bit for bit.  Both
+    groups are ``gloo`` here (NCCL refuses two ranks on one card); a
+    backend that refuses a CUDA tensor fails the phase."""
+    import multiprocessing as mp
+    import tempfile
+    stacked = T.SGLSession(T.Problem.sgl(X, y, sizes)).path(
+        plan.with_(feature_shards=world))
+    torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    plan_kw = {f: getattr(plan, f) for f in (
+        "alpha", "n_lambdas", "tol", "safety", "max_iter", "check_every")}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_path, args=(
+            r, world, f"{tmp}/rendezvous", tmp, plan_kw, X.shape[0],
+            len(sizes), sizes[0])) for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(timeout - (time.perf_counter() - t0), 0.0))
+        finally:
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        require(not alive, f"two-ranks: ranks {alive} still running after "
+                f"{timeout} s")
+        require(codes == [0] * world, f"two-ranks: rank exit codes {codes} "
+                f"(a rank's traceback is on stderr; a gloo refusal of a "
+                f"CUDA tensor ends here)")
+        betas = [np.load(f"{tmp}/rank{r}.npy") for r in range(world)]
+        info = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                info.append(json.load(f))
+    say(f"[two-ranks] {world} gloo ranks on one card, {wall:.3f} s with "
+        f"start-up; rank 0: rows certified {info[0]['rows']}, screens "
+        f"{info[0]['n_screens']}, launches {json.dumps(info[0]['launches'])}"
+        f", collectives {json.dumps(info[0]['collectives'])}")
+    for r in range(world):
+        require(np.array_equal(betas[r], betas[0]),
+                f"two-ranks: rank {r}'s betas differ from rank 0's")
+        require(info[r] == info[0], f"two-ranks: rank {r}'s counters "
+                f"{info[r]} differ from rank 0's {info[0]}")
+    dmax = float(np.abs(betas[0] - stacked.betas).max())
+    require(np.array_equal(betas[0], stacked.betas),
+            f"two-ranks: the ranks' betas differ from the stacked "
+            f"executor's (max {dmax})")
+    launches, coll = info[0]["launches"], info[0]["collectives"]
+    require(launches["xtv"] == info[0]["rows"] and
+            launches["screen_norms"] == info[0]["n_screens"] and
+            coll["all_reduce_min"] == info[0]["rows"] and
+            coll["all_gather"] > 0,
+            "two-ranks: a rank's launches or collectives are not one "
+            "block's")
+    say(f"[two-ranks] betas of both ranks equal the stacked executor's bit "
+        f"for bit ({betas[0].shape}, max|beta| "
+        f"{float(np.abs(betas[0]).max()):.4f})")
+
+
+def peak_run(torch, label, fn):
+    """``fn()`` with the card's peak allocation during it printed above
+    what was allocated before it (the session's design among that).
+    Returns (fn's result, the peak above that in bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    say(f"[{label}] device memory: {base / 2**20:.1f} MiB allocated before "
+        f"the call, peak {(base + extra) / 2**20:.1f} MiB during it "
+        f"(+{extra / 2**20:.1f} MiB)")
+    return out, extra
+
+
+def sharded_kernel_checks(torch, X1, spec1, sn1, X2, spec2, sn2, snf, dsf,
+                          floor):
+    """Each kernel on the card at the sharded route's own inputs, against
+    its plain version at phase 20's tolerances: ``xtv`` on Synthetic 1's
+    first block and on Table 2's widest; ``screen_norms`` at the recorded
+    first screen shapes on a Synthetic-1 local spec and on the Table-2
+    block with the most pad columns (past the last group of the block's
+    local spec, owned by none; poisoned with 1e30 and NaN, so a read of
+    one shows); ``screen_norms_folds`` and ``dpc_screen_folds`` at the
+    sharded CVs' first per-block screen shapes."""
+    from repro_torch.distributed import feature_shard as fs
+    fp1 = fs.plan_feature_shards(SHARDS, X1.shape[1], spec1)
+    fp2 = fs.plan_feature_shards(SHARDS, X2.shape[1], spec2)
+    for label, fp, sn in (("synthetic1", fp1, sn1), ("table2", fp2, sn2)):
+        (L, w), _, _ = sn
+        require(w == fp.p_shard, f"sharded-{label}: screen_norms ran on C "
+                f"of width {w}, not the block width {fp.p_shard}")
+    out = {name: {} for name in ("xtv", "screen_norms", "screen_norms_folds",
+                                 "dpc_screen_folds")}
+    Xb1 = fs.feature_ops(SHARDS).blocks(fp1, X1)[0]
+    out["xtv"]["synthetic1-block"] = check_xtv(torch, Xb1,
+                                               "sharded-synthetic1-block")
+    wide = int(np.argmax(fp2.widths))
+    c0, w = int(fp2.col_starts[wide]), int(fp2.widths[wide])
+    Xb2 = torch.zeros((X2.shape[0], fp2.p_shard), device=X2.device)
+    Xb2[:, :w] = X2[:, c0:c0 + w]
+    out["xtv"]["table2-widest-block"] = check_xtv(
+        torch, Xb2, "sharded-table2-widest-block")
+    del Xb2
+    out["screen_norms"]["synthetic1-block"] = check_screen_norms(
+        torch, sn1[0][0], fp1.specs[0], "sharded-synthetic1-block", floor)
+    narrow = int(np.argmin(fp2.widths))
+    spec_n = fp2.specs[narrow]
+    n_pad = spec_n.num_features - int(spec_n.sizes.sum())
+    require(n_pad > 0, "sharded-table2: the narrowest block has no pad "
+            "column")
+    say(f"[sharded-table2] block {narrow}: {int(fp2.widths[narrow])} "
+        f"columns of {fp2.p_shard}, {n_pad} pad columns poisoned")
+    out["screen_norms"]["table2-padded-block"] = check_screen_norms(
+        torch, sn2[0][0], spec_n, "sharded-table2-padded-block", floor)
+    (R, G_sh, n_max), _ = snf
+    require((G_sh, n_max) == tuple(fp1.specs[0].pad_mask.shape),
+            f"sharded-sgl-cv: screen_norms_folds ran on groups {G_sh} x "
+            f"{n_max}, not a block's")
+    out["screen_norms_folds"]["sgl-cv-block"] = check_screen_norms_folds(
+        torch, R, fp1.specs[0].pad_mask, "sharded-sgl-cv-block")
+    (K, L, p_sh), _, _ = dsf
+    require(p_sh == X1.shape[1] // SHARDS, f"sharded-nn-cv: "
+            f"dpc_screen_folds ran on width {p_sh}, not a block's")
+    out["dpc_screen_folds"]["nn-cv-block"] = check_dpc_screen_folds(
+        torch, K, L, p_sh, "sharded-nn-cv-block")
+    return out
+
+
+def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
+                        p2_full=100_000):
+    """``Plan(feature_shards=8)`` on the card through the stacked executor:
+    the Synthetic-1 path of phase 3 (float32 cold, warm, profiled; against
+    phase 3's float64 path; a float64 twin at 20 lambdas against the
+    unsharded float64 path), the Table-2 shape with its last 7 groups
+    dropped (18 184 groups: 8 blocks of unequal width) against the
+    unsharded path at 4 lambdas, SGL and NN CV at 20 lambdas and the NN
+    path at 20 lambdas, each against its unsharded twin with the peak
+    memory of both; then the two-rank rehearsal and each kernel at the
+    sharded inputs.  Returns (launches by path, kernel checks)."""
+    from repro_torch.data_synth import ragged_sizes, synthetic_nn, \
+        synthetic_sgl
+    from repro_torch.kernels import dpc_screen_folds as dsf
+    from repro_torch.kernels import screen_norms as sn
+    from repro_torch.kernels import screen_norms_folds as snf
+    out = {}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        say(f"[feature-shards] {what}: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+
+    def pair(label, run, sess, plan, record=None):
+        """The unsharded twin, then the sharded run, each with its peak;
+        ``record`` (module, wrapper name): the shapes of the sharded run's
+        launches of that kernel."""
+        a, _ = peak_run(torch, label, lambda: run(torch, sess, plan, label))
+        with LaunchShapes(*(record or (sn, "screen_norms_cuda"))) as shapes:
+            b, _ = peak_run(torch, f"sharded-{label}", lambda: run(
+                torch, sess, plan.with_(feature_shards=SHARDS),
+                f"sharded-{label}"))
+        return a, b, shapes.shapes
+
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    sizes = [n] * G
+    plan = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                  max_iter=6000, check_every=50, feature_shards=SHARDS)
+    sess = T.SGLSession(T.Problem.sgl(X, y, sizes))
+    with LaunchShapes(sn, "screen_norms_cuda") as shapes1:
+        res, counts, _, calls = run_path(torch, sess, plan,
+                                         "sharded-synthetic1")
+    require_sharded_path(res, counts, "sharded-synthetic1", SHARDS)
+    require(calls.rows == rows_run(res), "sharded-synthetic1: rows solved "
+            f"{calls.rows} != rows certified {rows_run(res)}")
+    require(bool((res.iters < plan.max_iter).all()),
+            "sharded-synthetic1: a row ran to max_iter (not certified)")
+
+    def objectives(betas):
+        return sgl_objectives(X, y, betas, res.lambdas, G, n)
+    objectives.gap_scale = 0.5 * float(np.dot(y.astype(np.float64), y))
+    compare_paths(res, res64, plan, objectives, "sharded-synthetic1")
+    out["synthetic1-sharded-path"] = counts
+    n_captures = len(sess.fista_graphs)
+    warm, counts_w, warm_wall, _ = run_path(torch, sess, plan,
+                                            "sharded-synthetic1-warm")
+    require(warm.stats.n_compilations == 0 and
+            len(sess.fista_graphs) == n_captures,
+            "sharded-synthetic1-warm: compiled or captured")
+    require_sharded_path(warm, counts_w, "sharded-synthetic1-warm", SHARDS)
+    idle = profile_call(torch, lambda: sess.path(plan),
+                        "sharded-synthetic1-profiled", warm_wall)[0]
+    say(f"[sharded-synthetic1] warm wall {warm_wall:.3f} s, idle share "
+        f"{idle:.4f}")
+    lap("Synthetic-1 float32, cold, warm, profiled")
+
+    plan20 = plan.with_(n_lambdas=20, feature_shards=0)
+    sess64 = f64_session(torch, T, X, y, sizes)
+    (r64, c64, _, _), (r64s, c64s, _, _), _ = pair(
+        "synthetic1-f64-20", run_path, sess64, plan20)
+    dbeta = float(np.abs(r64s.betas - r64.betas).max())
+    say(f"[sharded-synthetic1-f64-20] max|beta_sharded - beta_unsharded| "
+        f"= {dbeta:.3e} (bound 1e-12); kept sets equal "
+        f"{np.array_equal(r64s.kept_features, r64.kept_features)}")
+    require(sum(c64.values()) == sum(c64s.values()) == 0,
+            "a float64 path launched a kernel")
+    require(np.array_equal(r64s.kept_features, r64.kept_features) and
+            np.array_equal(r64s.kept_groups, r64.kept_groups) and
+            dbeta <= 1e-12, "sharded-synthetic1-f64-20: the sharded float64 "
+            "path is not the unsharded one")
+    del sess64
+    lap("Synthetic-1 float64 twins")
+
+    # Table 2's shape with its last 7 groups dropped: 18 184 groups, 8
+    # blocks of 2 273 groups of unequal width, each padded to the widest
+    rsizes = ragged_sizes(p2_full, avg=4.5, seed=0)[:-7]
+    p2 = int(sum(rsizes))
+    rng = np.random.default_rng(0)
+    X2 = rng.standard_normal((N2, p2_full)).astype(np.float32)
+    beta2 = np.zeros(p2_full, np.float32)
+    hot = rng.choice(p2_full, 60, replace=False)
+    beta2[hot] = rng.standard_normal(60)
+    y2 = (X2 @ beta2 + 0.01 * rng.standard_normal(N2)).astype(np.float32)
+    X2 = np.ascontiguousarray(X2[:, :p2])     # phase 4's data, 31 fewer cols
+    sess2 = T.SGLSession(T.Problem.sgl(X2, y2, rsizes))
+    del X2
+    plan2 = T.Plan(alpha=1.0, n_lambdas=4, tol=1e-6, safety=1e-6,
+                   max_iter=6000, check_every=50, specnorm_method="frobenius")
+    (r2u, _, _, _), (r2s, c2s, _, _), shapes2 = pair(
+        "table2-ragged-4", run_path, sess2, plan2)
+    from repro_torch.distributed.feature_shard import plan_feature_shards
+    fp2 = plan_feature_shards(SHARDS, p2, sess2.problem.spec)
+    say(f"[sharded-table2] {len(rsizes)} groups, p {p2}: {fp2.n_shards} "
+        f"blocks of widths {fp2.widths.tolist()}, p_shard {fp2.p_shard}; "
+        f"X {4 * N2 * p2 / 2**20:.1f} MiB on the card, its blocks "
+        f"{4 * SHARDS * N2 * fp2.p_shard / 2**20:.1f} MiB more")
+    require(fp2.n_shards == SHARDS and len(set(fp2.widths.tolist())) > 1,
+            "sharded-table2: not 8 blocks of unequal width")
+    require_sharded_path(r2s, c2s, "sharded-table2-ragged-4", SHARDS)
+    compare_same_dtype(r2s, r2u, "sharded-table2-ragged-4")
+    out["table2-sharded-path"] = c2s
+    lap("Table 2 shape, data and both paths")
+
+    cv_plan = T.Plan(**dict(CV_PLAN, n_lambdas=20))
+    sess_cv = T.SGLSession(T.Problem.sgl(X, y, sizes))
+    (cu, _, _, _), (cs, ccs, _, calls_cv), shapes_cv = pair(
+        "sgl-cv-20", run_cv, sess_cv, cv_plan,
+        (snf, "screen_norms_folds_cuda"))
+    st = cs.stats
+    require(st.n_pallas_screens == st.n_screens > 0 and
+            ccs["screen_norms_folds"] == SHARDS * st.n_screens and
+            ccs["sgl_prox"] == st.fista_iters == calls_cv.iters and
+            ccs["xtv"] == calls_cv.rows and
+            ccs["screen_norms"] == ccs["dpc_screen_folds"] == 0,
+            f"sharded-sgl-cv-20: launches {ccs} are not {SHARDS} x "
+            f"{st.n_screens} screen_norms_folds, {st.fista_iters} sgl_prox, "
+            f"{calls_cv.rows} xtv")
+    compare_same_dtype(cs, cu, "sharded-sgl-cv-20", betas="fold_betas")
+    require(abs(cs.best_index - cu.best_index) <= 1,
+            "sharded-sgl-cv-20: selection more than one step away")
+    out["sgl-cv-sharded"] = ccs
+    lap("SGL CV pair")
+
+    Xn, yn, _ = synthetic_nn(1, N=N, p=n * G, seed=1)
+    sess_nn = T.SGLSession(T.Problem.nn_lasso(Xn, yn))
+    (nu, _, _, _), (ns, cns, _, _), shapes_nn = pair(
+        "nn-cv-20", run_cv, sess_nn, cv_plan, (dsf, "dpc_screen_folds_cuda"))
+    st = ns.stats
+    require(st.n_pallas_screens == st.n_screens > 0 and
+            cns["dpc_screen_folds"] == SHARDS * st.n_screens and
+            cns["xtv"] > 0 and cns["screen_norms_folds"] ==
+            cns["screen_norms"] == cns["sgl_prox"] == 0,
+            f"sharded-nn-cv-20: launches {cns} are not {SHARDS} x "
+            f"{st.n_screens} dpc_screen_folds and xtv")
+    compare_same_dtype(ns, nu, "sharded-nn-cv-20", betas="fold_betas")
+    out["nn-cv-sharded"] = cns
+    nn_plan = T.Plan(n_lambdas=20, tol=1e-6, safety=1e-6, max_iter=6000,
+                     check_every=50)
+    (pu, _, _, _), (ps, cps, _, _), _ = pair("table3-nn-20", run_path,
+                                             sess_nn, nn_plan)
+    require_sharded_path(ps, cps, "sharded-table3-nn-20", SHARDS,
+                         screen_kernel=False)
+    compare_same_dtype(ps, pu, "sharded-table3-nn-20")
+    out["table3-nn-sharded-path"] = cps
+    lap("NN CV and path pairs")
+    two_ranks(torch, T, X, y, sizes, plan.with_(n_lambdas=20,
+                                                feature_shards=0))
+    lap("two ranks, with the stacked run")
+    # the sharded shapes: a block's C (L, p_shard), the stacked fold rows
+    # (K*L, G_shard, n_max) and (K, L, p_shard) of each route's first screen
+    floor = time_ms(torch, lambda: torch.empty(1, device="cuda").zero_())
+    checks = sharded_kernel_checks(
+        torch, sess.problem.X, sess.problem.spec, shapes1.shapes[0],
+        sess2.problem.X, sess2.problem.spec, shapes2[0], shapes_cv[0],
+        shapes_nn[0], floor)
+    del sess2
+    lap("each kernel at the sharded inputs")
+    return out, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 20: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -1983,12 +2444,17 @@ def _poisoned(torch, rows, mask_rows, dev, scale=2.0):
 def _screen_poisoned(torch, L, spec):
     """C (L, p + 2) on the card for ``spec``'s padded view: column p holds
     1e30 and column p + 1 NaN, and every masked slot of the returned index
-    points at one of the two (alternately)."""
+    points at one of the two (alternately).  The columns past the spec's
+    last group (a padded block's pad columns, which no group owns) hold
+    1e30 and NaN alternately too."""
     G, n_max = spec.pad_index.shape
     p = spec.num_features
     dev = spec.device
     C = torch.randn(L, p + 2, device=dev) * 2
     C[:, p], C[:, p + 1] = 1e30, float("nan")
+    covered = int(spec.sizes.sum())
+    pads = torch.arange(covered, p, device=dev)
+    C[:, covered:p] = torch.where(pads % 2 == 0, 1e30, float("nan"))
     alt = p + torch.arange(G * n_max, device=dev).reshape(G, n_max) % 2
     idx = torch.where(spec.pad_mask, spec.pad_index, alt).contiguous()
     return C, idx, spec.pad_mask
@@ -2030,8 +2496,9 @@ def check_screen_norms(torch, L, spec, label, floor_ms=None):
     valid = int(mask.sum())
     b, by = bound_ms(4 * L * valid + 9 * G * n_max + 8 * L * G,
                      6 * L * valid)
+    n_pad = spec.num_features - int(spec.sizes.sum())
     say(f"[kernel screen_norms {label}] checked on C ({L}, {C.shape[1] + 2}) "
-        f"with 2 poison columns, timed on C {tuple(C.shape)}; G {G} n_max "
+        f"with 2 poison columns and {n_pad} poisoned pad columns, timed on C {tuple(C.shape)}; G {G} n_max "
         f"{n_max} valid {valid / (G * n_max):.3f} max_abs_err {err:.3e} "
         f"(tol rtol=atol=1e-5, cinf exact) L2-warm ms {ms:.5f} L2-cold "
         f"({n_copies} copies of C) ms {ms_cold:.5f}"
@@ -2296,8 +2763,13 @@ def main() -> int:
             new_paths[f"estimator-{label}"] = c
     with timed_phase("serving"):
         new_paths["serving"] = serving_phase(torch, T)
+    with timed_phase("feature-shards"):
+        sharded, sharded_checks = feature_shard_phase(torch, T, res64)
+    new_paths.update(sharded)
     rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                          snf_shape, dsf_shape)
+    for name, by_input in sharded_checks.items():
+        rows[name]["sharded"] = by_input     # at the sharded route's inputs
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,

@@ -49,12 +49,19 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     subsamples; the fold drivers solve the grid on them as on folds
     (``SGLSession.stability``, and the ``stability_selection`` shim).
 
+  * **Feature sharding** (``feature_shards > 1``) runs the stacked grid
+    screens over a group-aligned column partition of X
+    (``distributed.feature_shard``), one block at a time or one block a
+    rank; the per-fold statistics and the sweeps keep the full-X algebra,
+    so the sharded route certifies against the same numbers.  The
+    fold-stack kernels run on each block.
+
 A loss whose masked rows do not vanish (logistic) is refused with
 ``NotImplementedError``, as in the reference.  Not ported yet, and refused
-with ``NotImplementedError``: a fold mesh (ROADMAP queue 1, item 25) and
-feature sharding (item 13).  ``sgl_cv``, ``nn_lasso_cv`` and
-``stability_selection`` are the reference's legacy shims over
-``SGLSession.cv`` and ``SGLSession.stability``.
+with ``NotImplementedError``: a fold mesh (ROADMAP queue 1, item 25).
+``sgl_cv``, ``nn_lasso_cv`` and ``stability_selection`` are the
+reference's legacy shims over ``SGLSession.cv`` and
+``SGLSession.stability``.
 """
 from __future__ import annotations
 
@@ -64,7 +71,7 @@ import time
 import numpy as np
 import torch
 
-from .dpc import dpc_screen_grid_folds
+from .dpc import dpc_screen_grid_folds, dpc_screen_grid_folds_feat
 from .fenchel import sgl_penalty, shrink
 from .groups import GroupSpec, group_sum
 from .lambda_max import lambda_max_sgl
@@ -72,11 +79,14 @@ from .linalg import group_spectral_norms, spectral_norm
 from .losses import SQUARED, get_loss
 from .path import _bucket
 from .path_engine import (EngineStats, _expand_set, _feature_bucket,
-                          _kernels_active, _pow2_len, _refuse_tf32, _sync,
+                          _feature_plan, _kernels_active, _pow2_len,
+                          _refuse_tf32, _sync,
                           margin_fill_nn, margin_fill_sgl, sweep_nn_core,
                           sweep_sgl_core)
 from .screening import (_require_f32_for_pallas, gap_safe_grid_radii,
-                        gap_safe_screen_grid_folds, tlfre_screen_grid_folds)
+                        gap_safe_screen_grid_folds,
+                        gap_safe_screen_grid_folds_feat,
+                        tlfre_screen_grid_folds, tlfre_screen_grid_folds_feat)
 
 SCHEDULES = ("elastic", "lockstep")
 
@@ -189,13 +199,10 @@ def _host(a) -> np.ndarray:
     return np.asarray(a, dtype=float)
 
 
-def _refuse_unported(mesh, feature_shards) -> None:
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
-    if int(feature_shards) > 1:
-        raise NotImplementedError(
-            "feature_shards > 1 is not ported yet (ROADMAP queue 1, item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +263,65 @@ def _screen_folds_nn(X, Y, rem, lam_bars, lam_maxs, theta_bars, n_bound,
         fk = fk & (c_prev[:, None, :] + radii[:, :, None]
                    * col_n_f[:, None, :] >= 1.0)
     return fk
+
+
+def _screen_folds_sgl_feat(fops, Xs, Y, spec, specs_s, alpha, rem, lam_bars,
+                           lam_maxs, theta_bars, n_bound, beta_prev, beta_s,
+                           c_prev_s, masks, col_n_sf, gspec_sf, safety,
+                           mus_s, *, screen: str, use_kernels: bool):
+    """Feature-sharded ``_screen_folds_sgl``: the (K*L, N) x (N, p) screen
+    GEMM runs block by block (no collective); the Gap-Safe intersection's
+    fit is one sum across the blocks.  The penalty uses the full
+    ``beta_prev`` with the global spec (O(K p), no X), so the radii are the
+    unsharded screen's.  Returns feat_keep (n_local, K, L, p_shard)."""
+    from ..distributed.feature_shard import sharded_fit
+    n_vecs = _boundary_normals(Y, lam_bars, lam_maxs, theta_bars, n_bound)
+    _, fk_s, _ = tlfre_screen_grid_folds_feat(
+        fops, Xs, specs_s, Y, alpha, rem, theta_bars, n_vecs, col_n_sf,
+        gspec_sf, safety=safety, mus_s=mus_s, use_kernels=use_kernels)
+    if screen == "gapsafe":
+        if mus_s is None:
+            fit = sharded_fit(fops, Xs, beta_s)
+        else:
+            def body(loc):
+                Xb, bb, mub = loc
+                return bb @ Xb.T, torch.sum(bb * mub, dim=1)
+            fit, corr = fops.fsum(body, (Xs, beta_s, mus_s))
+            fit = fit - corr[:, None]
+        resid = Y - masks * fit
+        pen = torch.stack([sgl_penalty(spec, b, alpha) for b in beta_prev])
+        radii = gap_safe_grid_radii(Y, rem, theta_bars, resid,
+                                    pen) * (1.0 + safety)
+        _, fk_dyn_s = gap_safe_screen_grid_folds_feat(
+            fops, specs_s, alpha, c_prev_s, radii, col_n_sf, gspec_sf,
+            use_kernels=use_kernels)
+        fk_s = fk_s & fk_dyn_s
+    return fk_s
+
+
+def _screen_folds_nn_feat(fops, Xs, Y, rem, lam_bars, lam_maxs, theta_bars,
+                          n_bound, beta_prev, beta_s, c_prev_s, masks,
+                          col_n_sf, safety, *, screen: str,
+                          use_kernels: bool):
+    """Feature-sharded ``_screen_folds_nn``.  Returns (n_local, K, L,
+    p_shard)."""
+    from ..distributed.feature_shard import sharded_fit
+    n_vecs = _boundary_normals(Y, lam_bars, lam_maxs, theta_bars, n_bound)
+    fk_s, _ = dpc_screen_grid_folds_feat(fops, Xs, Y, rem, theta_bars,
+                                         n_vecs, col_n_sf, safety=safety,
+                                         use_kernels=use_kernels)
+    if screen == "gapsafe":
+        resid = Y - masks * sharded_fit(fops, Xs, beta_s)
+        pen = torch.sum(beta_prev, dim=1)         # beta >= 0 => l1 = sum
+        radii = gap_safe_grid_radii(Y, rem, theta_bars, resid,
+                                    pen) * (1.0 + safety)
+
+        def body(loc, radii):
+            ct, cn = loc
+            return ct[:, None, :] + radii[:, :, None] * cn[:, None, :] >= 1.0
+
+        fk_s = fk_s & fops.fmap(body, (c_prev_s, col_n_sf), radii)
+    return fk_s
 
 
 # ---------------------------------------------------------------------------
@@ -373,9 +439,9 @@ class _FoldEngine:
     """Shared scheduler state and acceptance logic of the fold drivers.
 
     Subclasses provide ``_screen_call(act, rem)`` (the stacked grid screen,
-    one GEMM) and ``make_launch(cohort)`` (bucketed subproblems and one
-    sweep launch).  ``run`` owns the grid cursors, the chunk policies and
-    the launch queue."""
+    one GEMM, read back to the host) and ``make_launch(cohort)`` (bucketed
+    subproblems and one sweep launch).  ``run`` owns the grid cursors, the
+    chunk policies and the launch queue."""
 
     def __init__(self, X, masks_np, y_rows_np, lambdas, lam_max_np, xty_np,
                  *, tol, max_iter, safety, check_every, min_bucket, margin,
@@ -403,6 +469,11 @@ class _FoldEngine:
         self.seen_keys = seen_keys
         self.screen_time = 0.0
         self.solve_time = 0.0
+        # feature sharding (the screens only: the sweeps keep full-X
+        # certification); subclasses set these up given a partition
+        self.fshard = None
+        self.fops = None
+        self.Xs = None
 
         K, J, p = self.K, self.J, self.p
         lam_max_safe = np.where(lam_max_np > 0, lam_max_np, 1.0)
@@ -419,6 +490,14 @@ class _FoldEngine:
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype or self.dtype, device=self.dev)
+
+    def _shard(self, fshard, fops) -> None:
+        """Set up the sharded screens over the partition ``fshard`` with
+        the executor ``fops``: the local blocks of X and the per-fold
+        column norms, stacked."""
+        self.fshard, self.fops = fshard, fops
+        self.Xs = self.fops.blocks(self.fshard, self.X)
+        self.col_n_sf = self.fops.scatter(self.fshard, self.col_n_f)
 
     def load_init(self, init: FoldState) -> None:
         """Seed the warm-start chain from an exact per-fold reference state
@@ -449,7 +528,7 @@ class _FoldEngine:
         if self.screen_mode == "none":
             return np.ones((len(act), rem.shape[1], self.p), dtype=bool)
         ts = time.perf_counter()
-        fk_np = self._screen_call(act, rem).cpu().numpy()   # one host read
+        fk_np = self._screen_call(act, rem)                 # one host read
         self.stats.n_screens += 1                           # ONE GEMM issued
         self.stats.n_pallas_screens += int(self.screen_kernels)
         self.screen_time += time.perf_counter() - ts
@@ -615,7 +694,8 @@ class _SGLFoldEngine(_FoldEngine):
 
     def __init__(self, *args, spec, alpha, Y, masks_d, col_n_f, gspec_f,
                  lam_max_f, n_bound, mus_d, mus64, graphs,
-                 min_group_bucket: int = 16, loss=SQUARED, **kw):
+                 min_group_bucket: int = 16, fshard=None, fops=None,
+                 loss=SQUARED, **kw):
         super().__init__(*args, **kw)
         self.graphs = graphs
         self.spec = spec
@@ -639,9 +719,28 @@ class _SGLFoldEngine(_FoldEngine):
         # the fused group statistics take one l1 threshold
         self.screen_kernels = self.kernels and self.fw_np is None
         self.min_group_bucket = min_group_bucket
+        if fshard is not None:
+            self._shard(fshard, fops)
+            self.specs_s = self.fops.local(self.fshard.specs)
+            self.gspec_sf = self.fops.scatter_groups(self.fshard, gspec_f)
+            self.mus_sf = (self.fops.scatter(self.fshard, mus_d)
+                           if self.centered else None)
 
-    def _screen_call(self, act: np.ndarray, rem: np.ndarray):
+    def _screen_call(self, act: np.ndarray, rem: np.ndarray) -> np.ndarray:
         a_idx = self._dev(act, torch.int64)
+        if self.fshard is not None:
+            fk_s = _screen_folds_sgl_feat(
+                self.fops, self.Xs, self.Y[a_idx], self.spec, self.specs_s,
+                self.alpha, self._dev(rem), self._dev(self.lam_bar[act]),
+                self.lam_max_f[a_idx], self._dev(self.Theta[act]),
+                self.n_bound[a_idx], self._dev(self.Beta[act]),
+                self.fops.scatter(self.fshard, self._dev(self.Beta[act])),
+                self.fops.scatter(self.fshard, self._dev(self.Cprev[act])),
+                self.masks_d[a_idx], self.col_n_sf[:, a_idx],
+                self.gspec_sf[:, a_idx], self.safety,
+                self.mus_sf[:, a_idx] if self.centered else None,
+                screen=self.screen_mode, use_kernels=self.screen_kernels)
+            return self.fshard.unshard_features(self.fops.gather(fk_s))
         return _screen_folds_sgl(
             self.X, self.Y[a_idx], self.spec, self.alpha, self._dev(rem),
             self._dev(self.lam_bar[act]), self.lam_max_f[a_idx],
@@ -650,7 +749,8 @@ class _SGLFoldEngine(_FoldEngine):
             self.masks_d[a_idx],
             self.col_n_f[a_idx], self.gspec_f[a_idx], self.safety,
             self.mus_d[a_idx] if self.centered else None,
-            screen=self.screen_mode, use_kernels=self.screen_kernels)
+            screen=self.screen_mode,
+            use_kernels=self.screen_kernels).cpu().numpy()
 
     def make_launch(self, cohort) -> _Launch:
         ts = time.perf_counter()
@@ -704,23 +804,38 @@ class _SGLFoldEngine(_FoldEngine):
 class _NNFoldEngine(_FoldEngine):
     """Nonnegative-Lasso screening (DPC) and flat-bucket sweeps."""
 
-    def __init__(self, *args, Y, masks_d, col_n_f, lam_max_f, n_bound, **kw):
+    def __init__(self, *args, Y, masks_d, col_n_f, lam_max_f, n_bound,
+                 fshard=None, fops=None, **kw):
         super().__init__(*args, **kw)
         self.Y = Y
         self.masks_d = masks_d
         self.col_n_f = col_n_f
         self.lam_max_f = lam_max_f
         self.n_bound = n_bound
+        if fshard is not None:
+            self._shard(fshard, fops)
 
-    def _screen_call(self, act: np.ndarray, rem: np.ndarray):
+    def _screen_call(self, act: np.ndarray, rem: np.ndarray) -> np.ndarray:
         a_idx = self._dev(act, torch.int64)
+        if self.fshard is not None:
+            fk_s = _screen_folds_nn_feat(
+                self.fops, self.Xs, self.Y[a_idx], self._dev(rem),
+                self._dev(self.lam_bar[act]), self.lam_max_f[a_idx],
+                self._dev(self.Theta[act]), self.n_bound[a_idx],
+                self._dev(self.Beta[act]),
+                self.fops.scatter(self.fshard, self._dev(self.Beta[act])),
+                self.fops.scatter(self.fshard, self._dev(self.Cprev[act])),
+                self.masks_d[a_idx], self.col_n_sf[:, a_idx], self.safety,
+                screen=self.screen_mode, use_kernels=self.kernels)
+            return self.fshard.unshard_features(self.fops.gather(fk_s))
         return _screen_folds_nn(
             self.X, self.Y[a_idx], self._dev(rem),
             self._dev(self.lam_bar[act]), self.lam_max_f[a_idx],
             self._dev(self.Theta[act]), self.n_bound[a_idx],
             self._dev(self.Beta[act]), self._dev(self.Cprev[act]),
             self.masks_d[a_idx], self.col_n_f[a_idx], self.safety,
-            screen=self.screen_mode, use_kernels=self.kernels)
+            screen=self.screen_mode,
+            use_kernels=self.kernels).cpu().numpy()
 
     def make_launch(self, cohort) -> _Launch:
         ts = time.perf_counter()
@@ -812,7 +927,9 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     sample); the logistic loss does not and raises
     ``NotImplementedError``.  With adaptive feature weights the screen's
     fold-stack statistics and the fused prox (one l1 threshold each) run
-    plainly; ``xtv`` still certifies every row."""
+    plainly; ``xtv`` still certifies every row.  ``feature_shards > 1``
+    shards the stacked grid screens (see the module docstring); adaptive
+    feature weights refuse it with ``ValueError``."""
     if screen not in ("tlfre", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
     loss = get_loss(loss)
@@ -823,7 +940,10 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         raise NotImplementedError(
             f"fold-batched paths require a loss whose masked rows vanish; "
             f"{loss.name!r} does not support the masked-row embedding")
-    _refuse_unported(mesh, feature_shards)
+    _refuse_unported(mesh)
+    if int(feature_shards) > 1 and spec.feature_weights is not None:
+        raise ValueError("feature_shards does not support adaptive feature "
+                         "weights; drop one or the other")
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev, dtype = X.device, X.dtype
@@ -868,6 +988,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     if centered:
         n_bound = n_bound - torch.sum(w_star * mus_d, dim=1)[:, None]
     n_bound = masks_d * n_bound
+    fshard, fops = _feature_plan(feature_shards, p, spec)
     _sync(dev)
     setup_time = time.perf_counter() - t0
 
@@ -881,7 +1002,8 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         screen_mode=screen, stats=stats, seen_keys=seen_keys,
         spec=spec, alpha=alpha, Y=Y, masks_d=masks_d, col_n_f=col_n_f,
         gspec_f=gspec_f, lam_max_f=lam_max_f, n_bound=n_bound, mus_d=mus_d,
-        mus64=mus64, min_group_bucket=min_group_bucket, loss=loss,
+        mus64=mus64, min_group_bucket=min_group_bucket, fshard=fshard,
+        fops=fops, loss=loss,
         graphs=fista_graphs if fista_graphs is not None else {})
     if init is not None:
         eng.load_init(init)
@@ -903,11 +1025,12 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
                   use_kernels=None, mesh=None, init=None, compile_keys=None,
                   feature_shards: int = 0):
     """Nonnegative-Lasso analogue of ``sgl_fold_paths`` (DPC screens, no
-    centering; ``init`` as there).  A fold whose ``max_i <x_i, y>`` is nonpositive has the
-    all-zero path and drops out."""
+    centering; ``init`` and ``feature_shards`` as there, the partition
+    singleton-column).  A fold whose ``max_i <x_i, y>`` is nonpositive has
+    the all-zero path and drops out."""
     if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
-    _refuse_unported(mesh, feature_shards)
+    _refuse_unported(mesh)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev = X.device
@@ -921,6 +1044,7 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
     col_n_f = torch.sqrt(masks_d @ (X * X))
     lam_max_np = lam_max_f.cpu().numpy().astype(float)
     n_bound = masks_d * X[:, i_star_f].T                      # (K, N)
+    fshard, fops = _feature_plan(feature_shards, X.shape[1], None)
     _sync(dev)
     setup_time = time.perf_counter() - t0
 
@@ -933,7 +1057,7 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
         min_bucket=min_bucket, margin=margin, kernels=kernels,
         screen_mode=screen, stats=stats, seen_keys=seen_keys,
         Y=Y, masks_d=masks_d, col_n_f=col_n_f, lam_max_f=lam_max_f,
-        n_bound=n_bound)
+        n_bound=n_bound, fshard=fshard, fops=fops)
     if init is not None:
         eng.load_init(init)
     for k in range(K):

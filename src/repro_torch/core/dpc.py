@@ -7,8 +7,8 @@ Theorem 21 the normal-cone dual ball, Theorem 22 the DPC rule (one ball:
 
     <x_i, o> + r * ||x_i|| < 1   =>   beta_i* = 0.
 
-The feature-sharded screens (``_feat``) wait for feature sharding (ROADMAP
-queue 1, item 13).
+The feature-sharded screens (``_feat``) run the same rules block by block
+over a column partition (``distributed.feature_shard``).
 """
 from __future__ import annotations
 
@@ -90,14 +90,19 @@ def dpc_screen_grid_folds(X, Y, lambdas, Theta_bar, N_vecs, col_norms_f,
     centers, radii = grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs)
     radii = radii * (1.0 + safety)
     C = (centers.reshape(K * L, N) @ X).reshape(K, L, X.shape[1])
+    return _dpc_rule_folds(C, radii, col_norms_f, use_kernels), radii
+
+
+def _dpc_rule_folds(C, radii, col_norms_f, use_kernels: bool):
+    """The threshold ``C + r ||x_i|| >= 1`` on a (K, L, p) stack: through
+    the fused ``dpc_screen_folds`` kernel with ``use_kernels``."""
     if use_kernels:
         _require_f32_for_pallas(C.dtype)
         from ..kernels import ops as _kops
         return _kops.dpc_screen_folds(
             C.to(torch.float32), radii.to(torch.float32).contiguous(),
-            col_norms_f.to(torch.float32).contiguous()), radii
-    omega = C + radii[:, :, None] * col_norms_f[:, None, :]
-    return omega >= 1.0, radii
+            col_norms_f.to(torch.float32).contiguous())
+    return C + radii[:, :, None] * col_norms_f[:, None, :] >= 1.0
 
 
 def gap_safe_screen_grid_nn(c_theta, radii, col_norms):
@@ -105,6 +110,57 @@ def gap_safe_screen_grid_nn(c_theta, radii, col_norms):
     vary per lambda.  Returns feat_keep (L, p)."""
     omega = c_theta[None, :] + radii[:, None] * col_norms[None, :]
     return omega >= 1.0
+
+
+# ---------------------------------------------------------------------------
+# Feature-sharded Theorem-22 screens (see core.screening for the SGL
+# counterparts and distributed.feature_shard for the executor and layout).
+# The threshold is per column, so the sharded rule is the unsharded rule on
+# each block; pad columns give omega = 0 < 1 and are never kept.
+# ---------------------------------------------------------------------------
+
+def dpc_screen_grid_feat(ops, Xs, y, lambdas, theta_bar, n_vec,
+                         col_norms_s, safety: float = 0.0):
+    """Sharded ``dpc_screen_grid``: returns (feat_keep (n_local, L,
+    p_shard), radii (L,))."""
+    centers, radii = grid_ball_geometry(y, lambdas, theta_bar, n_vec)
+    radii = radii * (1.0 + safety)
+
+    def body(loc, centers, radii):
+        Xb, cn = loc
+        return centers @ Xb + radii[:, None] * cn[None, :] >= 1.0
+
+    return ops.fmap(body, (Xs, col_norms_s), centers, radii), radii
+
+
+def dpc_screen_grid_folds_feat(ops, Xs, Y, lambdas, Theta_bar, N_vecs,
+                               col_norms_sf, safety: float = 0.0,
+                               use_kernels: bool = False):
+    """Sharded ``dpc_screen_grid_folds``; ``use_kernels`` runs each block's
+    threshold through one ``dpc_screen_folds`` launch.  Returns (feat_keep
+    (n_local, K, L, p_shard), radii (K, L))."""
+    K, L = lambdas.shape
+    N = Y.shape[1]
+    centers, radii = grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs)
+    radii = radii * (1.0 + safety)
+
+    def body(loc, centers, radii):
+        Xb, cn = loc
+        C = (centers.reshape(K * L, N) @ Xb).reshape(K, L, Xb.shape[1])
+        return _dpc_rule_folds(C, radii, cn, use_kernels)
+
+    return ops.fmap(body, (Xs, col_norms_sf), centers, radii), radii
+
+
+def gap_safe_screen_grid_nn_feat(ops, c_theta_s, radii, col_norms_s):
+    """Sharded ``gap_safe_screen_grid_nn``: stacked fixed center
+    ``c_theta_s`` (n_local, p_shard).  Returns feat_keep (n_local, L,
+    p_shard)."""
+    def body(loc, radii):
+        ct, cn = loc
+        return gap_safe_screen_grid_nn(ct, radii, cn)
+
+    return ops.fmap(body, (c_theta_s, col_norms_s), radii)
 
 
 def dual_scaling_nn(xt_rho: torch.Tensor) -> torch.Tensor:

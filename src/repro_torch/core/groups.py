@@ -59,6 +59,10 @@ class GroupSpec:
     # (p,) bool: features that no valid padded slot covers (a bucketed
     # spec's garbage-bin columns past n_max); derived in ``from_arrays``
     pad_uncovered: torch.Tensor
+    # (G,) int64 segment lengths of ``group_sum``: ``sizes``, the last
+    # group's run extended over trailing columns no group owns (the zero
+    # pad columns of a feature-shard block); derived in ``from_arrays``
+    seg_lengths: torch.Tensor
     feature_weights: Optional[torch.Tensor] = None   # (p,) float64 or None
 
     @property
@@ -75,7 +79,8 @@ class GroupSpec:
             weights=self.weights.to(device),
             pad_index=self.pad_index.to(device),
             pad_mask=self.pad_mask.to(device), feature_weights=fw,
-            pad_uncovered=self.pad_uncovered.to(device))
+            pad_uncovered=self.pad_uncovered.to(device),
+            seg_lengths=self.seg_lengths.to(device))
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -83,14 +88,23 @@ class GroupSpec:
                     pad_mask, feature_weights=None, *, uniform=None,
                     device=None) -> "GroupSpec":
         """Spec from host arrays (the seven children of the reference's
-        ``GroupSpec``); the static fields and ``pad_uncovered`` are derived
-        from them.  Raises if a valid padded slot points outside [0, p) or
-        two valid slots cover one feature: the fused prox stores each
-        slot's value where the reference scatter-adds it."""
+        ``GroupSpec``); the static fields, ``pad_uncovered`` and
+        ``seg_lengths`` are derived from them.  Raises if a valid padded
+        slot points outside [0, p) or two valid slots cover one feature:
+        the fused prox stores each slot's value where the reference
+        scatter-adds it.  The sizes may sum to less than p (a feature-shard
+        block's trailing pad columns, which its ``group_ids`` give to the
+        last group), never to more."""
         device = resolve_device(device)
         sizes = np.asarray(sizes, dtype=np.int64)
         pad_index = np.asarray(pad_index, dtype=np.int64)
         p = int(np.asarray(group_ids).shape[0])
+        unowned = p - int(sizes.sum())
+        if unowned < 0:
+            raise ValueError("the group sizes sum to more than p")
+        seg_lengths = sizes.copy()
+        if len(seg_lengths):
+            seg_lengths[-1] += unowned
         covered = pad_index[np.asarray(pad_mask, dtype=bool)]
         if covered.size and (covered.min() < 0 or covered.max() >= p):
             raise ValueError("a valid padded slot points outside [0, p)")
@@ -113,7 +127,8 @@ class GroupSpec:
             max_size=int(pad_index.shape[1]), uniform=bool(uniform),
             feature_weights=(None if feature_weights is None
                              else t(feature_weights, torch.float64)),
-            pad_uncovered=t(cover == 0, torch.bool))
+            pad_uncovered=t(cover == 0, torch.bool),
+            seg_lengths=t(seg_lengths, torch.int64))
 
     @classmethod
     def from_sizes(cls, sizes: Sequence[int], weights=None,
@@ -241,12 +256,16 @@ class GroupSpec:
 
 def group_sum(spec: GroupSpec, x: torch.Tensor) -> torch.Tensor:
     """Per-group sums over the last axis: (..., p) -> (..., G); empty
-    groups give 0.  The groups are contiguous runs of ``sizes`` (summing
-    to p), so a segment reduction adds each group's entries in feature
-    order and gives the same sums on every run; a scatter-add on the card
-    adds through atomics in no fixed order."""
+    groups give 0.  The groups are contiguous runs of ``seg_lengths``
+    (summing to p), so a segment reduction adds each group's entries in
+    feature order and gives the same sums on every run; a scatter-add on
+    the card adds through atomics in no fixed order.  Trailing columns no
+    group owns (a feature-shard block's zero pads) join the last group's
+    run, adding exact 0.0 terms, as the reference's ``group_ids`` does;
+    they are not skipped, or every row after the first would shift."""
     rows = x.reshape(-1, spec.num_features).shape[0]
-    lengths = spec.sizes if rows == 1 else spec.sizes.repeat(rows)
+    lengths = (spec.seg_lengths if rows == 1
+               else spec.seg_lengths.repeat(rows))
     # unsafe: no check of the lengths against x, which would read them on
     # the host (and break a CUDA graph capture)
     out = torch.segment_reduce(x.reshape(-1), "sum", lengths=lengths,

@@ -41,6 +41,18 @@ run whenever the spec carries no adaptive feature weights, whatever the
 loss.  The nonnegative-Lasso path has the same three steps with the DPC
 grid rule (Theorem 22) and the prox ``(v - t*lam)_+``; its only kernel is
 the ``xtv`` certification GEMV.
+
+``feature_shards > 1`` runs the screening GEMMs, the group statistics and
+the certification feature-parallel over a group-aligned column partition
+(``distributed.feature_shard``): across the ranks of a ``torch.distributed``
+group of that size, else stacked on one device.  Kept sets and accepted
+betas match the unsharded engine's: every cross-shard reduction (the min of
+the shrink roots, the max of the correlations) is exactly associative.
+The solve bucket stays on one device.  The kernels run on each block as
+they do on the full design: ``xtv`` certifies every row once a block,
+``screen_norms`` takes each block's screen.  The reference turns every
+kernel off on this route, so its float32 ``n_pallas_screens`` is 0 where
+this port counts every screen.
 """
 from __future__ import annotations
 
@@ -51,10 +63,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dpc import (dpc_screen_grid, dual_scaling_nn, gap_safe_screen_grid_nn,
+from .dpc import (dpc_screen_grid, dpc_screen_grid_feat, dual_scaling_nn,
+                  gap_safe_screen_grid_nn, gap_safe_screen_grid_nn_feat,
                   lambda_max_nn, normal_vector_nn)
 from .estimation import normal_vector_sgl
-from .fenchel import sgl_penalty
+from .fenchel import sgl_penalty, shrink
 from .groups import GroupSpec
 from .lambda_max import dual_scaling_sgl, lambda_max_sgl
 from .linalg import (column_norms, group_frobenius_norms,
@@ -63,7 +76,8 @@ from .losses import SQUARED, get_loss
 from .path import PathResult, _bucket, default_lambda_grid
 from .screening import (_require_f32_for_pallas, _xtv, gap_safe_grid_radii,
                         gap_safe_grid_radii_loss, gap_safe_screen_grid,
-                        tlfre_screen_grid)
+                        gap_safe_screen_grid_feat, tlfre_screen_grid,
+                        tlfre_screen_grid_feat)
 from .solver import fista_nn_lasso, fista_sgl, fista_sgl_graphed
 
 
@@ -275,7 +289,8 @@ def _certified_rows(lams, valid, beta0, tol: float, gap_scale: float,
 def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
                    lipschitz, lams, valid, beta0, tol, gap_scale: float,
                    mu=None, *, max_iter: int, check_every: int,
-                   use_kernels: bool, graphs: dict, loss=SQUARED):
+                   use_kernels: bool, graphs: dict, loss=SQUARED,
+                   certify=None):
     """The SGL sweep over the rows of ``lams`` (a device grid; ``valid``
     marks the real rows); see ``_certified_rows``.
 
@@ -287,20 +302,29 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
     ``mu`` (optional, (p,)): per-fold column means for leakage-free
     centering.  The certification GEMV runs against the SHARED design, so
     the centered correlation is the rank-one correction
-    ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked)."""
+    ``X^T rho - mu * sum(rho)`` (``X_sub`` comes centered and masked).
+
+    ``certify(rho) -> (c, s)`` gives each row's full-problem correlation
+    ``c = X^T rho`` and its Lemma-9 dual scaling ``s``; by default the
+    GEMV on ``X`` (centered by ``mu``) and ``dual_scaling_sgl`` on
+    ``spec``.  The sharded route passes ``cert_sgl`` over the blocks, and
+    its ``c`` rows are then stacked (n_local, p_shard)."""
     tol = loss.effective_tol(tol, y.dtype)
     solve, kw = _fista_route(X_sub, sub_spec, use_kernels, graphs)
     kw.update(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
+    if certify is None:
+        def certify(rho):
+            c = _xtv(X, rho, use_kernels).to(beta0.dtype)    # full-X GEMV
+            if mu is not None:
+                c = c - (mu * torch.sum(rho)).to(beta0.dtype)
+            return c, dual_scaling_sgl(spec, c, alpha)
 
     def solve_row(lam, b):
         res = solve(X_sub, y, sub_spec, lam, alpha, lipschitz, b, **kw)
         fit = X_sub @ res.beta
         resid = loss.residual(y, fit)
         rho = resid / lam
-        c = _xtv(X, rho, use_kernels).to(b.dtype)          # full-X GEMV
-        if mu is not None:
-            c = c - (mu * torch.sum(rho)).to(b.dtype)
-        s = dual_scaling_sgl(spec, c, alpha)
+        c, s = certify(rho)
         theta = (s * rho).to(b.dtype)
         pen = sgl_penalty(sub_spec, res.beta, alpha)
         pval = loss.primal_value(y, fit, resid) + lam * pen
@@ -314,17 +338,22 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
 
 def sweep_nn_core(X, X_sub, y, lipschitz, lams, valid, beta0, tol,
                   gap_scale: float, *, max_iter: int, check_every: int,
-                  use_kernels: bool):
-    """The nonnegative-Lasso sweep; see ``_certified_rows``."""
+                  use_kernels: bool, certify=None):
+    """The nonnegative-Lasso sweep; see ``_certified_rows``.
+    ``certify(rho) -> (c, s)`` as in ``sweep_sgl_core``: by default the
+    GEMV on ``X`` and ``dual_scaling_nn``."""
     tol = SQUARED.effective_tol(tol, y.dtype)
+    if certify is None:
+        def certify(rho):
+            c = _xtv(X, rho, use_kernels).to(beta0.dtype)    # full-X GEMV
+            return c, dual_scaling_nn(c)
 
     def solve_row(lam, b):
         res = fista_nn_lasso(X_sub, y, lam, lipschitz, b, max_iter=max_iter,
                              check_every=check_every, tol=tol)
         resid = y - X_sub @ res.beta
         rho = resid / lam
-        c = _xtv(X, rho, use_kernels).to(b.dtype)          # full-X GEMV
-        s = dual_scaling_nn(c)
+        c, s = certify(rho)
         theta = (s * rho).to(b.dtype)
         pval = 0.5 * torch.dot(resid, resid) + lam * torch.sum(res.beta)
         d = y - lam * theta
@@ -336,6 +365,46 @@ def sweep_nn_core(X, X_sub, y, lipschitz, lams, valid, beta0, tol,
                            solve_row)
 
 
+# The feature-sharded sweeps: the solve bucket stays on one device, and each
+# row's full-problem certification runs feature-parallel over the local
+# blocks ``Xs`` (``feature_shard.cert_sgl`` / ``cert_nn``).  Squared loss,
+# no centering: the fold sweeps keep full-X certification.
+
+def sweep_sgl_core_feat(Xs, X_sub, y, specs, sub_spec: GroupSpec, alpha,
+                        lipschitz, lams, valid, beta0, tol,
+                        gap_scale: float, *, ops, max_iter: int,
+                        check_every: int, use_kernels: bool, graphs: dict):
+    from ..distributed.feature_shard import cert_sgl
+    return sweep_sgl_core(
+        None, X_sub, y, None, sub_spec, alpha, lipschitz, lams, valid, beta0,
+        tol, gap_scale, max_iter=max_iter, check_every=check_every,
+        use_kernels=use_kernels, graphs=graphs,
+        certify=lambda rho: cert_sgl(ops, Xs, specs, rho, alpha, use_kernels))
+
+
+def sweep_nn_core_feat(Xs, X_sub, y, lipschitz, lams, valid, beta0, tol,
+                       gap_scale: float, *, ops, max_iter: int,
+                       check_every: int, use_kernels: bool):
+    from ..distributed.feature_shard import cert_nn
+    return sweep_nn_core(
+        None, X_sub, y, lipschitz, lams, valid, beta0, tol, gap_scale,
+        max_iter=max_iter, check_every=check_every, use_kernels=use_kernels,
+        certify=lambda rho: cert_nn(ops, Xs, rho, use_kernels))
+
+
+def _feature_plan(feature_shards, p: int, spec: Optional[GroupSpec]):
+    """(partition, executor) for ``feature_shards > 1`` whose degraded
+    shard count stays above 1, else (None, None)."""
+    if not feature_shards or int(feature_shards) <= 1:
+        return None, None
+    from ..distributed import feature_shard as _fs
+    fshard = _fs.plan_feature_shards(int(feature_shards), p, spec)
+    if fshard.n_shards <= 1:
+        return None, None
+    return fshard, _fs.feature_ops(
+        fshard.n_shards, _fs.resolve_feature_mesh(fshard.n_shards))
+
+
 def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
                      n_lambdas: int = 100, min_ratio: float = 0.01,
                      screen: str = "tlfre", tol=1e-9, max_iter: int = 20000,
@@ -344,6 +413,7 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
                      use_kernels: Optional[bool] = None,
                      min_bucket: int = 64, min_group_bucket: int = 16,
                      margin: float = 0.125, chunk_init: int = 8,
+                     feature_shards: int = 0,
                      compile_keys: Optional[set] = None,
                      fista_graphs: Optional[dict] = None,
                      loss=SQUARED) -> PathResult:
@@ -361,6 +431,9 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
 
     ``use_kernels=True`` with a float64 problem raises ``TypeError``: the
     float32 kernels would void the float64 exactness of the screen.
+    ``feature_shards > 1`` runs the screens and the certification over a
+    group-aligned column partition (see the module docstring); it takes
+    the squared loss without feature weights, else ``ValueError``.
     ``compile_keys`` is an optional persistent set of sweep-shape keys and
     ``fista_graphs`` an optional persistent cache of captured FISTA blocks
     (both owned by ``SGLSession``)."""
@@ -383,18 +456,46 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     kernels = _kernels_active(use_kernels, dtype, dev)
     # the fused group statistics take one l1 threshold
     fused_screen = kernels and spec.feature_weights is None
+    if feature_shards and int(feature_shards) > 1 and (
+            not squared or spec.feature_weights is not None):
+        raise ValueError(
+            "feature_shards requires squared loss and no adaptive feature "
+            "weights (the sharded cert/spec stacking does not carry them)")
+    fshard, fops = _feature_plan(feature_shards, p, spec)
 
     t0 = time.perf_counter()
     r0 = loss.residual_at_zero(y)
-    xty = X.T @ r0
-    lam_max_t, g_star = lambda_max_sgl(spec, xty, alpha)
-    lam_max = float(lam_max_t)
-    col_n = column_norms(X)
-    if specnorm_method == "power":
-        gspec = group_spectral_norms(X, spec)
+    if fshard is not None:
+        from ..distributed import feature_shard as _fs
+        Xs = fops.blocks(fshard, X)
+        specs_s = fops.local(fshard.specs)
+        xty_s = _fs.sharded_xtv(fops, Xs, y)
+        xty_np = fshard.unshard_features(fops.gather(xty_s))
+        xty = torch.as_tensor(xty_np, device=dev)
+        lam_max_t, g_star = lambda_max_sgl(spec, xty, alpha)
+        lam_max = float(lam_max_t)
+        col_n_s = _fs.sharded_column_norms(fops, Xs)
+        if specnorm_method == "power":
+            gspec_s = _fs.sharded_group_spectral_norms(fops, Xs, specs_s)
+        else:
+            gspec_s = _fs.sharded_group_frobenius_norms(fops, Xs, specs_s)
+        # the Theorem-15 boundary normal X w*: w* lives on the argmax group
+        # only, so X w* is one partial-GEMV sum across the blocks
+        w_s = shrink(_fs.sharded_xtv(fops, Xs, y / lam_max))
+        gid_s = fops.scatter(fshard, spec.group_ids + 1) - 1   # pads -> -1
+        n_boundary = _fs.sharded_fit(
+            fops, Xs, torch.where(gid_s == g_star, w_s, 0.0))
+        L_full = None          # only the full-bucket fallback needs it
     else:
-        gspec = group_frobenius_norms(X, spec)
-    L_full = spectral_norm(X) ** 2
+        xty = X.T @ r0
+        lam_max_t, g_star = lambda_max_sgl(spec, xty, alpha)
+        lam_max = float(lam_max_t)
+        col_n = column_norms(X)
+        if specnorm_method == "power":
+            gspec = group_spectral_norms(X, spec)
+        else:
+            gspec = group_frobenius_norms(X, spec)
+        L_full = spectral_norm(X) ** 2
     _sync(dev)
     setup_time = time.perf_counter() - t0
 
@@ -418,7 +519,11 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
     gap_scale = loss.gap_scale_host(y)
 
     theta_bar = r0 / lam_max            # exact dual at lam_max (Thm 8)
-    c_prev = xty / lam_max              # X^T theta_bar
+    if fshard is not None:
+        c_prev_s = xty_s / lam_max      # stacked (n_local, p_shard)
+        c_prev = xty_np / lam_max       # host view for the margin ranking
+    else:
+        c_prev = xty / lam_max          # X^T theta_bar
     lam_bar = lam_max
     beta_dev = torch.zeros(p, dtype=dtype, device=dev)   # Gap-Safe only
     beta_full = np.zeros(p)
@@ -436,6 +541,27 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         ts = time.perf_counter()
         if screen == "none":
             fk_np = np.ones((J - j, p), dtype=bool)
+        elif fshard is not None:
+            # the boundary normal at lam_max was computed sharded in setup
+            at_max = lam_bar >= lam_max * (1.0 - 1e-12)
+            n_vec = n_boundary if at_max else y / lam_bar - theta_bar
+            _, fk_s, _ = tlfre_screen_grid_feat(
+                fops, Xs, specs_s, y, alpha, rem, theta_bar, n_vec, col_n_s,
+                gspec_s, safety=safety, use_kernels=fused_screen)
+            if screen == "gapsafe":
+                beta_s = fops.scatter(fshard, torch.as_tensor(
+                    beta_full, dtype=dtype, device=dev))
+                radii = gap_safe_grid_radii(
+                    y, rem, theta_bar, y - _fs.sharded_fit(fops, Xs, beta_s),
+                    sgl_penalty(spec, beta_dev, alpha)) * (1.0 + safety)
+                _, fk_dyn_s = gap_safe_screen_grid_feat(
+                    fops, specs_s, alpha, c_prev_s, radii, col_n_s, gspec_s,
+                    use_kernels=fused_screen)
+                fk_s = fk_s & fk_dyn_s
+            fk_np = fshard.unshard_features(
+                fops.gather(fk_s))[:L_rem]           # one host read
+            stats.n_screens += 1
+            stats.n_pallas_screens += int(fused_screen)
         elif not squared:
             # no Theorem-12 ball: the Gap-Safe ball around the latest
             # certified dual is the only safe rule
@@ -477,7 +603,11 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
                  else len(row_counts))
             lam_bar = float(lambdas[j + k - 1])
             theta_bar = r0 / lam_bar
-            c_prev = xty / lam_bar
+            if fshard is not None:
+                c_prev_s = xty_s / lam_bar
+                c_prev = xty_np / lam_bar
+            else:
+                c_prev = xty / lam_bar
             beta_dev = torch.zeros(p, dtype=dtype, device=dev)
             beta_full = np.zeros(p)
             j += k
@@ -490,8 +620,9 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         S = _expand_set(base, fk_np, p_b)
         g_S = np.unique(gid[S])
         g_b = min(_bucket(len(g_S) + 2, min_group_bucket), G + 1)
-        margin_fill_sgl(S, c_prev.cpu().numpy(), gid, sizes_np, weights_np,
-                        p_b, g_b, fw_np)
+        margin_fill_sgl(S, c_prev if fshard is not None
+                        else c_prev.cpu().numpy(), gid, sizes_np,
+                        weights_np, p_b, g_b, fw_np)
 
         m = min(J - j, spec_m)
 
@@ -499,6 +630,8 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         ts = time.perf_counter()
         if S.all():
             sub_spec, col_idx, col_dev = spec, np.arange(p), None
+            if L_full is None:
+                L_full = spectral_norm(X) ** 2
             X_sub, L_sub = X, L_full
             p_b, g_b = p, G
         else:
@@ -516,19 +649,36 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
             [lam_chunk, np.full(len2 - m, lam_chunk[-1])])
         valid = np.arange(len2) < m
         # the reference's compile key: every dim its jit cache
-        # discriminates on, so n_compilations counts the same shapes
-        key = ("sgl", N, p, G, str(dtype), max_iter, check_every,
-               kernels, p_b, sub_spec.num_groups, sub_spec.max_size, len2,
-               loss.name)
+        # discriminates on, so n_compilations counts the same shapes; the
+        # sharded key carries the shard count and whether a process group
+        # runs the blocks
+        if fshard is not None:
+            key = ("sgl-feat", fshard.n_shards, N, p, G, str(dtype),
+                   max_iter, check_every, fops.group is not None, kernels,
+                   p_b, sub_spec.num_groups, sub_spec.max_size, len2,
+                   loss.name)
+        else:
+            key = ("sgl", N, p, G, str(dtype), max_iter, check_every,
+                   kernels, p_b, sub_spec.num_groups, sub_spec.max_size,
+                   len2, loss.name)
         if key not in seen_keys:
             seen_keys.add(key)
             stats.n_compilations += 1
-        betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_sgl_core(
-            X, X_sub, y, spec, sub_spec, alpha, L_sub,
-            torch.as_tensor(lam_pad, dtype=dtype, device=dev), valid,
-            torch.as_tensor(beta0, dtype=dtype, device=dev), tol, gap_scale,
-            max_iter=max_iter, check_every=check_every, use_kernels=kernels,
-            graphs=graphs, loss=loss)
+        lams_d = torch.as_tensor(lam_pad, dtype=dtype, device=dev)
+        beta0_d = torch.as_tensor(beta0, dtype=dtype, device=dev)
+        if fshard is not None:
+            betas_b, thetas_b, cthetas_b, good_b, iters_b = \
+                sweep_sgl_core_feat(
+                    Xs, X_sub, y, specs_s, sub_spec, alpha, L_sub, lams_d,
+                    valid, beta0_d, tol, gap_scale, ops=fops,
+                    max_iter=max_iter, check_every=check_every,
+                    use_kernels=kernels, graphs=graphs)
+        else:
+            betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_sgl_core(
+                X, X_sub, y, spec, sub_spec, alpha, L_sub, lams_d, valid,
+                beta0_d, tol, gap_scale, max_iter=max_iter,
+                check_every=check_every, use_kernels=kernels, graphs=graphs,
+                loss=loss)
         good_np = np.zeros(m, dtype=bool)
         good_np[:len(good_b)] = good_b[:m]
         k = int(np.argmin(good_np)) if not good_np.all() else m
@@ -539,7 +689,11 @@ def sgl_path_batched(X, y, spec: GroupSpec, alpha, *, lambdas=None,
         stats.n_rejected += int(m - k)
         stats.fista_iters += int(sum(iters_b))
         theta_bar = thetas_b[k - 1]
-        c_prev = cthetas_b[k - 1]
+        if fshard is not None:
+            c_prev_s = cthetas_b[k - 1]
+            c_prev = fshard.unshard_features(fops.gather(c_prev_s))
+        else:
+            c_prev = cthetas_b[k - 1]
         betas_np = torch.stack(betas_b[:k]).cpu().numpy()
         solve_time += time.perf_counter() - ts
 
@@ -575,14 +729,15 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
                           safety: float = 0.0, check_every: int = 10,
                           use_kernels: Optional[bool] = None,
                           min_bucket: int = 64, margin: float = 0.125,
-                          chunk_init: int = 8,
+                          chunk_init: int = 8, feature_shards: int = 0,
                           compile_keys: Optional[set] = None) -> PathResult:
     """Batched nonnegative-Lasso path: whole-grid DPC screens, speculative
-    bucketed sweeps with per-row certification (the single-device branch of
-    the reference).  ``screen='gapsafe'`` intersects the DPC screen with
-    the Gap-Safe ball around the latest certified dual.  ``use_kernels`` /
-    ``compile_keys`` as in ``sgl_path_batched``; the only kernel on this
-    path is the ``xtv`` certification GEMV."""
+    bucketed sweeps with per-row certification.  ``screen='gapsafe'``
+    intersects the DPC screen with the Gap-Safe ball around the latest
+    certified dual.  ``use_kernels`` / ``feature_shards`` /
+    ``compile_keys`` as in ``sgl_path_batched`` (the partition is
+    singleton-column: equal blocks of the largest shard count that divides
+    p); the only kernel on this path is the ``xtv`` certification GEMV."""
     if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
     if use_kernels and X.dtype == torch.float64:
@@ -593,13 +748,26 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
     dev, dtype = X.device, X.dtype
     N, p = X.shape
     kernels = _kernels_active(use_kernels, dtype, dev)
+    fshard, fops = _feature_plan(feature_shards, p, None)
 
     t0 = time.perf_counter()
-    xty = X.T @ y
-    lam_max_t, i_star = lambda_max_nn(xty)
+    if fshard is not None:
+        from ..distributed import feature_shard as _fs
+        Xs = fops.blocks(fshard, X)
+        xty_s = _fs.sharded_xtv(fops, Xs, y)
+        xty_np = fshard.unshard_features(fops.gather(xty_s))
+        xty = torch.as_tensor(xty_np, device=dev)
+        lam_max_t, i_star = lambda_max_nn(xty)
+        col_n_s = _fs.sharded_column_norms(fops, Xs)
+        # the Theorem-21 boundary normal is the argmax column
+        x_star = X[:, int(i_star)]
+        L_full = None
+    else:
+        xty = X.T @ y
+        lam_max_t, i_star = lambda_max_nn(xty)
+        col_n = column_norms(X)
+        L_full = spectral_norm(X) ** 2
     lam_max = float(lam_max_t)
-    col_n = column_norms(X)
-    L_full = spectral_norm(X) ** 2
     _sync(dev)
     if lam_max <= 0:
         raise ValueError("max_i <x_i, y> <= 0: nonnegative Lasso solution is "
@@ -620,7 +788,11 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
     gap_scale = SQUARED.gap_scale_host(y)
 
     theta_bar = y / lam_max
-    c_prev = xty / lam_max
+    if fshard is not None:
+        c_prev_s = xty_s / lam_max
+        c_prev = xty_np / lam_max
+    else:
+        c_prev = xty / lam_max
     lam_bar = lam_max
     beta_dev = torch.zeros(p, dtype=dtype, device=dev)
     beta_full = np.zeros(p)
@@ -636,6 +808,22 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         ts = time.perf_counter()
         if screen == "none":
             fk_np = np.ones((J - j, p), dtype=bool)
+        elif fshard is not None:
+            at_max = lam_bar >= lam_max * (1.0 - 1e-12)
+            n_vec = x_star if at_max else y / lam_bar - theta_bar
+            fk_s, _ = dpc_screen_grid_feat(fops, Xs, y, rem, theta_bar,
+                                           n_vec, col_n_s, safety=safety)
+            if screen == "gapsafe":
+                beta_s = fops.scatter(fshard, torch.as_tensor(
+                    beta_full, dtype=dtype, device=dev))
+                radii = gap_safe_grid_radii(
+                    y, rem, theta_bar, y - _fs.sharded_fit(fops, Xs, beta_s),
+                    torch.sum(beta_dev)) * (1.0 + safety)   # beta >= 0
+                fk_s = fk_s & gap_safe_screen_grid_nn_feat(fops, c_prev_s,
+                                                           radii, col_n_s)
+            fk_np = fshard.unshard_features(
+                fops.gather(fk_s))[:L_rem]           # one host read
+            stats.n_screens += 1
         else:
             n_vec = normal_vector_nn(X, y, lam_bar, lam_max, theta_bar,
                                      i_star)
@@ -656,7 +844,11 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
                  else len(row_counts))
             lam_bar = float(lambdas[j + k - 1])
             theta_bar = y / lam_bar
-            c_prev = xty / lam_bar
+            if fshard is not None:
+                c_prev_s = xty_s / lam_bar
+                c_prev = xty_np / lam_bar
+            else:
+                c_prev = xty / lam_bar
             beta_dev = torch.zeros(p, dtype=dtype, device=dev)
             beta_full = np.zeros(p)
             j += k
@@ -666,13 +858,16 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         n_base = int(base.sum())
         p_b = _feature_bucket(n_base, p, min_bucket, margin)
         S = _expand_set(base, fk_np, p_b)
-        margin_fill_nn(S, c_prev.cpu().numpy(), p_b)
+        margin_fill_nn(S, c_prev if fshard is not None
+                       else c_prev.cpu().numpy(), p_b)
 
         m = min(J - j, spec_m)
 
         ts = time.perf_counter()
         if S.all():
             col_idx, col_dev = np.arange(p), None
+            if L_full is None:
+                L_full = spectral_norm(X) ** 2
             X_sub, L_sub = X, L_full
             p_b = p
         else:
@@ -689,16 +884,29 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         lam_pad = np.concatenate(
             [lam_chunk, np.full(len2 - m, lam_chunk[-1])])
         valid = np.arange(len2) < m
-        key = ("nn", N, p, str(dtype), max_iter, check_every, kernels, p_b,
-               len2, "squared")
+        if fshard is not None:
+            key = ("nn-feat", fshard.n_shards, N, p, str(dtype), max_iter,
+                   check_every, fops.group is not None, kernels, p_b, len2,
+                   "squared")
+        else:
+            key = ("nn", N, p, str(dtype), max_iter, check_every, kernels,
+                   p_b, len2, "squared")
         if key not in seen_keys:
             seen_keys.add(key)
             stats.n_compilations += 1
-        betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_nn_core(
-            X, X_sub, y, L_sub,
-            torch.as_tensor(lam_pad, dtype=dtype, device=dev), valid,
-            torch.as_tensor(beta0, dtype=dtype, device=dev), tol, gap_scale,
-            max_iter=max_iter, check_every=check_every, use_kernels=kernels)
+        lams_d = torch.as_tensor(lam_pad, dtype=dtype, device=dev)
+        beta0_d = torch.as_tensor(beta0, dtype=dtype, device=dev)
+        if fshard is not None:
+            betas_b, thetas_b, cthetas_b, good_b, iters_b = \
+                sweep_nn_core_feat(
+                    Xs, X_sub, y, L_sub, lams_d, valid, beta0_d, tol,
+                    gap_scale, ops=fops, max_iter=max_iter,
+                    check_every=check_every, use_kernels=kernels)
+        else:
+            betas_b, thetas_b, cthetas_b, good_b, iters_b = sweep_nn_core(
+                X, X_sub, y, L_sub, lams_d, valid, beta0_d, tol, gap_scale,
+                max_iter=max_iter, check_every=check_every,
+                use_kernels=kernels)
         good_np = np.zeros(m, dtype=bool)
         good_np[:len(good_b)] = good_b[:m]
         k = int(np.argmin(good_np)) if not good_np.all() else m
@@ -707,7 +915,11 @@ def nn_lasso_path_batched(X, y, *, lambdas=None, n_lambdas: int = 100,
         stats.n_rejected += int(m - k)
         stats.fista_iters += int(sum(iters_b))
         theta_bar = thetas_b[k - 1]
-        c_prev = cthetas_b[k - 1]
+        if fshard is not None:
+            c_prev_s = cthetas_b[k - 1]
+            c_prev = fshard.unshard_features(fops.gather(c_prev_s))
+        else:
+            c_prev = cthetas_b[k - 1]
         betas_np = torch.stack(betas_b[:k]).cpu().numpy()
         solve_time += time.perf_counter() - ts
 

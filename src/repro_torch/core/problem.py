@@ -200,7 +200,11 @@ class Plan:
     batch_size: int = 10
     # ---- execution --------------------------------------------------------
     mesh: object = None
-    feature_shards: int = 0
+    feature_shards: int = 0      # > 1: group-aligned column sharding of X
+    #                              (distributed.feature_shard) for the
+    #                              screens and certificates: across a
+    #                              torch.distributed group of that many
+    #                              ranks, else stacked on one device
 
     def with_(self, **overrides) -> "Plan":
         """A copy with the given fields replaced (a Plan is immutable)."""
@@ -275,10 +279,6 @@ class Plan:
                 or self.feature_weights is not None):
             raise ValueError("adaptive weights are SGL-only (the nn_lasso "
                              "penalty has no group/feature weights)")
-        if int(self.feature_shards) > 1:
-            raise NotImplementedError(
-                "feature_shards > 1 is not ported yet (ROADMAP queue 1, "
-                "item 13)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")

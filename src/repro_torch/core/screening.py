@@ -299,6 +299,99 @@ def gap_safe_screen_grid_folds(spec: GroupSpec, alpha, c_thetas, radii,
                              col_norms_f, group_specnorms_f, use_kernels)
 
 
+# ---------------------------------------------------------------------------
+# Feature-sharded grid screens.
+#
+# Column-sharded counterparts of the grid screens above: ``ops`` is a
+# ``distributed.feature_shard.FeatureOps`` executor, ``Xs`` the local
+# ``(N, p_shard)`` blocks, ``specs`` their local GroupSpecs, and the
+# per-block norms carry a leading block axis.  The ball geometry (an
+# N-space computation) stays replicated; the GEMM and the Theorem-15/16
+# rules run block by block and fire no collective.  Pad columns are inert
+# (see ``distributed.feature_shard``), so the stacked keep masks gather back
+# to the single-device masks.  ``use_kernels`` runs each block's group
+# statistics through the kernel of the unsharded screen (``screen_norms``,
+# or ``screen_norms_folds`` for the fold stack): one launch a block.
+# ---------------------------------------------------------------------------
+
+def tlfre_screen_grid_feat(ops, Xs, specs, y, alpha, lambdas, theta_bar,
+                           n_vec, col_norms_s, group_specnorms_s,
+                           safety: float = 0.0, use_kernels: bool = False):
+    """Sharded ``tlfre_screen_grid``: returns (group_keep (n_local, L,
+    G_shard), feat_keep (n_local, L, p_shard), radii (L,))."""
+    centers, radii = grid_ball_geometry(y, lambdas, theta_bar, n_vec)
+    radii = radii * (1.0 + safety)
+
+    def body(loc, centers, radii):
+        Xb, spec_loc, cn, gs = loc
+        return _grid_rules(spec_loc, alpha, centers @ Xb, radii, cn, gs,
+                           use_kernels)[:2]
+
+    group_keep_s, feat_keep_s = ops.fmap(
+        body, (Xs, specs, col_norms_s, group_specnorms_s), centers, radii)
+    return group_keep_s, feat_keep_s, radii
+
+
+def gap_safe_screen_grid_feat(ops, specs, alpha, c_theta_s, radii,
+                              col_norms_s, group_specnorms_s,
+                              use_kernels: bool = False):
+    """Sharded ``gap_safe_screen_grid``: the fixed center arrives stacked
+    (``c_theta_s`` (n_local, p_shard), the certified duals the sharded
+    sweep emits).  Returns (group_keep (n_local, L, G_shard), feat_keep
+    (n_local, L, p_shard))."""
+    def body(loc, radii):
+        spec_loc, ct, cn, gs = loc
+        return gap_safe_screen_grid(spec_loc, alpha, ct, radii, cn, gs,
+                                    use_kernels)
+
+    return ops.fmap(body, (specs, c_theta_s, col_norms_s,
+                           group_specnorms_s), radii)
+
+
+def tlfre_screen_grid_folds_feat(ops, Xs, specs, Y, alpha, lambdas,
+                                 Theta_bar, N_vecs, col_norms_sf,
+                                 group_specnorms_sf, safety: float = 0.0,
+                                 mus_s=None, use_kernels: bool = False):
+    """Sharded ``tlfre_screen_grid_folds``: per-fold norms stacked
+    (n_local, K, p_shard) / (n_local, K, G_shard), ``mus_s`` the stacked
+    per-fold column means of centered CV.  Returns (group_keep (n_local, K,
+    L, G_shard), feat_keep (n_local, K, L, p_shard), radii (K, L))."""
+    K, L = lambdas.shape
+    N = Y.shape[1]
+    centers, radii = grid_ball_geometry_folds(Y, lambdas, Theta_bar, N_vecs)
+    radii = radii * (1.0 + safety)
+    csum = centers.sum(dim=2)                                     # (K, L)
+
+    def body(loc, centers, radii):
+        Xb, spec_loc, cn, gs = loc[:4]
+        C = (centers.reshape(K * L, N) @ Xb).reshape(K, L, Xb.shape[1])
+        if mus_s is not None:
+            C = C - csum[:, :, None] * loc[4][:, None, :]
+        return _grid_rules_folds(spec_loc, alpha, C, radii, cn, gs,
+                                 use_kernels)
+
+    sharded = (Xs, specs, col_norms_sf, group_specnorms_sf)
+    if mus_s is not None:
+        sharded = sharded + (mus_s,)
+    gk_s, fk_s = ops.fmap(body, sharded, centers, radii)
+    return gk_s, fk_s, radii
+
+
+def gap_safe_screen_grid_folds_feat(ops, specs, alpha, c_thetas_s, radii,
+                                    col_norms_sf, group_specnorms_sf,
+                                    use_kernels: bool = False):
+    """Sharded ``gap_safe_screen_grid_folds``: stacked per-fold centers
+    ``c_thetas_s`` (n_local, K, p_shard).  Returns (group_keep (n_local, K,
+    L, G_shard), feat_keep (n_local, K, L, p_shard))."""
+    def body(loc, radii):
+        spec_loc, ct, cn, gs = loc
+        return gap_safe_screen_grid_folds(spec_loc, alpha, ct, radii, cn,
+                                          gs, use_kernels)
+
+    return ops.fmap(body, (specs, c_thetas_s, col_norms_sf,
+                           group_specnorms_sf), radii)
+
+
 def gap_safe_grid_radii(y, lambdas, theta, resid, penalty):
     """sqrt(2 * gap_l) / lam_l per grid point, for a primal iterate beta
     with residual ``resid = y - X beta`` and penalty ``Omega(beta)`` (so

@@ -222,6 +222,7 @@ class SGLSession:
                       use_kernels=plan.use_kernels,
                       min_bucket=plan.min_bucket, margin=plan.margin,
                       chunk_init=plan.chunk_init,
+                      feature_shards=plan.feature_shards,
                       compile_keys=self.compile_keys)
         if prob.penalty == "sgl":
             res = sgl_path_batched(

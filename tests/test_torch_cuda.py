@@ -825,3 +825,71 @@ def test_server_on_the_card_stacks_folds_through_the_kernels(dev):
             assert sum(counts.values()) == 0
     for jid, r in out[torch.float32].items():
         _f32_within(r.coef, out[torch.float64][jid].coef)
+
+
+def _rows_certified(res):
+    """Rows a path certified: each segment's accepted rows, and the
+    failed row where it stopped early."""
+    return sum(k + (k < m) for _, _, m, k in res.stats.buckets)
+
+
+def test_sharded_path_on_the_card_launches_per_block(dev):
+    """``Plan(feature_shards=4)`` on the card (the stacked executor):
+    ``xtv`` once a block a certified row, ``screen_norms`` once a block a
+    screen, graphed ``sgl_prox`` once a FISTA iteration; the betas within
+    the float32 bar (1e-2 * max|beta|) of the same route with the kernels
+    off."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(4)
+    X = gen.standard_normal((60, 120)).astype(np.float32)
+    beta = np.zeros(120, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(60)).astype(np.float32)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-6, min_bucket=16,
+                  feature_shards=4)
+    for screen in ("tlfre", "gapsafe"):
+        sess = T.SGLSession(T.Problem.sgl(X, y, [6] * 20))
+        ops.reset_launch_counts()
+        res = sess.path(plan.with_(screen=screen))
+        counts = ops.launch_counts()
+        st = res.stats
+        per_screen = 2 if screen == "gapsafe" else 1
+        assert counts["xtv"] == 4 * _rows_certified(res) > 0, counts
+        assert counts["screen_norms"] == 4 * per_screen * st.n_screens > 0
+        assert counts["sgl_prox"] == st.fista_iters > 0
+        assert counts["screen_norms_folds"] == counts["dpc_screen_folds"] == 0
+        assert st.n_pallas_screens == st.n_screens
+        plain = sess.path(plan.with_(screen=screen, use_kernels=False))
+        assert np.abs(res.betas - plain.betas).max() <= \
+            1e-2 * np.abs(plain.betas).max()
+
+
+def test_sharded_cv_on_the_card_launches_per_block(dev):
+    """Sharded fold screens on the card: each stacked screen one
+    ``screen_norms_folds`` (SGL) or ``dpc_screen_folds`` (nonnegative
+    Lasso) launch a block; the fold betas within the float32 bar of the
+    same CV with the kernels off."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    gen = np.random.default_rng(5)
+    X = gen.standard_normal((60, 120)).astype(np.float32)
+    beta = np.zeros(120, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(60)).astype(np.float32)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=3, feature_shards=4)
+    for prob, kernel in ((T.Problem.sgl(X, y, [6] * 20),
+                          "screen_norms_folds"),
+                         (T.Problem.nn_lasso(X, y), "dpc_screen_folds")):
+        sess = T.SGLSession(prob)
+        ops.reset_launch_counts()
+        res = sess.cv(plan)
+        counts = ops.launch_counts()
+        st = res.stats
+        assert counts[kernel] == 4 * st.n_screens > 0, counts
+        assert st.n_pallas_screens == st.n_screens
+        assert counts["xtv"] > 0 and counts["screen_norms"] == 0
+        plain = sess.cv(plan.with_(use_kernels=False))
+        assert np.abs(res.fold_betas - plain.fold_betas).max() <= \
+            1e-2 * np.abs(plain.fold_betas).max()

@@ -236,7 +236,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("feature_shards", 2, "item 13"),
+    ("mesh", object(), "item 25"),
 ])
 def test_unported_plan_values_raise_not_implemented(field, value, item):
     X, y, sizes = make_problem()
@@ -251,6 +251,7 @@ def test_unported_plan_values_raise_not_implemented(field, value, item):
     ("loss", "logistic"),
     ("feature_weights", np.linspace(0.5, 2.0, 60)),
     ("group_weights", np.linspace(0.5, 2.0, 15)),
+    ("feature_shards", 3),
 ])
 def test_ported_plan_values_match_live_reference(field, value):
     """The plan values this port once refused now run, and match the
