@@ -79,9 +79,10 @@ Phases (each fails loudly, with a non-zero exit):
     path launches ``xtv`` once a screen and once a solved row,
     ``screen_norms`` once a screen (the one-ball (1, p) row) and
     ``sgl_prox`` once a FISTA iteration (graphed blocks); the
-    nonnegative Lasso ``xtv`` alone, as often; float64 no kernel.  A warm
-    second float32 call captures no graph; float32 against float64 as in
-    phase 3; the float64 legacy betas within 1e-2 * max|beta| of the
+    nonnegative Lasso ``xtv`` alone, as often; float64 no kernel, on
+    every fifth point of the grid (20 lambdas).  A warm second float32
+    call captures no graph; on those 20 points float32 against float64 as
+    in phase 3 and the float64 legacy betas within 1e-2 * max|beta| of the
     float64 batched paths of phases 3 and 5.  Wall, solve us per FISTA
     iteration, iterations and summed kept features are printed.
 15. Warm two-stage refinement, ``benchmarks/paper_tables.py:session_bench``
@@ -133,13 +134,35 @@ Phases (each fails loudly, with a non-zero exit):
     each: both ranks' betas equal each other's and the stacked run's bit
     for bit.  Each pair prints the card's peak allocation above what was
     allocated before the call.  Each kernel is then held against its plain
-    version at the sharded route's own inputs (phase 20's tolerances):
+    version at the sharded route's own inputs (phase 21's tolerances):
     ``xtv`` on a Synthetic-1 block and Table 2's widest block,
     ``screen_norms`` at the recorded screen shapes on a Synthetic-1 local
     spec and on the Table-2 block with the most pad columns (no group owns
     them; 1e30 and NaN are poisoned into them), ``screen_norms_folds`` and
     ``dpc_screen_folds`` at the sharded CVs' first per-block screen shapes.
-20. Each kernel against its plain PyTorch version on the card, at the
+20. The fold mesh, ``Plan(mesh=...)``, at Synthetic 1's full width
+    (float32, 20 lambdas unless said): ``make_fold_mesh(5)`` in one
+    process is a mesh of one, and SGL CV at K 5 under it equals
+    ``mesh=None`` bit for bit (per-fold betas, ``mean_mse``,
+    ``best_index``, ``EngineStats``, launches; ``shard_over_folds``
+    returns the sweep itself).  Two ``gloo`` ranks on the one card run
+    ``make_fold_mesh(4)``: SGL CV at K 4 (elastic) and NN CV at K 4 (10
+    lambdas); four run ``make_fold_feature_mesh(2, 2)``: SGL CV at K 4 (10
+    lambdas) with ``feature_shards=2``, one block a rank.  Every rank's
+    betas, MSE, selection and ``EngineStats`` equal the unsplit run's
+    (in this process; the stacked executor for the feature shards) bit for
+    bit; the mesh's tally has a split launch, split + unsplit launches =
+    launches and one gather a split launch; summed over the ranks of a
+    fold group, ``sgl_prox`` = FISTA iterations and ``xtv`` = the unsplit
+    run's (where a launch ran unsplit, which each rank of the group runs
+    whole, between once and d times these); each rank launches one screen
+    kernel a stacked screen.  Then the audits:
+    every session of phases 3-20 pays only sweep-shape keys and FISTA
+    graphs that ``repro_torch.analysis.compile_audit`` predicts for its
+    plans (each rank audits its own), the five kernels hold under 1e30
+    poison against their plain versions (``kernel_check.mask_coverage``),
+    and the float64 gate refuses the kernels.
+21. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -156,7 +179,7 @@ Phases (each fails loudly, with a non-zero exit):
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
    ``screen_norms`` on the legacy screen's (1, p) row.
-21. One JSON line ``{"kernels": [...]}``, then the last line
+22. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -165,10 +188,12 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -1381,7 +1406,8 @@ def legacy_phase(torch, T, res_sgl64, res_nn64, N=250, G=1000, n=10,
     certification), ``screen_norms`` once a screen (the (1, p) row),
     ``sgl_prox`` once a FISTA iteration, replayed from graphed blocks, and
     a warm second call that captures no graph.  Float32 nonnegative Lasso:
-    ``xtv`` alone, as often.  Float64 runs no kernel.  Bars: float32
+    ``xtv`` alone, as often.  Float64 runs no kernel, on every fifth point
+    of the float32 grid (20 lambdas).  Bars on those points: float32
     against float64 as ``compare_paths``; the float64 legacy betas within
     1e-2 * max|beta| of the float64 batched path's."""
     from repro_torch.data_synth import synthetic_nn, synthetic_sgl
@@ -1429,24 +1455,31 @@ def legacy_phase(torch, T, res_sgl64, res_nn64, N=250, G=1000, n=10,
                 f"{label}-f32-warm: the warm call captured a graph")
         require(np.array_equal(res_w.iters, res.iters),
                 f"{label}-f32-warm: iterations differ from the cold call's")
-        res64, counts64, _, _, _ = run_legacy(torch, sess64, plan,
-                                              f"{label}-f64")
-        require_no_kernel(counts64, f"{label}-f64")
+        # the float64 twin on every fifth grid point: each row is its
+        # lambda's certified optimum whatever the grid around it
+        lams = res.lambdas[::5]
+        res64, counts64, _, _, _ = run_legacy(
+            torch, sess64, plan.with_(lambdas=lams), f"{label}-f64-20")
+        require_no_kernel(counts64, f"{label}-f64-20")
+        res32 = dataclasses.replace(res, lambdas=lams,
+                                    betas=res.betas[::5],
+                                    iters=res.iters[::5])
         if kind == "sgl":
             objectives = spec_objectives(Xk, yk, sess.problem.spec, 1.0,
-                                         res.lambdas)
+                                         lams)
         else:
-            def objectives(betas, Xk=Xk, yk=yk, lambdas=res.lambdas):
+            def objectives(betas, Xk=Xk, yk=yk, lambdas=lams):
                 return nn_objectives(Xk, yk, betas, lambdas)
             objectives.gap_scale = 0.5 * float(np.dot(
                 yk.astype(np.float64), yk))
-        compare_paths(res, res64, plan, objectives, label)
-        dbeta = float(np.abs(res64.betas - batched64.betas).max())
+        compare_paths(res32, res64, plan, objectives, label)
+        dbeta = float(np.abs(res64.betas - batched64.betas[::5]).max())
         dbound = 1e-2 * float(np.abs(batched64.betas).max())
         say(f"[{label}] max|beta_legacy_f64 - beta_batched_f64| = "
             f"{dbeta:.3e} (bound 1e-2 * max|beta| = {dbound:.3e}); kept "
             f"features summed over rows: legacy {int(res.kept_features.sum())}"
-            f" (f32), {int(res64.kept_features.sum())} (f64); batched "
+            f" (f32), {int(res64.kept_features.sum())} (f64, every fifth "
+            f"row); batched "
             f"solver columns {int(batched64.kept_features.sum())} (f64)")
         require(dbeta <= dbound,
                 f"{label}: the legacy path disagrees with the batched one")
@@ -2017,43 +2050,20 @@ def two_ranks(torch, T, X, y, sizes, plan, world=2, timeout=300.0):
     equal the stacked executor's on the same plan bit for bit.  Both
     groups are ``gloo`` here (NCCL refuses two ranks on one card); a
     backend that refuses a CUDA tensor fails the phase."""
-    import multiprocessing as mp
-    import tempfile
     stacked = T.SGLSession(T.Problem.sgl(X, y, sizes)).path(
         plan.with_(feature_shards=world))
     torch.cuda.synchronize()
-    (ROOT / "build").mkdir(exist_ok=True)
     plan_kw = {f: getattr(plan, f) for f in (
         "alpha", "n_lambdas", "tol", "safety", "max_iter", "check_every")}
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_rank_path, args=(
-            r, world, f"{tmp}/rendezvous", tmp, plan_kw, X.shape[0],
-            len(sizes), sizes[0])) for r in range(world)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(timeout - (time.perf_counter() - t0), 0.0))
-        finally:
-            alive = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-        wall = time.perf_counter() - t0
-        codes = [p.exitcode for p in procs]
-        require(not alive, f"two-ranks: ranks {alive} still running after "
-                f"{timeout} s")
-        require(codes == [0] * world, f"two-ranks: rank exit codes {codes} "
-                f"(a rank's traceback is on stderr; a gloo refusal of a "
-                f"CUDA tensor ends here)")
-        betas = [np.load(f"{tmp}/rank{r}.npy") for r in range(world)]
-        info = []
-        for r in range(world):
-            with open(f"{tmp}/rank{r}.json") as f:
-                info.append(json.load(f))
+
+    def load(tmp, r):
+        with open(f"{tmp}/rank{r}.json") as f:
+            return np.load(f"{tmp}/rank{r}.npy"), json.load(f)
+    out, wall = run_ranks(_rank_path, world, (
+        plan_kw, X.shape[0], len(sizes), sizes[0]), load, "two-ranks",
+        timeout)
+    betas = [b for b, _ in out]
+    info = [i for _, i in out]
     say(f"[two-ranks] {world} gloo ranks on one card, {wall:.3f} s with "
         f"start-up; rank 0: rows certified {info[0]['rows']}, screens "
         f"{info[0]['n_screens']}, launches {json.dumps(info[0]['launches'])}"
@@ -2098,7 +2108,7 @@ def peak_run(torch, label, fn):
 def sharded_kernel_checks(torch, X1, spec1, sn1, X2, spec2, sn2, snf, dsf,
                           floor):
     """Each kernel on the card at the sharded route's own inputs, against
-    its plain version at phase 20's tolerances: ``xtv`` on Synthetic 1's
+    its plain version at phase 21's tolerances: ``xtv`` on Synthetic 1's
     first block and on Table 2's widest; ``screen_norms`` at the recorded
     first screen shapes on a Synthetic-1 local spec and on the Table-2
     block with the most pad columns (past the last group of the block's
@@ -2321,7 +2331,384 @@ def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
 
 
 # ---------------------------------------------------------------------------
-# phase 20: each kernel against its plain version, and its time
+# phase 20: the fold mesh, and the audits of every session
+# ---------------------------------------------------------------------------
+
+class KeyAudit:
+    """Records, for every ``SGLSession`` the smoke builds while it is
+    installed, each verb it ran and whether a refit ran on its graph cache
+    (``solve_sgl`` through ``repro_torch.api`` or ``repro_torch.core``
+    with the session's ``fista_graphs``: the estimators' refits and the
+    serving phase's solo references), so that ``check`` can hold the
+    sweep-shape keys and FISTA graphs it paid to
+    ``repro_torch.analysis.compile_audit``'s universes.  The wrappers only append references, so no audit work
+    falls inside a phase's timed window: the plans are resolved in
+    ``check``, and a session's key sets are copied there or, if the
+    session is collected first, by its finalizer.  It holds no session
+    alive."""
+    VERBS = ("path", "cv", "refine", "stability")
+
+    def __init__(self, T):
+        import repro_torch.api as api
+        self.cls, self.entries = T.SGLSession, []
+        self.saved = {v: getattr(self.cls, v) for v in self.VERBS}
+        for verb, fn in self.saved.items():
+            setattr(self.cls, verb, self._wrap(verb, fn))
+        self.solvers = {m: m.solve_sgl for m in (api, T)}
+        for m, fn in self.solvers.items():
+            m.solve_sgl = self._refit(fn)
+
+    @staticmethod
+    def _settle(entry, problem, keys, graphs):
+        from repro_torch.analysis import compile_audit as ca
+        entry.update(shape=ca.ProblemShape.of(problem), paid=set(keys),
+                     graphs=set(graphs))
+
+    def _entry(self, sess) -> dict:
+        entry = sess.__dict__.get("_key_audit")
+        if entry is None:
+            entry = sess._key_audit = dict(calls=[], refit=False,
+                                           session=weakref.ref(sess))
+            entry["fin"] = weakref.finalize(
+                sess, self._settle, entry, sess.problem, sess.compile_keys,
+                sess.fista_graphs)
+            entry["fin"].atexit = False
+            self.entries.append(entry)
+        return entry
+
+    def _wrap(self, verb, fn):
+        def call(sess, *args, **kw):
+            out = fn(sess, *args, **kw)
+            st = sess._last_cv if verb == "refine" else None
+            self._entry(sess)["calls"].append(
+                (verb, args, kw, sess.default_plan,
+                 None if st is None else (st.plan, st.result.lambdas)))
+            return out
+        return call
+
+    def _refit(self, fn):
+        def call(*args, graphs=None, **kw):
+            for e in self.entries:
+                sess = e["session"]()
+                if sess is not None and sess.fista_graphs is graphs:
+                    e["refit"] = True
+            return fn(*args, graphs=graphs, **kw)
+        return call
+
+    def close(self):
+        for verb, fn in self.saved.items():
+            setattr(self.cls, verb, fn)
+        for m, fn in self.solvers.items():
+            m.solve_sgl = fn
+
+    @staticmethod
+    def _runs(calls) -> list:
+        """(plan, kinds, n_folds) of each recorded verb, its plan resolved
+        as ``SGLSession._resolve`` does (the refined grid's plan for
+        ``refine``, which becomes the session's CV state)."""
+        runs = []
+        for verb, args, kw, default, refined in calls:
+            if verb == "refine":
+                plan, lambdas = refined
+                runs.append((plan.with_(lambdas=np.asarray(lambdas)),
+                             ("cv",), None))
+                continue
+            kw = dict(kw)
+            plan = args[0] if args else kw.pop("plan", None)
+            plan = default if plan is None else plan
+            if kw:
+                plan = plan.with_(**kw)
+            n_folds = plan.batch_size if verb == "stability" else None
+            runs.append((plan, ("path",) if verb == "path" else ("cv",),
+                         n_folds))
+        return runs
+
+    def check(self) -> tuple:
+        """(sessions, keys, graphs audited, findings).  Every session's
+        keys against the union of its runs' key universes, its graphs
+        against the union of their graph universes, with the full-design
+        refit's where a refit ran on the session's graph cache."""
+        from repro_torch.analysis import compile_audit as ca
+        findings, n_keys, n_graphs = [], 0, 0
+        for i, e in enumerate(self.entries):
+            e["fin"]()              # copies the keys of a live session
+            refit = ("refit",) if e["refit"] else ()
+            keys, graphs = set(), set()
+            for plan, kinds, n_folds in self._runs(e["calls"]):
+                keys |= ca.predict_keys(e["shape"], plan, kinds, n_folds)
+                graphs |= ca.predict_graph_keys(e["shape"], plan,
+                                                kinds + refit)
+            label = f"session {i} ({e['shape'].penalty}, p {e['shape'].p})"
+            findings += ca.verify_paid_keys(e["paid"], keys, label)
+            findings += ca.verify_paid_graphs(e["graphs"], graphs, label)
+            n_keys += len(e["paid"])
+            n_graphs += len(e["graphs"])
+        return len(self.entries), n_keys, n_graphs, findings
+
+
+def run_ranks(target, world, args, load, label, timeout=300.0):
+    """``target(rank, world, rendezvous, out_dir, *args)`` on ``world``
+    spawned ranks sharing the card (a ``gloo`` group, a ``file://``
+    rendezvous under ``build/``).  Requires every rank to exit 0 within
+    ``timeout``; kills the rest.  Returns ([load(out_dir, rank)], wall
+    seconds with start-up)."""
+    import multiprocessing as mp
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=target, args=(
+            r, world, f"{tmp}/rendezvous", tmp) + tuple(args))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(timeout - (time.perf_counter() - t0), 0.0))
+        finally:
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        require(not alive, f"{label}: ranks {alive} still running after "
+                f"{timeout} s")
+        require(codes == [0] * world, f"{label}: rank exit codes {codes} "
+                f"(a rank's traceback is on stderr; a gloo refusal of a "
+                f"CUDA tensor ends here)")
+        return [load(tmp, r) for r in range(world)], wall
+
+
+FOLD_STATS = ("n_segments", "n_screens", "n_pallas_screens",
+              "n_compilations", "n_rejected", "fista_iters")
+
+
+def fold_stats(res) -> dict:
+    st = res.stats
+    out = {f: int(getattr(st, f)) for f in FOLD_STATS}
+    out["buckets"] = [[int(v) for v in b] for b in st.buckets]
+    out["fold_sweeps"] = [int(v) for v in st.fold_sweeps]
+    return out
+
+
+def _rank_fold_cv(rank, world, init_file, out_dir, mesh_args, cases, N, G,
+                  n):
+    """One rank of a fold-mesh run (a spawned process): joins the ``gloo``
+    group, builds the mesh (``make_fold_mesh(K)`` or
+    ``make_fold_feature_mesh(K, S)``), runs each case's float32 CV on the
+    card under it with the counts reset just before, audits the session's
+    keys and graphs, and writes betas and counters to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import repro_torch.core as T
+    from repro_torch.analysis import compile_audit as ca
+    from repro_torch.data_synth import synthetic_nn, synthetic_sgl
+    from repro_torch.distributed import feature_shard as fs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = (M.make_fold_mesh(*mesh_args) if len(mesh_args) == 1
+                else M.make_fold_feature_mesh(*mesh_args))
+        out = {}
+        for label, penalty, plan_kw in cases:
+            if penalty == "sgl":
+                X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1,
+                                        gamma2=0.1, seed=1)
+                prob = T.Problem.sgl(X, y, [n] * G)
+            else:
+                X, y, _ = synthetic_nn(1, N=N, p=n * G, seed=1)
+                prob = T.Problem.nn_lasso(X, y)
+            sess = T.SGLSession(prob)
+            plan = T.Plan(mesh=mesh, **plan_kw)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            M.reset_fold_counts()
+            fs.reset_collective_counts()
+            t0 = time.perf_counter()
+            res = sess.cv(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            shape = ca.ProblemShape.of(prob)
+            found = ca.verify_paid_keys(
+                sess.compile_keys, ca.predict_keys(shape, plan, ("cv",)))
+            found += ca.verify_paid_graphs(
+                sess.fista_graphs, ca.predict_graph_keys(shape, plan,
+                                                         ("cv",)))
+            np.save(f"{out_dir}/{label}-rank{rank}.npy", res.fold_betas)
+            np.save(f"{out_dir}/{label}-mse-rank{rank}.npy", res.mean_mse)
+            out[label] = dict(
+                wall=wall, launches=ops.launch_counts(),
+                tally=M.fold_counts(), collectives=fs.collective_counts(),
+                stats=fold_stats(res), best_index=int(res.best_index),
+                coords=mesh.coords, findings=[str(f) for f in found])
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _load_fold_rank(cases):
+    def load(tmp, r):
+        with open(f"{tmp}/rank{r}.json") as f:
+            info = json.load(f)
+        for label, _, _ in cases:
+            info[label]["betas"] = np.load(f"{tmp}/{label}-rank{r}.npy")
+            info[label]["mean_mse"] = np.load(f"{tmp}/{label}-mse-rank{r}.npy")
+        return info
+    return load
+
+
+def _same_cv(got, ref, label):
+    """A mesh run's (betas, mean MSE, selection, counters) against the
+    unsplit run's: bit for bit."""
+    require(np.array_equal(got["betas"], ref.fold_betas),
+            f"{label}: fold betas differ from the unsplit run's (max "
+            f"{float(np.abs(got['betas'] - ref.fold_betas).max()):.3e})")
+    require(np.array_equal(got["mean_mse"], ref.mean_mse) and
+            got["best_index"] == ref.best_index,
+            f"{label}: mean MSE or selection differ from the unsplit run's")
+    require(got["stats"] == fold_stats(ref), f"{label}: EngineStats "
+            f"{got['stats']} differ from the unsplit run's "
+            f"{fold_stats(ref)}")
+
+
+def fold_mesh_phase(torch, T, card, N=250, G=1000, n=10):
+    """``Plan(mesh=...)`` on the card at Synthetic 1's full width: a mesh
+    of one in process (K 5, 20 lambdas) against no mesh; two ``gloo``
+    ranks on ``make_fold_mesh(4)`` (SGL CV K 4 at 20 lambdas, NN CV K 4 at
+    10) and four on ``make_fold_feature_mesh(2, 2)`` (SGL CV K 4 at 10
+    lambdas, ``feature_shards=2``), each against its unsplit run in this
+    process, bit for bit.  Returns the launches by route."""
+    from repro_torch.data_synth import synthetic_nn, synthetic_sgl
+    from repro_torch.launch import mesh as M
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    Xn, yn, _ = synthetic_nn(1, N=N, p=n * G, seed=1)
+    sizes = [n] * G
+    cv20 = dict(CV_PLAN, n_lambdas=20)
+    out = {}
+
+    def sgl():
+        return T.SGLSession(T.Problem.sgl(X, y, sizes))
+
+    # 1. a mesh of one: the sweep itself, every number unchanged
+    mesh1 = M.make_fold_mesh(5)
+
+    def probe(v):
+        return v
+    require(mesh1.size == 1 and mesh1.axis_names == ("fold",) and
+            M.shard_over_folds(probe, mesh1, (0,)) is probe,
+            "fold-mesh-one: make_fold_mesh(5) in one process is not a mesh "
+            "of one, or shard_over_folds wrapped the sweep")
+    a, counts_none, _, _ = run_cv(torch, sgl(), T.Plan(**cv20), "fold-mesh-none-k5")
+    M.reset_fold_counts()
+    b, counts_one, _, _ = run_cv(torch, sgl(), T.Plan(mesh=mesh1, **cv20),
+                         "fold-mesh-one-k5")
+    _same_cv(dict(betas=b.fold_betas, mean_mse=b.mean_mse,
+                  best_index=b.best_index, stats=fold_stats(b)), a,
+             "fold-mesh-one-k5")
+    require(counts_one == counts_none and M.fold_counts() == dict.fromkeys(
+        M.FOLD_TALLIES, 0), f"fold-mesh-one-k5: launches {counts_one} "
+            f"against {counts_none}, tally {M.fold_counts()}")
+    out["fold-mesh-one-k5"] = counts_one
+    say(f"[fold-mesh-one-k5] equal to mesh=None bit for bit: betas, "
+        f"mean_mse, best_index {b.best_index}, EngineStats, launches")
+
+    # the unsplit twins of the rank runs
+    k4 = dict(cv20, n_folds=4)
+    cases2 = [("sgl-k4", "sgl", k4),
+              ("nn-k4", "nn", dict(k4, n_lambdas=10))]
+    twin = {"sgl-k4": run_cv(torch, sgl(), T.Plan(**k4), "fold-k4-none"),
+            "nn-k4": run_cv(torch, T.SGLSession(T.Problem.nn_lasso(Xn, yn)),
+                            T.Plan(**cases2[1][2]), "fold-nn-k4-none")}
+    case4 = ("sgl-k4-feat2", "sgl", dict(k4, n_lambdas=10,
+                                         feature_shards=2))
+    twin[case4[0]] = run_cv(torch, sgl(), T.Plan(**case4[2]),
+                            "fold-k4-feat2-stacked")
+
+    # 2. two ranks on make_fold_mesh(4), 3. four on a 2 x 2 fold-feature
+    for world, mesh_args, cases in ((2, (4,), cases2),
+                                    (4, (2, 2), [case4])):
+        ranks, wall = run_ranks(_rank_fold_cv, world, (
+            mesh_args, cases, N, G, n), _load_fold_rank(cases),
+            f"fold-mesh-{world}-ranks")
+        S = 1 if len(mesh_args) == 1 else mesh_args[1]
+        for label, penalty, _ in cases:
+            ref, ref_counts = twin[label][0], twin[label][1]
+            tag = f"fold-mesh-{world}-ranks-{label}"
+            rows = [r[label] for r in ranks]
+            for r, info in enumerate(rows):
+                _same_cv(info, ref, f"{tag} rank {r}")
+                require(info["findings"] == [], f"{tag} rank {r}: "
+                        f"{info['findings']}")
+                require(info["tally"] == rows[0]["tally"],
+                        f"{tag}: the ranks' tallies differ")
+            t, st = rows[0]["tally"], rows[0]["stats"]
+            require(t["sharded"] >= 1 and
+                    t["sharded"] + t["unsharded"] == st["n_segments"] and
+                    t["all_gather"] == t["sharded"], f"{tag}: tally {t} "
+                    f"against {st['n_segments']} launches")
+            total = {k: sum(r["launches"][k] for r in rows)
+                     for k in rows[0]["launches"]}
+            screen = ("screen_norms_folds" if penalty == "sgl"
+                      else "dpc_screen_folds")
+            # the sweeps split over the fold axis and repeat over the
+            # feature axis; every rank screens, one block of S.  An
+            # unsplit launch runs on each of the d ranks of a fold group,
+            # so with one the sums lie between one and d times the split
+            lo = S
+            hi = S if t["unsharded"] == 0 else S * (world // S)
+            prox = st["fista_iters"] if penalty == "sgl" else 0
+            xtv = ref_counts["xtv"]
+            require(lo * prox <= total["sgl_prox"] <= hi * prox and
+                    lo * xtv <= total["xtv"] <= hi * xtv and
+                    all(r["launches"][screen] == st["n_screens"]
+                        for r in rows), f"{tag}: launches "
+                    f"{[r['launches'] for r in rows]} are not the split of "
+                    f"{ref_counts} ({st['fista_iters']} FISTA iterations, "
+                    f"{st['n_screens']} stacked screens)")
+            out[tag] = total
+            say(f"[{tag}] {world} gloo ranks on one card, mesh "
+                f"{mesh_args}: {wall:.3f} s with start-up; CV wall a rank "
+                f"{[round(r['wall'], 3) for r in rows]} s (unsplit "
+                f"{twin[label][2]:.3f} s); FISTA iterations "
+                f"{st['fista_iters']}; tally {json.dumps(t)}; launches a "
+                f"rank {[r['launches'] for r in rows]}; collectives a "
+                f"rank {[r['collectives'] for r in rows]}; betas equal "
+                f"to the unsplit run's bit for bit on every rank; {card}")
+    return out
+
+
+def audit_phase(audit):
+    """Every session of phases 3-20 against the compile audit's universes,
+    then the kernel audit on the card."""
+    from repro_torch.analysis import kernel_check
+    sessions, n_keys, n_graphs, found = audit.check()
+    say(f"[audit] {sessions} sessions: {n_keys} sweep-shape keys and "
+        f"{n_graphs} FISTA graphs paid, findings {len(found)}")
+    require(found == [], f"audit: {[str(f) for f in found[:5]]}")
+    errors = {}
+    found = kernel_check.mask_coverage("cuda", errors)
+    say(f"[audit] mask coverage on the card under 1e30 poison: "
+        f"max_abs_err {json.dumps(errors)}, findings {len(found)}")
+    require(found == [] and len(errors) == 5,
+            f"audit: mask coverage {[str(f) for f in found]}")
+    found = kernel_check.f64_gate()
+    require(found == [], f"audit: f64 gate {[str(f) for f in found]}")
+    say("[audit] f64 gate: the three grid screens refuse use_kernels=True "
+        "on float64")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -2729,6 +3116,7 @@ def main() -> int:
 
     card = environment(torch)
     build_kernels()
+    audit = KeyAudit(T)          # records every session of phases 3-20
     sess, res, counts, shapes, res64 = main_path(torch, T)
     sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
     counts_nn, res_nn64 = nn_path(torch, T)
@@ -2766,6 +3154,10 @@ def main() -> int:
     with timed_phase("feature-shards"):
         sharded, sharded_checks = feature_shard_phase(torch, T, res64)
     new_paths.update(sharded)
+    with timed_phase("fold-mesh"):
+        new_paths.update(fold_mesh_phase(torch, T, card))
+        audit.close()
+        audit_phase(audit)
     rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                          snf_shape, dsf_shape)
     for name, by_input in sharded_checks.items():

@@ -31,6 +31,17 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     with False to the launch's pow2 chunk length.  Every accepted row still
     certifies against its fold's full training problem.
 
+  * **The fold mesh** (``mesh=``, ``launch.mesh.make_fold_mesh`` or
+    ``make_fold_feature_mesh``) splits each launch's members across the
+    ranks of its 'fold' axis when the axis size divides the cohort
+    (``fold_shard_compatible``, checked for every launch, as elastic
+    cohorts change size); one ``all_gather`` then gives every rank the
+    whole cohort's outputs.  A cohort the axis does not divide runs whole
+    on every rank, with no collective.  Only the FISTA sweeps are split:
+    every rank builds the whole cohort's sub-designs and spectral norms,
+    computes the same screens from the same inputs and takes every
+    decision from data all ranks hold, so all ranks run one schedule.
+
   * **Elastic fold scheduling** (``schedule='elastic'``, the default):
     every fold carries its own speculative chunk length, and ready folds
     are grouped into cohorts of like chunk length, each its own launch.
@@ -57,11 +68,9 @@ K-fold CV solves the SAME lambda grid on K row subsets of one design:
     fold-stack kernels run on each block.
 
 A loss whose masked rows do not vanish (logistic) is refused with
-``NotImplementedError``, as in the reference.  Not ported yet, and refused
-with ``NotImplementedError``: a fold mesh (ROADMAP queue 1, item 25).
-``sgl_cv``, ``nn_lasso_cv`` and ``stability_selection`` are the
-reference's legacy shims over ``SGLSession.cv`` and
-``SGLSession.stability``.
+``NotImplementedError``, as in the reference.  ``sgl_cv``,
+``nn_lasso_cv`` and ``stability_selection`` are the reference's legacy
+shims over ``SGLSession.cv`` and ``SGLSession.stability``.
 """
 from __future__ import annotations
 
@@ -71,6 +80,8 @@ import time
 import numpy as np
 import torch
 
+from ..launch.mesh import (fold_shard_compatible, run_unsharded,
+                           shard_over_folds)
 from .dpc import dpc_screen_grid_folds, dpc_screen_grid_folds_feat
 from .fenchel import sgl_penalty, shrink
 from .groups import GroupSpec, group_sum
@@ -199,12 +210,6 @@ def _host(a) -> np.ndarray:
     return np.asarray(a, dtype=float)
 
 
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
-
-
 # ---------------------------------------------------------------------------
 # Fold-batched screens (one stacked GEMM per call)
 # ---------------------------------------------------------------------------
@@ -325,20 +330,32 @@ def _screen_folds_nn_feat(fops, Xs, Y, rem, lam_bars, lam_maxs, theta_bars,
 
 
 # ---------------------------------------------------------------------------
-# Fold sweeps: each member of a cohort through the single-fold sweep
+# Fold sweeps: each member of a cohort through the single-fold sweep, the
+# members split across the fold mesh
 # ---------------------------------------------------------------------------
 
-def _fold_sweep(kind: str, max_iter: int, check_every: int,
-                use_kernels: bool, *, graphs, loss=SQUARED):
-    """The fold-batched sweep of one cohort launch.  ``graphs`` is the
-    session's cache of captured SGL FISTA blocks (``None`` for the
-    nonnegative Lasso, which has no graphed route).
+_SGL_SWEEP_AXES = (None, 0, 0, None, 0, None, 0, 0, 0, 0, None, 0)
+_NN_SWEEP_AXES = (None, 0, 0, 0, 0, 0, 0, None, 0)
+
+
+def _fold_sweep(kind: str, mesh, n_folds: int, max_iter: int,
+                check_every: int, use_kernels: bool, *, graphs,
+                centered: bool = False, loss=SQUARED):
+    """The fold-batched sweep of one cohort launch of ``n_folds`` members.
+    ``graphs`` is the session's cache of captured SGL FISTA blocks
+    (``None`` for the nonnegative Lasso, which has no graphed route).
 
     Returns ``run(X, X_subs, Ys, ..., mus)`` that runs each member's sweep
     through the single-fold core (``sweep_sgl_core`` or ``sweep_nn_core``)
     and returns, per member, ``(betas, thetas, cthetas, good, iters)``: the
     rows it ran, with ``good`` (bool) and ``iters`` padded to the launch's
-    chunk length with False and 0, as the reference's dead rows are."""
+    chunk length with False and 0, as the reference's dead rows are.
+    ``run`` takes the reference's argument order, so ``_SGL_SWEEP_AXES`` /
+    ``_NN_SWEEP_AXES`` (and axis 0 for ``mus`` when ``centered``) mark its
+    member-batched arguments.  Over a ``mesh`` whose fold axis divides the
+    cohort, ``run`` splits the members across it
+    (``launch.mesh.shard_over_folds``); over one that does not, every rank
+    runs them all (``launch.mesh.run_unsharded``)."""
     kw = dict(max_iter=max_iter, check_every=check_every,
               use_kernels=use_kernels)
 
@@ -371,7 +388,12 @@ def _fold_sweep(kind: str, max_iter: int, check_every: int,
                     beta0s[t], tol, float(gap_scales[t]), **kw)
                 out.append((b, th, ct) + pad(good, its, len(valids[t])))
             return out
-    return run
+    axes = _SGL_SWEEP_AXES if kind == "sgl" else _NN_SWEEP_AXES
+    if centered:
+        axes = axes + (0,)
+    if fold_shard_compatible(mesh, n_folds):
+        return shard_over_folds(run, mesh, axes)
+    return run_unsharded(run, mesh)
 
 
 def _spectral_norms_f(X_subs: torch.Tensor) -> torch.Tensor:
@@ -445,8 +467,9 @@ class _FoldEngine:
 
     def __init__(self, X, masks_np, y_rows_np, lambdas, lam_max_np, xty_np,
                  *, tol, max_iter, safety, check_every, min_bucket, margin,
-                 kernels, screen_mode, stats, seen_keys):
+                 kernels, screen_mode, stats, seen_keys, mesh=None):
         self.X = X
+        self.mesh = mesh
         self.dev, self.dtype = X.device, X.dtype
         self.N, self.p = X.shape
         self.masks_np = masks_np
@@ -781,21 +804,22 @@ class _SGLFoldEngine(_FoldEngine):
         # the reference's compile key: every dim its jit cache
         # discriminates on, so n_compilations counts the same shapes
         key = ("sgl-folds", Ka, N, p, G, str(self.dtype), self.max_iter,
-               self.check_every, None, p_b, g_b, self.spec.max_size, len2,
-               self.centered, self.kernels, self.loss.name)
+               self.check_every, self.mesh, p_b, g_b, self.spec.max_size,
+               len2, self.centered, self.kernels, self.loss.name)
         if key not in self.seen_keys:
             self.seen_keys.add(key)
             self.stats.n_compilations += 1
         ks = [k for k, _, _, _ in cohort]
         k_rows = self._dev(ks, torch.int64)
-        runner = _fold_sweep("sgl", self.max_iter, self.check_every,
-                             self.kernels, loss=self.loss,
-                             graphs=self.graphs)
-        outputs = runner(
-            self.X, X_subs, self.Y[k_rows], self.spec, sub_specs, self.alpha,
-            L_subs, self._dev(lam_pads), valids, self._dev(beta0s), self.tol,
-            self.gap_scales[ks],
-            self.mus_d[k_rows] if self.centered else None)
+        runner = _fold_sweep("sgl", self.mesh, Ka, self.max_iter,
+                             self.check_every, self.kernels, loss=self.loss,
+                             graphs=self.graphs, centered=self.centered)
+        args = [self.X, X_subs, self.Y[k_rows], self.spec, sub_specs,
+                self.alpha, L_subs, self._dev(lam_pads), valids,
+                self._dev(beta0s), self.tol, self.gap_scales[ks]]
+        if self.centered:
+            args.append(self.mus_d[k_rows])
+        outputs = runner(*args)
         self.solve_time += time.perf_counter() - ts
         return _Launch(sweep=cohort, col_idxs=col_idxs, lam_pads=lam_pads,
                        outputs=outputs, p_b=p_b, g_b=g_b)
@@ -856,13 +880,14 @@ class _NNFoldEngine(_FoldEngine):
             beta0s[t, :len(col_idx)] = self.Beta[k][col_idx]
         L_subs = _spectral_norms_f(X_subs)
         key = ("nn-folds", Ka, N, p, str(self.dtype), self.max_iter,
-               self.check_every, None, p_b, len2, self.kernels, "squared")
+               self.check_every, self.mesh, p_b, len2, self.kernels,
+               "squared")
         if key not in self.seen_keys:
             self.seen_keys.add(key)
             self.stats.n_compilations += 1
         ks = [k for k, _, _, _ in cohort]
-        runner = _fold_sweep("nn", self.max_iter, self.check_every,
-                             self.kernels, graphs=None)
+        runner = _fold_sweep("nn", self.mesh, Ka, self.max_iter,
+                             self.check_every, self.kernels, graphs=None)
         outputs = runner(
             self.X, X_subs, self.Y[self._dev(ks, torch.int64)], L_subs,
             self._dev(lam_pads), valids, self._dev(beta0s), self.tol,
@@ -940,7 +965,6 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         raise NotImplementedError(
             f"fold-batched paths require a loss whose masked rows vanish; "
             f"{loss.name!r} does not support the masked-row embedding")
-    _refuse_unported(mesh)
     if int(feature_shards) > 1 and spec.feature_weights is not None:
         raise ValueError("feature_shards does not support adaptive feature "
                          "weights; drop one or the other")
@@ -988,7 +1012,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
     if centered:
         n_bound = n_bound - torch.sum(w_star * mus_d, dim=1)[:, None]
     n_bound = masks_d * n_bound
-    fshard, fops = _feature_plan(feature_shards, p, spec)
+    fshard, fops = _feature_plan(feature_shards, p, spec, mesh)
     _sync(dev)
     setup_time = time.perf_counter() - t0
 
@@ -999,7 +1023,7 @@ def sgl_fold_paths(X, y, spec: GroupSpec, alpha, masks, lambdas, *,
         xty_f.cpu().numpy().astype(float),
         tol=tol, max_iter=max_iter, safety=safety, check_every=check_every,
         min_bucket=min_bucket, margin=margin, kernels=kernels,
-        screen_mode=screen, stats=stats, seen_keys=seen_keys,
+        screen_mode=screen, stats=stats, seen_keys=seen_keys, mesh=mesh,
         spec=spec, alpha=alpha, Y=Y, masks_d=masks_d, col_n_f=col_n_f,
         gspec_f=gspec_f, lam_max_f=lam_max_f, n_bound=n_bound, mus_d=mus_d,
         mus64=mus64, min_group_bucket=min_group_bucket, fshard=fshard,
@@ -1030,7 +1054,6 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
     the all-zero path and drops out."""
     if screen not in ("dpc", "gapsafe", "none"):
         raise ValueError(f"unknown screen mode {screen!r}")
-    _refuse_unported(mesh)
     masks_np, y_rows_np, lambdas, kernels, masks_d, Y = _fold_inputs(
         X, y, masks, lambdas, schedule, use_kernels)
     dev = X.device
@@ -1044,7 +1067,7 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
     col_n_f = torch.sqrt(masks_d @ (X * X))
     lam_max_np = lam_max_f.cpu().numpy().astype(float)
     n_bound = masks_d * X[:, i_star_f].T                      # (K, N)
-    fshard, fops = _feature_plan(feature_shards, X.shape[1], None)
+    fshard, fops = _feature_plan(feature_shards, X.shape[1], None, mesh)
     _sync(dev)
     setup_time = time.perf_counter() - t0
 
@@ -1055,7 +1078,7 @@ def nn_fold_paths(X, y, masks, lambdas, *, screen: str = "dpc", tol=1e-9,
         xty_f.cpu().numpy().astype(float),
         tol=tol, max_iter=max_iter, safety=safety, check_every=check_every,
         min_bucket=min_bucket, margin=margin, kernels=kernels,
-        screen_mode=screen, stats=stats, seen_keys=seen_keys,
+        screen_mode=screen, stats=stats, seen_keys=seen_keys, mesh=mesh,
         Y=Y, masks_d=masks_d, col_n_f=col_n_f, lam_max_f=lam_max_f,
         n_bound=n_bound, fshard=fshard, fops=fops)
     if init is not None:

@@ -392,15 +392,23 @@ def sweep_nn_core_feat(Xs, X_sub, y, lipschitz, lams, valid, beta0, tol,
         certify=lambda rho: cert_nn(ops, Xs, rho, use_kernels))
 
 
-def _feature_plan(feature_shards, p: int, spec: Optional[GroupSpec]):
+def _feature_plan(feature_shards, p: int, spec: Optional[GroupSpec],
+                  mesh=None):
     """(partition, executor) for ``feature_shards > 1`` whose degraded
-    shard count stays above 1, else (None, None)."""
+    shard count stays above 1, else (None, None).  A fold-feature ``mesh``
+    whose feature axis has as many ranks as the partition has blocks runs
+    them over this rank's feature group; otherwise a world of exactly that
+    many ranks does, else the stacked executor."""
     if not feature_shards or int(feature_shards) <= 1:
         return None, None
     from ..distributed import feature_shard as _fs
     fshard = _fs.plan_feature_shards(int(feature_shards), p, spec)
     if fshard.n_shards <= 1:
         return None, None
+    if (getattr(mesh, "feature_group", None) is not None
+            and mesh.shape.get("feature") == fshard.n_shards):
+        return fshard, _fs.feature_ops(fshard.n_shards, mesh.feature_group,
+                                       mesh.feature_host_group)
     return fshard, _fs.feature_ops(
         fshard.n_shards, _fs.resolve_feature_mesh(fshard.n_shards))
 

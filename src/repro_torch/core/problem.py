@@ -268,8 +268,7 @@ class Plan:
                              "nonnegativity geometry)")
 
     def validate(self, problem: Problem) -> None:
-        """The reference's validation, then a refusal of what the verbs of
-        this port cannot run yet."""
+        """The reference's validation."""
         loss = self.resolved_loss(problem.loss)
         if problem.penalty == "nn_lasso" and loss != "squared":
             raise ValueError("nn_lasso supports only the squared loss")
@@ -279,9 +278,6 @@ class Plan:
                 or self.feature_weights is not None):
             raise ValueError("adaptive weights are SGL-only (the nn_lasso "
                              "penalty has no group/feature weights)")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a fold mesh is not ported yet (ROADMAP queue 1, item 25)")
         if self.use_kernels and problem.dtype == torch.float64:
             from .screening import _require_f32_for_pallas
             _require_f32_for_pallas(problem.dtype)

@@ -363,14 +363,15 @@ class FeatureOps:
 _HOST_GROUPS: dict = {}
 
 
-def feature_ops(n_shards: int, group=None) -> FeatureOps:
+def feature_ops(n_shards: int, group=None, host_group=None) -> FeatureOps:
     """The executor for ``n_shards`` blocks over ``group`` (``None``:
-    stacked).  A group whose backend is not ``gloo`` gets a ``gloo`` group
-    of the same ranks for the host gathers, built at its first use (a
-    collective call that every rank makes at the same point) and kept for
-    the group's later calls."""
-    host = None
-    if group is not None:
+    stacked).  ``host_group`` carries the host gathers (a fold-feature
+    mesh builds its own); without it, a group whose backend is not
+    ``gloo`` gets a ``gloo`` group of the same ranks, built at its first
+    use (a collective call that every rank makes at the same point) and
+    kept for the group's later calls."""
+    host = host_group
+    if group is not None and host is None:
         import torch.distributed as dist
         if dist.get_backend(group) == "gloo":
             host = group

@@ -1,8 +1,136 @@
 """Process groups of the port's multi-device routes (the counterpart of
-``repro.launch.mesh``).  Only the feature group is ported; the fold mesh
-(``make_fold_mesh``, ``make_fold_feature_mesh``, ``fold_shard_compatible``,
-``shard_over_folds``) waits for ROADMAP queue 1, item 25."""
+``repro.launch.mesh``) on ``torch.distributed``.
+
+* The feature group (``make_feature_mesh``): one column block a rank, for
+  ``Plan(feature_shards=S)``.
+* The fold mesh (``make_fold_mesh``, ``make_fold_feature_mesh``,
+  ``fold_axis_size``, ``fold_shard_compatible``, ``shard_over_folds``):
+  K-fold model selection with each fold cohort split across ranks.  A
+  ``FoldMesh`` plays the part of the reference's ``jax.sharding.Mesh``:
+  ``axis_names``, ``shape`` and ``size`` read as a mesh's do, and this
+  rank's process groups ride along.
+
+Where the reference's single controller leaves devices out of a mesh,
+SPMD ranks cannot sit idle unnoticed: a world larger than the mesh is
+refused with ``ValueError`` (see ``make_fold_mesh``).
+
+Every process group is built by every rank in the same order (a
+``new_group`` call is collective).  The fold group gathers host copies of
+the sweep outputs, so it is a ``gloo`` group whatever the default
+backend; the feature group uses the default backend, with a ``gloo`` twin
+for its host gathers when that backend is not ``gloo``.
+
+Not ported: ``make_production_mesh`` and ``make_local_mesh`` build the
+LM zoo's (data, model) meshes, and wait for it (ROADMAP item 15);
+``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only the XLA
+resource audit, which has no counterpart here (ROADMAP item 14).
+"""
 from __future__ import annotations
+
+FOLD_TALLIES = ("sharded", "unsharded", "all_gather")
+_COUNTS = dict.fromkeys(FOLD_TALLIES, 0)
+
+
+def fold_counts() -> dict:
+    """What the fold mesh did in this process since the last reset:
+    cohort launches split across the fold axis (``sharded``), each with
+    one ``all_gather``, and launches whose cohort the fold axis does not
+    divide (``unsharded``: every rank runs the whole cohort)."""
+    return dict(_COUNTS)
+
+
+def reset_fold_counts() -> None:
+    for name in FOLD_TALLIES:
+        _COUNTS[name] = 0
+
+
+def _world() -> tuple:
+    """(world size, this rank) of the default group; (1, 0) when
+    ``torch.distributed`` is not initialized."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+def _gloo_group(ranks):
+    """A ``gloo`` group of ``ranks``: the default group itself when it is
+    that group, else a new one (every rank must make this call)."""
+    import torch.distributed as dist
+    if (len(ranks) == dist.get_world_size()
+            and dist.get_backend() == "gloo"):
+        return dist.group.WORLD
+    return dist.new_group(list(ranks), backend="gloo")
+
+
+class FoldMesh:
+    """A fold mesh of ``torch.distributed`` ranks.
+
+    ``axis_names`` is ``("fold",)`` or ``("fold", "feature")``, ``shape``
+    maps each axis to its size and ``size`` is their product, as on a JAX
+    mesh.  Rank ``(f, s)`` of a 2-D mesh is global rank ``f * S + s``.
+    ``coords`` holds this rank's coordinates; ``fold_group`` the ranks
+    that share its feature coordinate (a ``gloo`` group, or ``None`` on a
+    mesh of one), ``feature_group`` / ``feature_host_group`` the ranks
+    that share its fold coordinate.
+
+    Meshes compare and hash by ``(axis_names, shape, ranks)``, so equal
+    meshes from repeated ``make_fold_mesh`` calls are one compile key."""
+
+    def __init__(self, axis_names, shape, ranks, coords, fold_group=None,
+                 feature_group=None, feature_host_group=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = {a: int(shape[a]) for a in self.axis_names}
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+        self.ranks = tuple(int(r) for r in ranks)
+        self.coords = dict(coords)
+        self.fold_group = fold_group
+        self.feature_group = feature_group
+        self.feature_host_group = feature_host_group
+
+    def _key(self) -> tuple:
+        return (self.axis_names, tuple(self.shape.items()), self.ranks)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, FoldMesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        return f"FoldMesh({self.shape}, ranks={self.ranks})"
+
+    def __deepcopy__(self, memo) -> "FoldMesh":
+        return self          # a handle on process groups, never copied
+
+
+def make_fold_mesh(n_folds: int) -> FoldMesh:
+    """1-D 'fold' mesh for K-fold model selection.
+
+    Its size ``d`` is the largest divisor of ``n_folds`` that is at most
+    the world size of the initialized default group, so every rank
+    carries the same number of folds; with no group initialized it is a
+    mesh of one, and the fold sweep runs unsplit (as on a one-device JAX
+    host).  A world larger than ``d`` raises ``ValueError``: SPMD ranks
+    cannot be left out of the mesh as the reference's single controller
+    leaves devices out, so run ``d`` ranks (a divisor of ``n_folds``)."""
+    world, rank = _world()
+    d = 1
+    for c in range(min(int(n_folds), world), 0, -1):
+        if n_folds % c == 0:
+            d = c
+            break
+    if d < world:
+        raise ValueError(
+            f"make_fold_mesh({n_folds}): the largest divisor of {n_folds} "
+            f"that fits {world} ranks is {d}, so {world - d} ranks would "
+            f"hold no fold; run a world whose size divides n_folds")
+    if d == 1:
+        return FoldMesh(("fold",), {"fold": 1}, (rank,), {"fold": 0})
+    return FoldMesh(("fold",), {"fold": d}, range(d), {"fold": rank},
+                    fold_group=_gloo_group(range(d)))
 
 
 def make_feature_mesh(n_shards: int):
@@ -16,9 +144,158 @@ def make_feature_mesh(n_shards: int):
     of another size is not used, not even a divisor of it."""
     if n_shards <= 1:
         return None
+    world, _ = _world()
+    if world != int(n_shards):
+        return None
     import torch.distributed as dist
-    if not (dist.is_available() and dist.is_initialized()):
-        return None
-    if dist.get_world_size() != int(n_shards):
-        return None
     return dist.group.WORLD
+
+
+def make_fold_feature_mesh(n_folds: int, n_shards: int):
+    """2-D (fold, feature) mesh: the fold axis ``d`` is the largest divisor
+    of ``n_folds`` above 1 that fits ``world // n_shards`` (as
+    ``make_fold_mesh``), the feature axis takes exactly ``n_shards``.
+    Returns ``None`` when the world cannot give a fold axis > 1; a world
+    larger than ``d * n_shards`` raises ``ValueError`` (see
+    ``make_fold_mesh``).
+
+    The fold axis splits the fold sweeps; the feature axis replicates them
+    and runs the sharded screens of ``Plan(feature_shards=n_shards)``
+    over each fold coordinate's feature group."""
+    if n_shards <= 1:
+        return make_fold_mesh(n_folds)
+    S = int(n_shards)
+    world, rank = _world()
+    d = 0
+    for c in range(min(int(n_folds), world // S), 1, -1):
+        if n_folds % c == 0:
+            d = c
+            break
+    if d == 0:
+        return None
+    if d * S < world:
+        raise ValueError(
+            f"make_fold_feature_mesh({n_folds}, {n_shards}): a {d} x {S} "
+            f"mesh leaves {world - d * S} of {world} ranks out; run "
+            f"{d * S} ranks")
+    import torch.distributed as dist
+    f, s = divmod(rank, S)
+    fold_group = feature_group = feature_host = None
+    for s2 in range(S):              # every rank builds every group
+        g = _gloo_group([f2 * S + s2 for f2 in range(d)])
+        if s2 == s:
+            fold_group = g
+    gloo = dist.get_backend() == "gloo"
+    for f2 in range(d):
+        ranks = [f2 * S + s2 for s2 in range(S)]
+        g = dist.new_group(ranks)
+        h = g if gloo else dist.new_group(ranks, backend="gloo")
+        if f2 == f:
+            feature_group, feature_host = g, h
+    return FoldMesh(("fold", "feature"), {"fold": d, "feature": S},
+                    range(d * S), {"fold": f, "feature": s},
+                    fold_group=fold_group, feature_group=feature_group,
+                    feature_host_group=feature_host)
+
+
+def fold_axis_size(mesh) -> int:
+    """Rank count along the 'fold' axis of ``mesh``.
+
+    On a 1-D fold mesh this is ``mesh.size``; on a 2-D folds x features mesh
+    only the 'fold' axis counts (the feature axis replicates the fold
+    sweep, it never splits the fold rows).  Meshes without a 'fold' axis
+    (including test doubles exposing only ``.size``) fall back to total
+    size, as in the reference."""
+    if mesh is None:
+        return 1
+    shape = getattr(mesh, "shape", None)
+    if shape is not None:
+        try:
+            if "fold" in shape:
+                return int(shape["fold"])
+        except TypeError:
+            pass
+    return int(getattr(mesh, "size", 1))
+
+
+def fold_shard_compatible(mesh, n_folds: int) -> bool:
+    """True when a fold-batched launch of ``n_folds`` members should split
+    them over ``mesh``: a 'fold' axis of more than one rank whose size
+    divides the member count.  On a 2-D folds x features mesh only the
+    fold-axis size matters.  The elastic fold scheduler re-checks this for
+    every cohort launch: cohort sizes change as folds diverge in pace."""
+    if mesh is None:
+        return False
+    d = fold_axis_size(mesh)
+    return d > 1 and n_folds % d == 0
+
+
+def _host(x):
+    """A sweep output with its tensors copied to the host (the gather
+    pickles them; the scheduler reads them there)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(v) for v in x)
+    return x
+
+
+def _gather_members(out: list, mesh) -> list:
+    """Every rank's list of per-member outputs, concatenated in fold-group
+    rank order: one ``all_gather`` on the fold group."""
+    import torch.distributed as dist
+    parts = [None] * fold_axis_size(mesh)
+    dist.all_gather_object(parts, [_host(m) for m in out],
+                           group=mesh.fold_group)
+    _COUNTS["all_gather"] += 1
+    return [m for part in parts for m in part]
+
+
+def _fold_members(args, example_args) -> int:
+    for a, ax in zip(args, example_args):
+        if ax == 0:
+            return len(a)
+    raise ValueError("no argument carries the fold axis")
+
+
+def shard_over_folds(fn, mesh, example_args):
+    """Split a fold-batched function's members across the mesh's 'fold'
+    axis.
+
+    ``fn(*args)`` returns one output per member of the cohort;
+    ``example_args`` marks which positional arguments carry the member
+    axis (0: sliced, tensors and Python lists alike; ``None``:
+    replicated).  Rank ``f`` of the fold group runs the contiguous block
+    ``[f * Ka/d, (f + 1) * Ka/d)``, then one ``all_gather`` over the fold
+    group gives every rank the whole cohort's outputs in member order, as
+    the host reads the global array after the reference's ``shard_map``.
+    Returns ``fn`` itself when the fold axis has one rank."""
+    d = fold_axis_size(mesh)
+    if mesh is None or d == 1:
+        return fn
+
+    def sharded(*args):
+        blk = _fold_members(args, example_args) // d
+        f = mesh.coords["fold"]
+        local = [a[f * blk:(f + 1) * blk] if ax == 0 else a
+                 for a, ax in zip(args, example_args)]
+        _COUNTS["sharded"] += 1
+        return _gather_members(fn(*local), mesh)
+    return sharded
+
+
+def run_unsharded(fn, mesh):
+    """A fold-batched launch whose cohort the fold axis does not divide:
+    every rank runs every member from its own identical inputs, as the
+    reference's unsharded launch runs whole on one device, so no rank
+    waits and no collective is needed (the screens are replicated the
+    same way).  The launch is counted under ``unsharded``.  Returns
+    ``fn`` itself when the fold axis has one rank."""
+    if mesh is None or fold_axis_size(mesh) == 1:
+        return fn
+
+    def unsharded(*args):
+        _COUNTS["unsharded"] += 1
+        return fn(*args)
+    return unsharded

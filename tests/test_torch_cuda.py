@@ -893,3 +893,51 @@ def test_sharded_cv_on_the_card_launches_per_block(dev):
         plain = sess.cv(plan.with_(use_kernels=False))
         assert np.abs(res.fold_betas - plain.fold_betas).max() <= \
             1e-2 * np.abs(plain.fold_betas).max()
+
+
+def test_fold_mesh_of_one_on_the_card_equals_no_mesh(dev):
+    """``Plan(mesh=make_fold_mesh(4))`` in one process on the card: a mesh
+    of one, so the sweep runs unsplit: fold betas, counters and launches
+    equal to the run without a mesh, bit for bit, and the session's keys
+    and graphs inside the audit's universes."""
+    import repro_torch.core as T
+    from repro_torch.analysis import compile_audit as ca
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (fold_counts, make_fold_mesh,
+                                         reset_fold_counts)
+    gen = np.random.default_rng(6)
+    X = gen.standard_normal((60, 120)).astype(np.float32)
+    beta = np.zeros(120, np.float32)
+    beta[:6] = 1.0
+    y = (X @ beta + 0.01 * gen.standard_normal(60)).astype(np.float32)
+    plan = T.Plan(n_lambdas=8, tol=1e-6, safety=1e-5, min_bucket=16,
+                  n_folds=4)
+    out = []
+    for mesh in (None, make_fold_mesh(4)):
+        sess = T.SGLSession(T.Problem.sgl(X, y, [6] * 20))
+        ops.reset_launch_counts()
+        reset_fold_counts()
+        res = sess.cv(plan.with_(mesh=mesh))
+        out.append((res, ops.launch_counts()))
+        shape = ca.ProblemShape.of(sess.problem)
+        assert ca.verify_paid_keys(sess.compile_keys, ca.predict_keys(
+            shape, plan.with_(mesh=mesh), kinds=("cv",))) == []
+        assert ca.verify_paid_graphs(sess.fista_graphs, ca.predict_graph_keys(
+            shape, plan, kinds=("cv",))) == []
+        assert len(sess.fista_graphs) > 0
+    assert fold_counts() == {"sharded": 0, "unsharded": 0, "all_gather": 0}
+    (a, launches_a), (b, launches_b) = out
+    np.testing.assert_array_equal(b.fold_betas, a.fold_betas)
+    assert b.stats.buckets == a.stats.buckets
+    assert launches_b == launches_a
+    assert launches_b["sgl_prox"] == b.stats.fista_iters > 0
+
+
+def test_mask_coverage_on_the_card_is_clean(dev):
+    """The five kernels under 1e30 in every masked slot, against their
+    plain versions (``repro_torch.analysis.kernel_check``)."""
+    from repro_torch.analysis import kernel_check
+    errors = {}
+    assert kernel_check.mask_coverage("cuda", errors) == []
+    assert len(errors) == 5
+    assert kernel_check.f64_gate() == []

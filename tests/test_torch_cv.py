@@ -229,8 +229,6 @@ def test_cv_float64_with_kernels_requested_raises():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, mesh=object())),
-     "item 25"),
     (lambda s: s.cv(T.Plan(n_lambdas=4, n_folds=3, loss="logistic")),
      "masked-row embedding"),
 ])

@@ -700,7 +700,3 @@ def test_refusals_match_reference():
         tcv.sgl_fold_paths(Xt, yt, tspec.reweighted(feature_weights=fw),
                            0.5, fold_masks(X.shape[0], 3), [1.0],
                            feature_shards=4)
-    # the fold mesh stays refused, naming its item
-    with pytest.raises(NotImplementedError, match="item 25"):
-        T.SGLSession(T.Problem.sgl(X, y, tspec, device="cpu")).cv(
-            T.Plan(mesh=object(), feature_shards=4))

@@ -235,16 +235,6 @@ def test_default_device_without_cuda_raises(monkeypatch):
         T.GroupSpec.from_sizes(sizes)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("mesh", object(), "item 25"),
-])
-def test_unported_plan_values_raise_not_implemented(field, value, item):
-    X, y, sizes = make_problem()
-    sess = T.SGLSession(T.Problem.sgl(X, y, sizes, device="cpu"))
-    with pytest.raises(NotImplementedError, match=item):
-        sess.path(T.Plan(n_lambdas=4).with_(**{field: value}))
-
-
 @pytest.mark.parametrize("field,value", [
     ("engine", "legacy"),
     ("screen", "gapsafe"),
