@@ -59,18 +59,19 @@ Phases (each fails loudly, with a non-zero exit):
    row solved and no other kernel: the fused prox and screen statistics
    take one l1 threshold), and group weights alone under TLFre (the
    kernel route of phase 3), float32; each against its float64 twin at
-   20 lambdas (a float32 call on the same plan).
+   10 lambdas (a float32 call on the same plan).
 10. Gap-Safe nonnegative-Lasso path: phase 5's data and plan (``xtv``).
 11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold and warm (two
     ``screen_norms_folds`` launches a stacked screen); float64 against
-    float32 at 20 lambdas.
+    float32 at 10 lambdas.
 12. Gap-Safe nonnegative-Lasso CV: phase 7's plan, cold and warm;
     float64 against float32 at 20 lambdas.
 13. Sparse-group logistic path: ``loss_logistic_bench`` of
     ``benchmarks/paper_tables.py`` at full size, ``screen='gapsafe'``
     against ``'none'``, float32 (graphed ``sgl_prox`` blocks, ``xtv``
     once per row solved, one ``screen_norms`` launch a Gap-Safe screen)
-    and float64.
+    and float64 (the unscreened float64 path, held only against the
+    screened one, at 20 lambdas).
     Phases 8-13 hold the bars of phases 3-7 (every accepted row
     certified, float32 against float64, no float32 discard nonzero in
     float64) and print their seconds and the float32 ``n_rejected``.
@@ -91,7 +92,7 @@ Phases (each fails loudly, with a non-zero exit):
     check_every 10, ``refine(factor=3)``, each against a cold ``cv`` over
     its refined grid (betas within 1e-2 * max|beta|, selection within one
     step; the FISTA iterations of both printed), a warm repeat of ``cv``
-    and both refinements (no compilation, no capture); float64 ``cv`` + ``refine`` at 20 lambdas against float32's
+    and both refinements (no compilation, no capture); float64 ``cv`` + ``refine`` at 10 lambdas against float32's
     on the same grids (the CV bars of phase 6); the nonnegative-Lasso
     ``refine`` on the Table-3 data at 20 lambdas.  Each stacked screen one
     ``screen_norms_folds`` (``dpc_screen_folds``) launch, every FISTA
@@ -99,7 +100,7 @@ Phases (each fails loudly, with a non-zero exit):
 16. Stability selection at the ``stability_selection`` shim's defaults
     (Synthetic 1, 50 half-row subsamples in batches of 10, 30 lambdas,
     float32): the kernels of phase 15, every row certified, a warm repeat
-    that compiles and captures nothing; float64 at 10 subsamples and 10
+    that compiles and captures nothing; float64 at 5 subsamples and 10
     lambdas on the same masks and grid: an activity decision differs only
     where float64's |beta| is within 1e-2 * max|beta| of ``active_tol``.
 17. The estimators of ``repro_torch.api`` at float32: ``SGLCV`` (K = 5,
@@ -122,7 +123,7 @@ Phases (each fails loudly, with a non-zero exit):
     share), held to phase 3's bars against its float64 path, every row
     certified; ``xtv`` = 8 x rows certified (the setup's GEMVs are plain),
     ``screen_norms`` = 8 x screens, ``sgl_prox`` = FISTA iterations.  A
-    float64 twin at 20 lambdas: kept sets equal to the unsharded float64
+    float64 twin at 10 lambdas: kept sets equal to the unsharded float64
     path's, betas within 1e-12, no kernel.  Table 2's shape with its last
     7 groups dropped (18 184 groups, 8 blocks of unequal width, each
     padded), 4 lambdas, sharded against unsharded (betas within 1e-2 *
@@ -134,7 +135,7 @@ Phases (each fails loudly, with a non-zero exit):
     each: both ranks' betas equal each other's and the stacked run's bit
     for bit.  Each pair prints the card's peak allocation above what was
     allocated before the call.  Each kernel is then held against its plain
-    version at the sharded route's own inputs (phase 21's tolerances):
+    version at the sharded route's own inputs (phase 22's tolerances):
     ``xtv`` on a Synthetic-1 block and Table 2's widest block,
     ``screen_norms`` at the recorded screen shapes on a Synthetic-1 local
     spec and on the Table-2 block with the most pad columns (no group owns
@@ -162,7 +163,31 @@ Phases (each fails loudly, with a non-zero exit):
     plans (each rank audits its own), the five kernels hold under 1e30
     poison against their plain versions (``kernel_check.mask_coverage``),
     and the float64 gate refuses the kernels.
-21. Each kernel against its plain PyTorch version on the card, at the
+21. The LM zoo's dense decoders (``repro_torch.models``, float32, TF32
+    off): (a) the example's ``gemma2-100m`` (12 layers, d 512, 8 / 4 heads,
+    d_ff 2048, vocabulary 32 768, window 256; B 8, S 256, lr 1e-3, SGL
+    lambda 3e-4) through ``python -m repro_torch.examples.sgl_pruned_lm``'s
+    ``main`` for ``LM_STEPS`` steps: the loss falls, the FFN channels' and
+    heads' group stats are printed, the train step's ms (the step alone),
+    tokens/s and the peak device memory; its pruning-threshold curve (``X =
+    eye(2048)``, 24 lambdas, tol 1e-8) in float32 launches ``xtv`` once a
+    row certified, ``screen_norms`` once a screen (``n_pallas_screens``) and
+    ``sgl_prox`` once a FISTA iteration through graphed blocks; its float64
+    twin (no kernel) keeps the same channels on every row.  (b)
+    ``gemma2-2b`` at its published width and depth (about 2.6 B
+    parameters) through ``repro_torch.launch.train.main``, 3 steps at B 2,
+    S 256, the SGL prox on: finite losses, exact zeros in the prox's
+    groups and none in ``wk``, step ms and peak memory printed.  (c)
+    ``repro_torch.launch.serve.main`` on ``gemma2-2b`` (batch 4, prompt 16,
+    gen 32, cache 128): warm p50 / p99 ms a step and tokens/s; then decode
+    against the full forward on the example's config at T 300 > window 256
+    with a 512-slot cache (the local ring wraps), within 2e-2 and 1e-4.
+    (d) The example's run to step 2 with a checkpoint, resumed to step 4:
+    the losses of steps 3-4 within 1e-5 relative of (a)'s.  Then ``xtv``,
+    ``screen_norms`` and ``sgl_prox`` against their plain versions at the
+    curve's shapes (X 2048 x 2048, C (32, 2048) with n_max 1, the busiest
+    prox bucket).
+22. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -179,7 +204,7 @@ Phases (each fails loudly, with a non-zero exit):
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
    ``screen_norms`` on the legacy screen's (1, p) row.
-22. One JSON line ``{"kernels": [...]}``, then the last line
+23. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -1156,7 +1181,7 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     20): group and feature weights under TLFre and Gap-Safe (``xtv`` for
     every row; the prox and the screen statistics run plainly), then
     group weights alone under TLFre (the kernel route of phase 3); each
-    with its float64 twin at 20 lambdas against a float32 call on the
+    with its float64 twin at 10 lambdas against a float32 call on the
     same plan."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
@@ -1168,17 +1193,17 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     sess64 = f64_session(torch, T, X, y, [n] * G)
 
     def f64_twin(plan, label, **kw):
-        # the float64 twin at 20 lambdas (its bars repeat the 100-lambda
+        # the float64 twin at 10 lambdas (its bars repeat the 100-lambda
         # float32 route's), against a float32 call on the same plan
-        plan20 = plan.with_(n_lambdas=20)
-        res20 = run_path(torch, sess, plan20, f"{label}-f32-20")[0]
-        res64, counts64, _, _ = run_path(torch, sess64, plan20,
+        plan10 = plan.with_(n_lambdas=10)
+        res10 = run_path(torch, sess, plan10, f"{label}-f32-10")[0]
+        res64, counts64, _, _ = run_path(torch, sess64, plan10,
                                          f"{label}-f64")
         require_no_kernel(counts64, f"{label}-f64")
         spec = sess._effective(plan)[1]
-        compare_paths(res20, res64, plan20, spec_objectives(
-            X, y, spec, 1.0, res20.lambdas), label)
-        require_discards(torch, T, sess, res20, res64, plan20, label,
+        compare_paths(res10, res64, plan10, spec_objectives(
+            X, y, spec, 1.0, res10.lambdas), label)
+        require_discards(torch, T, sess, res10, res64, plan10, label,
                          spec=spec, **kw)
 
     out = {}
@@ -1240,7 +1265,7 @@ def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     """Phase 6's plan with ``screen='gapsafe'``: two ``screen_norms_folds``
     launches a stacked screen (TLFre's K x L rows, Gap-Safe's K rows),
     ``sgl_prox`` on graphed blocks, ``xtv``; cold, warm; float64 against
-    float32 at 20 lambdas."""
+    float32 at 10 lambdas."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
     plan = T.Plan(**CV_PLAN, screen="gapsafe")
@@ -1265,15 +1290,15 @@ def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-cv-f32-warm")
     say(f"[gapsafe-sgl-cv] warm wall {warm_wall:.3f} s, n_rejected "
         f"{st.n_rejected}")
-    # the float64 twin at 20 lambdas (its bars repeat phase 6's at 100),
+    # the float64 twin at 10 lambdas (its bars repeat phase 6's at 100),
     # against a float32 call on the same plan
-    plan20 = plan.with_(n_lambdas=20)
-    res20, _, _, _ = run_cv(torch, sess, plan20, "gapsafe-sgl-cv-f32-20")
+    plan10 = plan.with_(n_lambdas=10)
+    res10, _, _, _ = run_cv(torch, sess, plan10, "gapsafe-sgl-cv-f32-10")
     sess64 = f64_session(torch, T, X, y, [n] * G)
-    res64, counts64, _, _ = run_cv(torch, sess64, plan20,
+    res64, counts64, _, _ = run_cv(torch, sess64, plan10,
                                    "gapsafe-sgl-cv-f64")
     require_no_kernel(counts64, "gapsafe-sgl-cv-f64")
-    compare_cv(res20, res64, "gapsafe-sgl-cv")
+    compare_cv(res10, res64, "gapsafe-sgl-cv")
     return counts
 
 
@@ -1309,7 +1334,8 @@ def logistic_phase(torch, T, N=250, G=1000, n=10):
     not depend on the loss, so FISTA replays graphed ``sgl_prox`` blocks;
     ``xtv`` certifies every row, and each Gap-Safe screen's statistics are
     one ``screen_norms`` launch on the center row.  The screened betas
-    within 1e-3 of the unscreened (the benchmark's own bar); float32
+    within 1e-3 of the unscreened (the benchmark's own bar; in float64
+    on a 20-lambda plan, where both float64 paths run again); float32
     against float64 and the f32 screen's discards as in the other
     phases."""
     from repro_torch.data_synth import synthetic_logistic
@@ -1320,29 +1346,36 @@ def logistic_phase(torch, T, N=250, G=1000, n=10):
     sess = T.SGLSession(T.Problem.sgl_logistic(X32, y32, [n] * G))
     sess64 = f64_session(torch, T, X, y, [n] * G, loss="logistic")
     res, launches = {}, {}
-    for dt, ss in (("f32", sess), ("f64", sess64)):
-        for screen in ("gapsafe", "none"):
+    for screen in ("gapsafe", "none"):
+        label = f"logistic-{screen}-f32"
+        r, counts, _, calls = run_path(torch, sess, plan.with_(screen=screen),
+                                       label)
+        res[screen, "f32"], launches[screen, "f32"] = r, counts
+        st = r.stats
+        require_graph_route(r, counts, calls, label)
+        require(counts["xtv"] == calls.rows > 0,
+                f"{label}: xtv launches {counts['xtv']} != rows solved "
+                f"{calls.rows}")
+        require(counts["screen_norms"] == st.n_pallas_screens
+                == st.n_screens,
+                f"{label}: screen_norms launches "
+                f"{counts['screen_norms']}, n_pallas_screens "
+                f"{st.n_pallas_screens}, screens {st.n_screens}")
+        require(counts["screen_norms_folds"] ==
+                counts["dpc_screen_folds"] == 0,
+                f"{label}: a fold kernel was launched")
+        warm_call(torch, sess, plan.with_(screen=screen), label)
+    # float64: the screened path on the plan, and both on a 20-lambda plan
+    for dt, p, screens in (("f64", plan, ("gapsafe",)),
+                           ("f64-20", plan.with_(n_lambdas=20),
+                            ("gapsafe", "none"))):
+        for screen in screens:
             label = f"logistic-{screen}-{dt}"
-            r, counts, _, calls = run_path(torch, ss,
-                                           plan.with_(screen=screen), label)
-            res[screen, dt], launches[screen, dt] = r, counts
-            if dt == "f64":
-                require_no_kernel(counts, label)
-                continue
-            st = r.stats
-            require_graph_route(r, counts, calls, label)
-            require(counts["xtv"] == calls.rows > 0,
-                    f"{label}: xtv launches {counts['xtv']} != rows solved "
-                    f"{calls.rows}")
-            require(counts["screen_norms"] == st.n_pallas_screens
-                    == st.n_screens,
-                    f"{label}: screen_norms launches "
-                    f"{counts['screen_norms']}, n_pallas_screens "
-                    f"{st.n_pallas_screens}, screens {st.n_screens}")
-            require(counts["screen_norms_folds"] ==
-                    counts["dpc_screen_folds"] == 0,
-                    f"{label}: a fold kernel was launched")
-            warm_call(torch, ss, plan.with_(screen=screen), label)
+            r, counts, _, _ = run_path(torch, sess64, p.with_(screen=screen),
+                                       label)
+            require_no_kernel(counts, label)
+            res[screen, dt] = r
+    for dt in ("f32", "f64-20"):
         agree = float(np.abs(res["gapsafe", dt].betas
                              - res["none", dt].betas).max())
         say(f"[logistic-{dt}] max|beta_gapsafe - beta_none| = {agree:.3e} "
@@ -1597,23 +1630,23 @@ def refine_phase(torch, T, N=250, G=1000, n=10):
     say(f"[refine] warm cv {walls[0]:.3f} s + refine {walls[1]:.3f} s + "
         f"refine by 3 {walls[2]:.3f} s")
 
-    # float64 reference at 20 lambdas: both dtypes on float64's coarse grid
+    # float64 reference at 10 lambdas: both dtypes on float64's coarse grid
     # and around float64's selection, so that the fine grids are equal
-    plan20 = plan.with_(n_lambdas=20)
+    plan10 = plan.with_(n_lambdas=10)
     sess64 = f64_session(torch, T, X, y, [n] * G)
     cv64, counts64, _, _ = run_counted(torch, "refine-cv-f64",
-                                       lambda: sess64.cv(plan20))
+                                       lambda: sess64.cv(plan10))
     ref64, counts64r, _, _ = run_counted(
         torch, "refine-f64", lambda: sess64.refine(
             around=cv64.best_lambda, factor=10.0))
     require_no_kernel(counts64, "refine-cv-f64")
     require_no_kernel(counts64r, "refine-f64")
-    cv32 = sess.cv(plan20.with_(lambdas=cv64.lambdas))
+    cv32 = sess.cv(plan10.with_(lambdas=cv64.lambdas))
     ref32 = sess.refine(around=cv64.best_lambda, factor=10.0)
-    compare_cv(cv32, cv64, "refine-coarse-20")
+    compare_cv(cv32, cv64, "refine-coarse-10")
     require(np.allclose(ref32.fine.lambdas, ref64.fine.lambdas, rtol=1e-12),
-            "refine-20: the fine grids differ")
-    compare_cv(ref32.fine, ref64.fine, "refine-20")
+            "refine-10: the fine grids differ")
+    compare_cv(ref32.fine, ref64.fine, "refine-10")
 
     Xn, yn, _ = synthetic_nn(1, N=N, p=G * n, seed=1)
     plan_nn = T.Plan(**CV_PLAN).with_(n_lambdas=20)
@@ -1745,7 +1778,7 @@ def stability_phase(torch, T, N=250, G=1000, n=10):
             "stability-f32-warm: probabilities differ from the cold call's")
     say(f"[stability] cold {wall:.3f} s, warm {wall_w:.3f} s")
 
-    small = plan.with_(n_subsamples=10, n_lambdas=10)
+    small = plan.with_(n_subsamples=5, n_lambdas=10)
     sess64 = f64_session(torch, T, X, y, [n] * G)
     with FoldBetas() as rec64:
         s64, counts64, _, _ = run_counted(torch, "stability-f64",
@@ -1761,7 +1794,7 @@ def stability_phase(torch, T, N=250, G=1000, n=10):
     band = 1e-2 * float(np.abs(b64).max()) + tol
     worst = float(np.abs(b64[flips]).max()) if flips.any() else 0.0
     dprob = float(np.abs(s32.selection_probs - s64.selection_probs).max())
-    say(f"[stability] f32 vs f64 (10 subsamples, 10 lambdas): "
+    say(f"[stability] f32 vs f64 (5 subsamples, 10 lambdas): "
         f"{int(flips.sum())} of {flips.size} (subsample, lambda, feature) "
         f"activity decisions differ, at float64 |beta| <= {worst:.3e} "
         f"(bound 1e-2 * max|beta| + active_tol = {band:.3e}); max "
@@ -2108,7 +2141,7 @@ def peak_run(torch, label, fn):
 def sharded_kernel_checks(torch, X1, spec1, sn1, X2, spec2, sn2, snf, dsf,
                           floor):
     """Each kernel on the card at the sharded route's own inputs, against
-    its plain version at phase 21's tolerances: ``xtv`` on Synthetic 1's
+    its plain version at phase 22's tolerances: ``xtv`` on Synthetic 1's
     first block and on Table 2's widest; ``screen_norms`` at the recorded
     first screen shapes on a Synthetic-1 local spec and on the Table-2
     block with the most pad columns (past the last group of the block's
@@ -2226,19 +2259,19 @@ def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
         f"{idle:.4f}")
     lap("Synthetic-1 float32, cold, warm, profiled")
 
-    plan20 = plan.with_(n_lambdas=20, feature_shards=0)
+    plan10 = plan.with_(n_lambdas=10, feature_shards=0)
     sess64 = f64_session(torch, T, X, y, sizes)
     (r64, c64, _, _), (r64s, c64s, _, _), _ = pair(
-        "synthetic1-f64-20", run_path, sess64, plan20)
+        "synthetic1-f64-10", run_path, sess64, plan10)
     dbeta = float(np.abs(r64s.betas - r64.betas).max())
-    say(f"[sharded-synthetic1-f64-20] max|beta_sharded - beta_unsharded| "
+    say(f"[sharded-synthetic1-f64-10] max|beta_sharded - beta_unsharded| "
         f"= {dbeta:.3e} (bound 1e-12); kept sets equal "
         f"{np.array_equal(r64s.kept_features, r64.kept_features)}")
     require(sum(c64.values()) == sum(c64s.values()) == 0,
             "a float64 path launched a kernel")
     require(np.array_equal(r64s.kept_features, r64.kept_features) and
             np.array_equal(r64s.kept_groups, r64.kept_groups) and
-            dbeta <= 1e-12, "sharded-synthetic1-f64-20: the sharded float64 "
+            dbeta <= 1e-12, "sharded-synthetic1-f64-10: the sharded float64 "
             "path is not the unsharded one")
     del sess64
     lap("Synthetic-1 float64 twins")
@@ -2708,7 +2741,239 @@ def audit_phase(audit):
 
 
 # ---------------------------------------------------------------------------
-# phase 21: each kernel against its plain version, and its time
+# phase 21: the LM zoo's dense decoders
+# ---------------------------------------------------------------------------
+
+LM_STEPS = 20            # the host draws every batch (PERF.md section 5)
+
+
+def _step_stats(times, tokens):
+    """(first step ms, median ms of the others, tokens/s at that median)."""
+    warm = times[1:] if len(times) > 1 else times
+    med = float(np.median(warm))
+    return 1e3 * times[0], 1e3 * med, tokens / med
+
+
+def _zeros(w):
+    return int((w == 0).sum())
+
+
+def lm_example_phase(torch, dev="cuda"):
+    """(a) The example's configuration (``gemma2-100m``) through the port's
+    example driver for ``LM_STEPS`` steps, the SGL prox after each; its
+    pruning-threshold curve in float32 on the kernel route and its float64
+    twin.  Returns (run, curve launch counts, graphed-solve record)."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.kernels import ops
+    from repro_torch.sparsity import group_reg
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the training launches no kernel of the port; the curve does
+    run, counts, wall, calls = run_counted(
+        torch, "lm-example", lambda: ex.main(
+            ["--steps", str(LM_STEPS), "--device", dev],
+            step_times=times))
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = run["losses"]
+    first, med, tok_s = _step_stats(times, 8 * 256)
+    say(f"[lm-example] gemma2-100m ({len(losses)} steps, B 8, S 256, "
+        f"float32): loss {losses[0]:.4f} -> {losses[-1]:.4f}; train step "
+        f"(the step alone) first {first:.1f} ms, median of the rest "
+        f"{med:.2f} ms = {tok_s:.0f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB before")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            "lm-example: the loss did not decrease")
+    blocks = run["state"].params["blocks"]
+    for lname in blocks.keys():
+        ffn = group_reg.group_sparsity_stats(blocks[lname]["ffn"]["w_in"], 2)
+        heads = group_reg.group_sparsity_stats(blocks[lname]["attn"]["wq"], 2)
+        say(f"[lm-example] {lname} FFN channels {json.dumps(ffn)}; heads "
+            f"{json.dumps(heads)}")
+    res, surv = run["curve"], run["surviving"]
+    st = res.stats
+    rows = rows_run(res)
+    say(f"[lm-curve] f32 on the card: {len(res.lambdas)} lambdas, "
+        f"surviving channels {surv.tolist()}; rows certified {rows}, "
+        f"n_screens {st.n_screens} n_pallas_screens {st.n_pallas_screens} "
+        f"fista iterations {st.fista_iters} (graphed {calls.iters}, eager "
+        f"solves {calls.eager_solves}) n_rejected {st.n_rejected}; "
+        f"launches {json.dumps(counts)}")
+    require_only(counts, "lm-curve", PATH_KERNELS)
+    require(counts["xtv"] == rows == calls.rows > 0,
+            f"lm-curve: xtv launches {counts['xtv']}, rows certified {rows}, "
+            f"rows solved {calls.rows}")
+    require(counts["screen_norms"] == st.n_pallas_screens == st.n_screens,
+            f"lm-curve: screen_norms launches {counts['screen_norms']}, "
+            f"n_pallas_screens {st.n_pallas_screens}")
+    require(counts["sgl_prox"] == st.fista_iters == calls.iters > 0
+            and calls.eager_solves == 0,
+            f"lm-curve: sgl_prox launches {counts['sgl_prox']}, FISTA "
+            f"iterations {st.fista_iters}, graphed {calls.iters}")
+    ops.reset_launch_counts()
+    res64, surv64 = ex.pruning_threshold_curve(run["signal"], device=dev,
+                                               dtype=torch.float64)
+    require(sum(ops.launch_counts().values()) == 0,
+            "lm-curve: the float64 twin launched a kernel")
+    say(f"[lm-curve] f64 twin surviving channels {surv64.tolist()}; "
+        f"max|beta_f32 - beta_f64| "
+        f"{float(np.abs(res.betas - res64.betas).max()):.3e}")
+    require(np.array_equal(surv, surv64),
+            "lm-curve: the float32 and float64 curves keep other channels")
+    return run, counts, calls
+
+
+def lm_full_width_phase(torch, dev="cuda"):
+    """(b) ``gemma2-2b`` at its published width and depth through
+    ``train.main``, float32, 3 steps at B 2, S 256, the SGL prox on."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    n_params = model_lib.param_count(get_config("gemma2-2b"))
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, state = train_mod.main(
+        ["--arch", "gemma2-2b", "--steps", "3", "--global-batch", "2",
+         "--seq", "256", "--lr", "3e-4", "--sgl-lambda", "3e-4",
+         "--log-every", "1", "--device", dev], return_state=True,
+        step_times=times)
+    peak = torch.cuda.max_memory_allocated()
+    pb = state.params["blocks"]
+    zeros = {name: sum(_zeros(pb[l][mod][name]) for l in pb.keys())
+             for mod, name in (("attn", "wq"), ("ffn", "w_in"),
+                               ("attn", "wk"))}
+    first, med, tok_s = _step_stats(times, 2 * 256)
+    say(f"[lm-gemma2-2b] {n_params} parameters, float32: losses "
+        f"{[round(l, 4) for l in losses]}; train step first {first:.1f} ms, "
+        f"median of the rest {med:.1f} ms = {tok_s:.0f} tokens/s; peak "
+        f"device memory {peak / 2**30:.3f} GiB; exact zeros after the prox "
+        f"(both block kinds) wq {zeros['wq']}, w_in {zeros['w_in']}, wk "
+        f"(no prox) {zeros['wk']}")
+    require(len(losses) == 3 and np.isfinite(losses).all(),
+            "lm-gemma2-2b: non-finite losses")
+    require(zeros["wq"] > 0 and zeros["w_in"] > 0 and zeros["wk"] == 0,
+            "lm-gemma2-2b: the SGL prox left no zero in its groups")
+    del state
+    torch.cuda.empty_cache()
+    return dict(step_ms=med, first_step_ms=first, tokens_per_s=tok_s,
+                peak_gib=peak / 2**30)
+
+
+def lm_serve_phase(torch, dev="cuda"):
+    """(c) ``serve.main`` on ``gemma2-2b`` at full width (batch 4, prompt
+    16, gen 32, cache 128); then decode against the full forward on the
+    example's config at T 300 > window 256 with a 512-slot cache, so the
+    local ring wraps: within 2e-2, the reference's bar, and within 1e-4,
+    the bar of the card test (a freshly drawn model's logits are about 0.1
+    in size, so 2e-2 alone would pass a wrong ring slot)."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_lib
+    lat = []
+    gen = serve_mod.main(["--arch", "gemma2-2b", "--batch", "4",
+                          "--prompt-len", "16", "--gen", "32", "--cache-len",
+                          "128", "--device", dev], latencies=lat)
+    warm = np.asarray(lat[1:]) * 1e3
+    p50, p99 = np.percentile(warm, 50), np.percentile(warm, 99)
+    tok_s = 4 * len(warm) / (warm.sum() / 1e3)
+    say(f"[lm-serve] gemma2-2b float32 batch 4: per-step p50 {p50:.3f} ms "
+        f"p99 {p99:.3f} ms (warm; first step {1e3 * lat[0]:.3f} ms), "
+        f"{tok_s:.1f} tokens/s")
+    require(gen.shape == (4, 32) and ((gen >= 0) & (gen < 256000)).all(),
+            "lm-serve: wrong generated tokens")
+    torch.cuda.empty_cache()
+
+    cfg = ex.example_config()
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(1))
+    B, T = 2, 300
+    toks = torch.as_tensor(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+    with torch.no_grad():
+        x = model_lib.embed_tokens(params, cfg, toks, torch.float32)
+        x, _, _ = model_lib.decoder_stack(params, x, torch.arange(
+            T, device=dev), cfg, remat="none")
+        full = model_lib.logits_fn(params, cfg, model_lib.rms_norm(
+            x, params["final_norm"], cfg.norm_eps))
+        caches = model_lib.init_cache(cfg, B, 512, torch.float32,
+                                      device=dev)
+        slots = caches["blocks"]["l0"].k.shape[2]
+        errs = torch.zeros(T, device=dev)
+        for t in range(T):
+            logits, caches = model_lib.forward_decode(
+                params, cfg, caches, toks[:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            errs[t] = (logits[:, 0] - full[:, t]).abs().max()
+    err = float(errs.max())
+    say(f"[lm-decode] gemma2-100m: decode against the full forward, T {T}, "
+        f"window {cfg.window_size}, local ring {slots} slots (wraps at "
+        f"{slots}), global cache 512: max|logits diff| {err:.3e} (the "
+        f"reference's bar 2e-2, and 1e-4, the card test's); after the wrap "
+        f"{float(errs[slots:].max()):.3e}")
+    require(slots == cfg.window_size and err < 2e-2 and err < 1e-4,
+            "lm-decode: decode disagrees with the full forward")
+    return dict(p50_ms=p50, p99_ms=p99, tokens_per_s=tok_s,
+                decode_err=err)
+
+
+def lm_resume_phase(torch, losses, dev="cuda"):
+    """(d) The example's run to step 2 with a checkpoint, then resumed to
+    step 4: the losses of steps 3-4 equal the uninterrupted run's within
+    1e-5 relative (the embedding's backward uses atomics)."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import train as train_mod
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="lm_ckpt_", dir=ROOT / "build")
+    try:
+        train_mod.main(ex.train_argv(2, dev) + [
+            "--ckpt-dir", ck, "--ckpt-every", "2"])
+        resumed = train_mod.main(ex.train_argv(4, dev) + [
+            "--ckpt-dir", ck, "--resume"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    rel = np.abs(np.asarray(resumed) / np.asarray(losses[2:4]) - 1)
+    say(f"[lm-resume] steps 3-4 resumed from the step-2 checkpoint "
+        f"{resumed} against {losses[2:4]}: max relative diff "
+        f"{float(rel.max()):.3e} (bar 1e-5)")
+    require(len(resumed) == 2 and float(rel.max()) <= 1e-5,
+            "lm-resume: the resumed losses differ")
+
+
+def lm_phase(torch, T):
+    """Phase 21.  Returns (the curve's launch counts, each kernel's check
+    at the curve's shapes)."""
+    from repro_torch.core.path_engine import _pow2_len
+    with timed_phase("lm-example"):
+        run, counts, calls = lm_example_phase(torch)
+    losses = run["losses"]
+    res = run["curve"]
+    del run
+    with timed_phase("lm-gemma2-2b"):
+        lm_full_width_phase(torch)
+    with timed_phase("lm-serve"):
+        lm_serve_phase(torch)
+    with timed_phase("lm-resume"):
+        lm_resume_phase(torch, losses)
+    torch.cuda.empty_cache()
+    G = res.betas.shape[1]
+    spec = T.GroupSpec.uniform_groups(G, 1, device="cuda")
+    checks = {
+        "xtv": check_xtv(torch, torch.eye(G, device="cuda"), "lm-curve"),
+        "screen_norms": check_screen_norms(
+            torch, _pow2_len(len(res.lambdas) - 1), spec, "lm-curve"),
+        "sgl_prox": check_sgl_prox(torch, calls.busiest_spec,
+                                   "lm-curve-bucket"),
+    }
+    return counts, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 22: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -3117,11 +3382,16 @@ def main() -> int:
     card = environment(torch)
     build_kernels()
     audit = KeyAudit(T)          # records every session of phases 3-20
-    sess, res, counts, shapes, res64 = main_path(torch, T)
-    sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
-    counts_nn, res_nn64 = nn_path(torch, T)
-    counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
-    counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
+    with timed_phase("synthetic1"):
+        sess, res, counts, shapes, res64 = main_path(torch, T)
+    with timed_phase("table2"):
+        sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
+    with timed_phase("table3-nn"):
+        counts_nn, res_nn64 = nn_path(torch, T)
+    with timed_phase("sgl-cv"):
+        counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
+    with timed_phase("nn-cv"):
+        counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
     new_paths = {}
     with timed_phase("gapsafe-sgl"):
         new_paths["synthetic1-gapsafe-path"] = gapsafe_path_phase(torch, T,
@@ -3158,10 +3428,15 @@ def main() -> int:
         new_paths.update(fold_mesh_phase(torch, T, card))
         audit.close()
         audit_phase(audit)
-    rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
-                         snf_shape, dsf_shape)
+    with timed_phase("lm"):
+        new_paths["lm-pruning-curve"], lm_checks = lm_phase(torch, T)
+    with timed_phase("kernels"):
+        rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
+                             snf_shape, dsf_shape)
     for name, by_input in sharded_checks.items():
         rows[name]["sharded"] = by_input     # at the sharded route's inputs
+    for name, by_input in lm_checks.items():
+        rows[name]["lm_curve"] = by_input    # at the pruning curve's inputs
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,

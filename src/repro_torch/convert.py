@@ -1,21 +1,27 @@
 """Carry the reference's data across: numpy arrays in, port objects out, and
-a port ``PathResult`` back to numpy; the reference's warm fold state
-(``FoldState``) into the port's.
+back.
 
-The system runs no model, so the state that has to agree between the two
-packages is the problem itself: X, y and the seven children of the
-reference's ``GroupSpec`` (``sizes``, ``starts``, ``group_ids``,
-``weights``, ``pad_index``, ``pad_mask``, ``feature_weights``), each taken
-as a numpy array.
+* The path engine: X, y and the seven children of the reference's
+  ``GroupSpec`` (``sizes``, ``starts``, ``group_ids``, ``weights``,
+  ``pad_index``, ``pad_mask``, ``feature_weights``), each a numpy array; a
+  port ``PathResult`` back to numpy; the reference's warm fold state
+  (``FoldState``) into the port's.
+* The LM: the reference's parameter tree (nested dicts of numpy leaves)
+  into a ``ParamTree`` and back (``lm_params``, ``lm_params_numpy``), and a
+  reference ``TrainState`` into the port's and back (``lm_train_state``,
+  ``lm_train_state_numpy``).  Leaf names and shapes are the same on both
+  sides.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.cv import FoldState
-from .core.groups import GroupSpec
+from .core.groups import GroupSpec, resolve_device
 from .core.path import PathResult
 from .core.problem import Problem
+from .pytree import ParamTree, as_dict, tree_map
 
 SPEC_FIELDS = ("sizes", "starts", "group_ids", "weights", "pad_index",
                "pad_mask", "feature_weights")
@@ -65,3 +71,43 @@ def path_result(res: PathResult) -> dict:
                    n_compilations=s.n_compilations, n_rejected=s.n_rejected,
                    n_pallas_screens=s.n_pallas_screens)
     return out
+
+
+def _tensor(a, device):
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def lm_params(tree, device=None) -> ParamTree:
+    """A ``ParamTree`` from the reference's parameter tree (nested dicts of
+    arrays; each leaf is copied) on ``device`` (``None``: the card; raises
+    without CUDA)."""
+    device = resolve_device(device)
+    return ParamTree(tree_map(lambda a: _tensor(a, device), tree))
+
+
+def lm_params_numpy(params) -> dict:
+    """The port's parameters as the reference's tree of numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(),
+                    as_dict(params))
+
+
+def lm_train_state(state, device=None):
+    """The port's ``TrainState`` from the reference's (any object with
+    ``step``, ``params``, ``m`` and ``v``) on ``device`` (``None``: the card;
+    raises without CUDA)."""
+    from .optim.adamw import TrainState
+    device = resolve_device(device)
+    moments = lambda t: tree_map(lambda a: _tensor(a, device), t)
+    return TrainState(_tensor(state.step, device).to(torch.int32),
+                      lm_params(state.params, device), moments(state.m),
+                      moments(state.v))
+
+
+def lm_train_state_numpy(state) -> dict:
+    """The port's ``TrainState`` as a dict of the reference's fields
+    (``step``, ``params``, ``m``, ``v``) over numpy arrays."""
+    host = lambda t: tree_map(lambda a: a.detach().cpu().numpy().copy(),
+                              as_dict(t))
+    return {"step": state.step.detach().cpu().numpy().copy(),
+            "params": host(state.params), "m": host(state.m),
+            "v": host(state.v)}

@@ -1,0 +1,347 @@
+"""Model assembly for the dense decoder family: parameter trees, the layer
+stack, train / prefill / decode (PyTorch port of the dense path of
+``repro.models.model``).
+
+The layer stack is ``repeats`` copies of the ``block_pattern`` period.  Each
+parameter keeps the reference's name and stacked shape (``blocks.l0.attn.wq``
+is ``(R, d, H, dh)``), and ``decoder_stack`` unbinds each stacked leaf once
+a forward and loops over ``r in range(repeats)`` on those slices.  Indexing
+``a[r]`` instead would make each slice's backward add a full-size zero
+gradient, R of them a leaf.  The stacked layout keeps the semantics that read
+stacked leaves: an SGL weight group spans every copy of its layer, the init
+fan-in counts the stack axis, and checkpoint leaves come in the reference's
+order.
+
+Covered: block kinds ``attn``, ``local`` and ``global`` with ``qk_norm``,
+``rope_theta_local``, tied or untied heads and the four MLP activations
+(``gemma2-2b``, ``gemma3-12b``, ``nemotron-4-340b``).  Every other family or
+kind raises ``NotImplementedError`` naming its ROADMAP item.  The decode
+cache is a nested dict of stacked ``KVCache`` tensors, written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ArchConfig
+from ..core.groups import resolve_device
+from ..pytree import flatten, plain_structure, tree_map, unflatten
+from .common import ParamDesc, rms_norm, softcap, tree_init
+from . import attention as attn
+from . import mlp as mlp_mod
+
+ATTN_KINDS = ("attn", "local", "global")
+
+# what the port does not build yet, and the ROADMAP item that ports it
+NOT_PORTED = {
+    "mla": "MLA attention (ROADMAP item 35)",
+    "moe": "MoE (models/moe.py, ROADMAP item 36)",
+    "dense_ffn_attn": "the dense prologue of MoE models (ROADMAP item 36)",
+    "prologue": "the dense prologue of MoE models (ROADMAP item 36)",
+    "mamba": "Mamba2 (models/ssm.py, ROADMAP item 37)",
+    "mamba+shared_attn": "Mamba2 with shared attention (ROADMAP item 37)",
+    "mlstm": "xLSTM (models/xlstm.py, ROADMAP item 38)",
+    "slstm": "xLSTM (models/xlstm.py, ROADMAP item 38)",
+    "encdec": "enc-dec and cross-attention (ROADMAP item 39)",
+    "vision": "the vision prefix (ROADMAP item 40)",
+    "mesh": "the sharding rules and ZeRO-3 training (ROADMAP item 41)",
+}
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    part of ``cfg`` that the port does not build."""
+    parts = []
+    if cfg.family == "encdec":
+        parts.append("encdec")
+    if cfg.frontend is not None:
+        parts.append(cfg.frontend)
+    if cfg.mla:
+        parts.append("mla")
+    if cfg.prologue:
+        parts.append("prologue")
+    parts += [k for k in cfg.block_pattern if k not in ATTN_KINDS]
+    if parts:
+        raise NotImplementedError(
+            f"{cfg.name}: {NOT_PORTED.get(parts[0], parts[0])} is not "
+            f"ported yet")
+
+
+def refuse_mesh(mesh, seq_shard) -> None:
+    if mesh is not None or seq_shard:
+        raise NotImplementedError(
+            f"a mesh or seq_shard: {NOT_PORTED['mesh']} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# parameter declarations
+# ---------------------------------------------------------------------------
+
+def _block_descs(cfg: ArchConfig, kind: str):
+    d = cfg.d_model
+    ln = lambda: ParamDesc((d,), (None,), scale=0.0)
+    return {"ln1": ln(), "ln2": ln(), "attn": attn.gqa_descs(cfg),
+            "ffn": mlp_mod.mlp_descs(cfg)}
+
+
+def _stack_descs(descs, n):
+    return tree_map(
+        lambda p: ParamDesc((n,) + p.shape, ("stack",) + p.axes, p.scale,
+                            p.dtype), descs)
+
+
+def param_descs(cfg: ArchConfig):
+    check_supported(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    tree: dict[str, Any] = {
+        "embed": ParamDesc((V, d), ("vocab", "embed")),
+        "final_norm": ParamDesc((d,), (None,), scale=0.0),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ParamDesc((d, V), ("embed", "vocab"))
+    period = {f"l{i}": _block_descs(cfg, kind)
+              for i, kind in enumerate(cfg.block_pattern)}
+    tree["blocks"] = _stack_descs(period, cfg.repeats)
+    return tree
+
+
+def init_params(cfg, generator: torch.Generator, param_dtype=torch.float32):
+    """A ``ParamTree`` on the device of ``generator``."""
+    return tree_init(param_descs(cfg), generator, param_dtype)
+
+
+def param_count(cfg) -> int:
+    leaves, _ = flatten(param_descs(cfg))
+    return int(sum(np.prod(l.shape) for l in leaves))
+
+
+# ---------------------------------------------------------------------------
+# block forward
+# ---------------------------------------------------------------------------
+
+def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
+                    cache_pos=None):
+    """Returns (x, new_cache, aux); aux is 0 for dense layers."""
+    window = cfg.window_size if kind == "local" else None
+    theta = (cfg.rope_theta_local if kind == "local" and cfg.rope_theta_local
+             else cfg.rope_theta)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a_out, new_cache = attn.gqa_forward(p["attn"], h, positions, cfg,
+                                        window=window, rope_theta=theta,
+                                        cache=cache, cache_pos=cache_pos)
+    x = x + a_out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_mod.mlp_forward(p["ffn"], h, cfg)
+    return x, new_cache, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# the decoder stack
+# ---------------------------------------------------------------------------
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """``none``: no checkpoint.  ``full`` (and ``nothing``, the same here):
+    a non-reentrant checkpoint of the whole period.  ``dots``: a selective
+    checkpoint that saves the matmuls and recomputes the rest.  Any other
+    name raises."""
+    if policy == "none":
+        return fn
+    if policy in ("full", "nothing"):
+        kw = {}
+    elif policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)}
+    else:
+        raise ValueError(f"unknown remat policy {policy!r}; have none, "
+                         f"full, nothing, dots")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
+                  cache_pos=None, mesh=None, remat="full", seq_shard=False):
+    """x: (B, S, d).  caches: None (train/prefill) or the tree of
+    ``init_cache``, written in place.  Returns (x, caches, aux)."""
+    check_supported(cfg)
+    refuse_mesh(mesh, seq_shard)
+    block_caches = caches["blocks"] if caches is not None else None
+    # one unbind a leaf: its backward stacks the R slices' gradients in one
+    # op, where indexing a[r] R times would add R full-size gradients
+    flat, td = flatten(params["blocks"])
+    unbound = [a.unbind(0) for a in flat]
+    per_r = [unflatten(plain_structure(td), [u[r] for u in unbound])
+             for r in range(cfg.repeats)]
+
+    def period_body(x, r):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(cfg.block_pattern):
+            p_step = per_r[r][f"l{i}"]
+            c = None
+            if block_caches is not None:
+                full = block_caches[f"l{i}"]
+                c = attn.KVCache(full.k[r], full.v[r])
+            x, _, a = _attn_ffn_block(p_step, x, positions, cfg, kind,
+                                      cache=c, cache_pos=cache_pos)
+            aux = aux + a
+        return x, aux
+
+    body = _remat_wrap(period_body, remat)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.repeats):
+        x, aux = body(x, r)
+        aux_total = aux_total + aux
+    return x, caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits / loss
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 1024
+
+
+def embed_tokens(params, cfg, tokens, compute_dtype):
+    emb = params["embed"].to(compute_dtype)
+    x = torch.nn.functional.embedding(tokens, emb)
+    return x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype,
+                            device=x.device)
+
+
+def _head_matrix(params, cfg, compute_dtype):
+    if cfg.tie_embeddings:
+        return params["embed"].to(compute_dtype).T
+    return params["lm_head"].to(compute_dtype)
+
+
+def logits_fn(params, cfg, x):
+    w = _head_matrix(params, cfg, x.dtype)
+    logits = (x @ w).to(torch.float32)
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def chunked_ce_loss(params, cfg, x, labels, mask=None):
+    """Cross-entropy without holding (B, S, V) logits for the backward
+    pass: a loop over sequence chunks, each chunk's logits recomputed in the
+    backward pass (a non-reentrant checkpoint).  The mean is over the
+    mask."""
+    B, S, d = x.shape
+    C = min(LOSS_CHUNK, S)
+    if S % C:
+        raise ValueError(f"sequence length {S} is not a multiple of {C}")
+    w = _head_matrix(params, cfg, x.dtype)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+
+    def chunk_loss(xc, yc, mc):
+        logits = (xc @ w).to(torch.float32)
+        if cfg.final_softcap:
+            logits = softcap(logits, cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // C):
+        sl = slice(i * C, (i + 1) * C)
+        args = (x[:, sl], labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            l, m = checkpoint(chunk_loss, *args, use_reentrant=False)
+        else:
+            l, m = chunk_loss(*args)
+        tot, n = tot + l, n + m
+    return tot / torch.clamp(n, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
+                 dtype=torch.bfloat16):
+    """The decode cache's ``TensorSpec`` tree: a ``KVCache`` per layer of
+    the period, stacked over ``repeats`` (local layers: ``min(cache_len,
+    window)`` ring slots)."""
+    check_supported(cfg)
+
+    def kv(kind):
+        window = cfg.window_size if kind == "local" else None
+        shp = (cfg.repeats,) + attn.gqa_cache_shape(cfg, batch, cache_len,
+                                                    window)
+        return attn.KVCache(TensorSpec(shp, dtype), TensorSpec(shp, dtype))
+
+    return {"blocks": {f"l{i}": kv(kind)
+                       for i, kind in enumerate(cfg.block_pattern)},
+            "prologue": []}
+
+
+def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
+    """Zeros of ``cache_shapes``; ``device=None`` is the card."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_shapes(cfg, batch, cache_len, dtype))
+
+
+# ---------------------------------------------------------------------------
+# public steps
+# ---------------------------------------------------------------------------
+
+def assemble_inputs(params, cfg, batch, compute_dtype):
+    """tokens -> (B, S, d) input states (the vision prefix waits for
+    ROADMAP item 40)."""
+    check_supported(cfg)
+    return embed_tokens(params, cfg, batch["tokens"], compute_dtype)
+
+
+def forward_train(params, cfg: ArchConfig, batch, *, mesh=None, remat="full",
+                  compute_dtype=torch.bfloat16, seq_shard=False):
+    """Returns (loss, metrics).  batch: tokens/labels, int64 (B, S)."""
+    refuse_mesh(mesh, seq_shard)
+    x = assemble_inputs(params, cfg, batch, compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, aux = decoder_stack(params, x, positions, cfg, remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_ce_loss(params, cfg, x, batch["labels"])
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
+                   mesh=None, compute_dtype=torch.bfloat16):
+    """One decode step.  tokens: (B, 1) int64; pos: the absolute position
+    (an int).  Returns (logits (B, 1, V) float32, caches), the caches
+    written in place."""
+    refuse_mesh(mesh, False)
+    x = embed_tokens(params, cfg, tokens, compute_dtype)
+    positions = torch.full((1,), int(pos), device=x.device)
+    x, caches, _ = decoder_stack(params, x, positions, cfg, caches=caches,
+                                 cache_pos=pos, remat="none")
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, cfg, x), caches

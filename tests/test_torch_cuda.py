@@ -941,3 +941,96 @@ def test_mask_coverage_on_the_card_is_clean(dev):
     assert kernel_check.mask_coverage("cuda", errors) == []
     assert len(errors) == 5
     assert kernel_check.f64_gate() == []
+
+
+# ---------------------------------------------------------------------------
+# the LM's dense decoders (the plain torch path; the curve's kernels)
+# ---------------------------------------------------------------------------
+
+def _lm_params(cfg, seed, dev):
+    from repro_torch.models import model as M
+    from repro_torch.pytree import ParamTree, tree_map
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    return cpu, ParamTree(tree_map(lambda t: t.detach().to(dev, copy=True),
+                                   cpu))
+
+
+def test_lm_decode_matches_full_forward_on_the_card(dev):
+    """Reduced gemma2 (window 32) decoded for 48 steps into a 64-slot cache
+    (the local ring wraps): within the reference's 2e-2 of the full
+    forward, and within 1e-4 of the CPU's decode."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("gemma2-2b").reduced()
+    cpu, card = _lm_params(cfg, 0, dev)
+    B, T_ = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, T_)))
+    with torch.no_grad():
+        x = M.embed_tokens(card, cfg, toks.to(dev), torch.float32)
+        x, _, _ = M.decoder_stack(card, x, torch.arange(T_, device=dev), cfg,
+                                  remat="none")
+        full = M.logits_fn(card, cfg, M.rms_norm(x, card["final_norm"],
+                                                 cfg.norm_eps))
+        out = {}
+        for name, params, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            caches = M.init_cache(cfg, B, 64, torch.float32, device=d)
+            steps = []
+            for t in range(T_):
+                logits, caches = M.forward_decode(
+                    params, cfg, caches, toks[:, t:t + 1].to(d), t,
+                    compute_dtype=torch.float32)
+                steps.append(logits[:, 0].cpu())
+            out[name] = torch.stack(steps, 1)
+    assert float((out["card"] - full.cpu()).abs().max()) < 2e-2
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=0, atol=1e-4)
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(dev):
+    """Two float32 train steps with the SGL prox, from equal weights on equal
+    batches: losses within 1e-5 relative, parameters within 1e-5."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import sgl_prox_step
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import leaves
+    cfg = get_config("gemma3-12b").reduced()
+    step = make_train_step(cfg, remat="full", compute_dtype=torch.float32,
+                           lr_kwargs=dict(base_lr=1e-2, warmup=1, total=10))
+    states = [adamw.init_state(p) for p in _lm_params(cfg, 1, dev)]
+    gen = np.random.default_rng(2)
+    for i in range(2):
+        toks = torch.as_tensor(gen.integers(0, cfg.vocab_size, (4, 33)))
+        losses = []
+        for j, d in enumerate(("cpu", dev)):
+            batch = {"tokens": toks[:, :-1].to(d), "labels": toks[:, 1:].to(d)}
+            states[j], metrics = step(states[j], batch)
+            sgl_prox_step(states[j].params, cfg, 1e-3, 1e-4)
+            losses.append(float(metrics["loss"]))
+        assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for a, b in zip(leaves(states[0]), leaves(states[1])):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+def test_lm_pruning_curve_launch_counts(dev):
+    """The example's curve over 256 channels, float32 on the card: ``xtv``
+    once a row certified, ``screen_norms`` once a screen, ``sgl_prox`` once
+    a FISTA iteration (graphed); the float64 twin keeps the same channels
+    on every row and launches nothing."""
+    from repro_torch.examples.sgl_pruned_lm import pruning_threshold_curve
+    from repro_torch.kernels import ops
+    signal = np.random.default_rng(3).uniform(0.5, 2.0, 256)
+    ops.reset_launch_counts()
+    res, surv = pruning_threshold_curve(signal, device=dev)
+    counts = ops.launch_counts()
+    st = res.stats
+    rows = sum(k + (k < m) for _, _, m, k in st.buckets)
+    assert counts["xtv"] == rows > 0
+    assert counts["screen_norms"] == st.n_pallas_screens == st.n_screens > 0
+    assert counts["sgl_prox"] == st.fista_iters > 0
+    ops.reset_launch_counts()
+    _, surv64 = pruning_threshold_curve(signal, device=dev,
+                                        dtype=torch.float64)
+    assert sum(ops.launch_counts().values()) == 0
+    np.testing.assert_array_equal(surv64, surv)
+    assert surv[0] == 0 and surv[-1] == 256
