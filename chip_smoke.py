@@ -20,8 +20,10 @@ Phases (each fails loudly, with a non-zero exit):
    capture recorded), and solve time per iteration is printed.  The same path in float64 (no
    kernels, eager) as the reference; the f32 screen's discards checked
    against the f64 solution; a warm second call that must pay no new
-   compilation and capture no graph; one more warm call under
-   ``torch.profiler`` for the device's busy time and idle share, whose
+   compilation and capture no graph; one more warm call traced (CUPTI's
+   records of the card, ``DeviceTrace``; the screen's torch functions by
+   a function mode, ``ScreenRanges``) for the device's busy time and idle
+   share, whose
    ``sgl_prox`` kernels on the card must equal the launch count, whose
    ``screen_norms`` kernels must equal both the launch count and
    ``n_pallas_screens``, and in which no operator may take a tensor of the
@@ -44,7 +46,7 @@ Phases (each fails loudly, with a non-zero exit):
    folds and grid as the reference; one more float32 call with per-fold
    centering (20 lambdas), whose rows must all be certified.  The float32
    calls replay graphed blocks as in phase 3; one more warm call under
-   ``torch.profiler`` for the idle share.
+   ``DeviceTrace`` for the idle share.
 7. Nonnegative-Lasso cross-validation: the Table-3 data of phase 5, the
    plan of phase 6; every stacked screen through ``dpc_screen_folds``; a
    float64 reference.
@@ -59,11 +61,11 @@ Phases (each fails loudly, with a non-zero exit):
    row solved and no other kernel: the fused prox and screen statistics
    take one l1 threshold), and group weights alone under TLFre (the
    kernel route of phase 3), float32; each against its float64 twin at
-   10 lambdas (a float32 call on the same plan).
+   20 lambdas (a float32 call on the same plan).
 10. Gap-Safe nonnegative-Lasso path: phase 5's data and plan (``xtv``).
 11. Gap-Safe SGL CV: phase 6's plan (100 lambdas), cold and warm (two
     ``screen_norms_folds`` launches a stacked screen); float64 against
-    float32 at 10 lambdas.
+    float32 at 20 lambdas.
 12. Gap-Safe nonnegative-Lasso CV: phase 7's plan, cold and warm;
     float64 against float32 at 20 lambdas.
 13. Sparse-group logistic path: ``loss_logistic_bench`` of
@@ -92,7 +94,7 @@ Phases (each fails loudly, with a non-zero exit):
     check_every 10, ``refine(factor=3)``, each against a cold ``cv`` over
     its refined grid (betas within 1e-2 * max|beta|, selection within one
     step; the FISTA iterations of both printed), a warm repeat of ``cv``
-    and both refinements (no compilation, no capture); float64 ``cv`` + ``refine`` at 10 lambdas against float32's
+    and both refinements (no compilation, no capture); float64 ``cv`` + ``refine`` at 20 lambdas against float32's
     on the same grids (the CV bars of phase 6); the nonnegative-Lasso
     ``refine`` on the Table-3 data at 20 lambdas.  Each stacked screen one
     ``screen_norms_folds`` (``dpc_screen_folds``) launch, every FISTA
@@ -100,7 +102,7 @@ Phases (each fails loudly, with a non-zero exit):
 16. Stability selection at the ``stability_selection`` shim's defaults
     (Synthetic 1, 50 half-row subsamples in batches of 10, 30 lambdas,
     float32): the kernels of phase 15, every row certified, a warm repeat
-    that compiles and captures nothing; float64 at 5 subsamples and 10
+    that compiles and captures nothing; float64 at 10 subsamples and 10
     lambdas on the same masks and grid: an activity decision differs only
     where float64's |beta| is within 1e-2 * max|beta| of ``active_tol``.
 17. The estimators of ``repro_torch.api`` at float32: ``SGLCV`` (K = 5,
@@ -123,7 +125,7 @@ Phases (each fails loudly, with a non-zero exit):
     share), held to phase 3's bars against its float64 path, every row
     certified; ``xtv`` = 8 x rows certified (the setup's GEMVs are plain),
     ``screen_norms`` = 8 x screens, ``sgl_prox`` = FISTA iterations.  A
-    float64 twin at 10 lambdas: kept sets equal to the unsharded float64
+    float64 twin at 20 lambdas: kept sets equal to the unsharded float64
     path's, betas within 1e-12, no kernel.  Table 2's shape with its last
     7 groups dropped (18 184 groups, 8 blocks of unequal width, each
     padded), 4 lambdas, sharded against unsharded (betas within 1e-2 *
@@ -163,8 +165,8 @@ Phases (each fails loudly, with a non-zero exit):
     plans (each rank audits its own), the five kernels hold under 1e30
     poison against their plain versions (``kernel_check.mask_coverage``),
     and the float64 gate refuses the kernels.
-21. The LM zoo's dense decoders (``repro_torch.models``, float32, TF32
-    off): (a) the example's ``gemma2-100m`` (12 layers, d 512, 8 / 4 heads,
+21. The LM zoo's attention decoders (``repro_torch.models``, float32,
+    TF32 off): (a) the example's ``gemma2-100m`` (12 layers, d 512, 8 / 4 heads,
     d_ff 2048, vocabulary 32 768, window 256; B 8, S 256, lr 1e-3, SGL
     lambda 3e-4) through ``python -m repro_torch.examples.sgl_pruned_lm``'s
     ``main`` for ``LM_STEPS`` steps: the loss falls, the FFN channels' and
@@ -183,10 +185,24 @@ Phases (each fails loudly, with a non-zero exit):
     against the full forward on the example's config at T 300 > window 256
     with a 512-slot cache (the local ring wraps), within 2e-2 and 1e-4.
     (d) The example's run to step 2 with a checkpoint, resumed to step 4:
-    the losses of steps 3-4 within 1e-5 relative of (a)'s.  Then ``xtv``,
-    ``screen_norms`` and ``sgl_prox`` against their plain versions at the
-    curve's shapes (X 2048 x 2048, C (32, 2048) with n_max 1, the busiest
-    prox bucket).
+    the losses of steps 3-4 within 1e-5 relative of (a)'s.  (e)
+    ``granite-moe-1b-a400m`` (MoE, 32 experts top 8; 1.33 B parameters) at
+    its published width and depth through ``train.main``, 4 steps at B 4,
+    S 256, the SGL prox on: finite losses and aux, exact zeros in the head
+    groups of ``wq`` and the expert groups of ``w_in``, step ms, tokens/s
+    and peak memory printed.  (f) The pruning curve of (e)'s trained expert
+    channels (G = 512) with (a)'s curve's gates.  (g)
+    ``serve.main`` on ``minicpm3-4b`` (MLA; 4.26 B parameters) at full
+    width, as in (c), peak memory printed; then its absorbed decode of 16
+    tokens against the expanded full forward (B 1), within 1e-3 *
+    max|logits|.  (h) ``deepseek-v2-236b`` ``reduced()`` (a dense prologue
+    layer, MLA, routed and shared experts): 3 train steps (finite, aux >
+    0), decode of 48 tokens within 1e-4 of the full forward at lossless
+    dispatch, and the MoE layer twice on one input bit for bit.  Then
+    ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain versions
+    at each curve's shapes (X G x G, C (32, G) with n_max 1, the busiest
+    prox bucket).  Every phase and part prints its seconds beside the summed
+    walls of the calls it timed.
 22. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
@@ -214,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -292,6 +309,11 @@ def build_kernels():
         f"{time.perf_counter() - t0:.3f} s "
         f"({'built' if built is not None else 'cached'}"
         f"{f', nvcc {built:.3f} s' if built is not None else ''})")
+    t0 = time.perf_counter()
+    lib = DeviceTrace.library()
+    say(f"[build] {Path(lib._name).relative_to(ROOT)} (the CUPTI collector, "
+        f"on {DeviceTrace.libcupti()}) ready in "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +385,7 @@ def run_path(torch, sess, plan, label):
         res = sess.path(plan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    note_wall(wall)
     counts = ops.launch_counts()
     st = res.stats
     say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
@@ -468,106 +491,184 @@ def screen_discards_are_zero(torch, T, prob32, res32, betas64, alpha,
     return worst, n_discarded
 
 
-DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+class DeviceTrace:
+    """The card's kernels, copies and sets between ``__enter__`` and
+    ``__exit__``: CUPTI's activity records, summed by name in C
+    (``tools/device_trace.cpp``, built with ``nvcc`` at first use into
+    ``build/device_trace/``): microseconds and count by (demangled) name.
+    One stream, so the card's busy time is their sum.  ``torch.profiler``'s
+    stop and a walk of its events cost some 20 us a device record (10^6
+    records in one SGL CV call); this costs milliseconds after the call.
+    It opens the libcupti that torch holds, so the two share one CUPTI.
+    Trace before any ``torch.profiler`` run with CUDA activity in the
+    process: that run leaves its own timestamp source with CUPTI, and
+    durations read after it come out too long."""
 
+    _lib = None
 
-def device_busy(torch, prof):
-    """The card's busy time in a profile, read from the raw trace (the
-    profiler's event objects for some 10^5 kernels take tens of seconds to
-    build): the device-side activities that occupy the card, kernels,
-    copies and sets, by name.  Device-side user annotations (the ranges of
-    ``record_function``) and synchronization records span work and are
-    left out; their time by activity type comes back beside.  Returns
-    (microseconds by name, kernels counted, ``sgl_prox`` kernels,
-    microseconds left out by activity type)."""
-    by_name, left_out, n_kernels, n_prox = {}, {}, 0, 0
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = (ev.activity_type() if hasattr(ev, "activity_type") else
-                "gpu_user_annotation" if ev.is_user_annotation() else "kernel")
-        us = ev.duration_ns() / 1e3
-        if kind not in DEVICE_WORK:
-            left_out[kind] = left_out.get(kind, 0.0) + us
-            continue
-        name = ev.name()
-        n_kernels += 1
-        n_prox += "sgl_prox_flat_kernel" in name
-        by_name[name] = by_name.get(name, 0.0) + us
-    return by_name, n_kernels, n_prox, left_out
+    @staticmethod
+    def libcupti() -> str:
+        """The libcupti torch loaded when it was imported."""
+        with open("/proc/self/maps") as maps:
+            for line in maps:
+                if "libcupti.so" in line:
+                    return line.split()[-1]
+        raise SmokeFailure("torch has loaded no libcupti")
+
+    @classmethod
+    def library(cls):
+        """Builds (once, keyed by the source and CUPTI's headers) and loads
+        the collector."""
+        if cls._lib is not None:
+            return cls._lib
+        import ctypes
+        import hashlib
+        from repro_torch.kernels import build
+        cupti = Path(cls.libcupti()).resolve()
+        heads = [cupti.parents[1] / "include",
+                 Path("/usr/local/cuda/extras/CUPTI/include"),
+                 Path("/usr/local/cuda/include")]
+        inc = next((h for h in heads if (h / "cupti.h").exists()), None)
+        require(inc is not None, f"cupti.h not found in {heads}")
+        src = ROOT / "tools" / "device_trace.cpp"
+        key = hashlib.sha256(src.read_bytes() + str(inc).encode())
+        out = ROOT / "build" / "device_trace" / key.hexdigest()[:16]
+        so = out / "libdevice_trace.so"
+        if not so.exists():
+            out.mkdir(parents=True, exist_ok=True)
+            cmd = [build._nvcc(), "-shared", "-O2", "-std=c++17",
+                   "-cudart", "none", "-Xcompiler", "-fPIC", f"-I{inc}",
+                   str(src), "-o", str(so) + ".tmp", "-ldl"]
+            done = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+            require(done.returncode == 0, f"building {src.name} failed: "
+                    f"{done.stdout}{done.stderr}")
+            Path(str(so) + ".tmp").rename(so)
+        lib = ctypes.CDLL(str(so))
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        lib.repro_trace_start.argtypes = [ctypes.c_char_p]
+        lib.repro_trace_lost.restype = ctypes.c_uint64
+        lib.repro_trace_entry.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                          ctypes.c_size_t, u64p, u64p]
+        lib.repro_trace_entry.restype = None
+        cls._lib = lib
+        return lib
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.us, self.count = {}, {}
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        rc = self.library().repro_trace_start(self.libcupti().encode())
+        require(rc == 0, f"the CUPTI collector did not start (code {rc})")
+        return self
+
+    def __exit__(self, *exc):
+        import ctypes
+        self.torch.cuda.synchronize()
+        lib = self.library()
+        n = lib.repro_trace_stop()
+        require(n >= 0 and lib.repro_trace_lost() == 0,
+                f"the CUPTI collector lost records (names {n}, lost "
+                f"{lib.repro_trace_lost()})")
+        name = ctypes.create_string_buffer(8192)
+        count, ns = ctypes.c_uint64(), ctypes.c_uint64()
+        for i in range(n):
+            lib.repro_trace_entry(i, name, len(name), ctypes.byref(count),
+                                  ctypes.byref(ns))
+            key = name.value.decode(errors="replace")
+            self.us[key] = self.us.get(key, 0.0) + ns.value / 1e3
+            self.count[key] = self.count.get(key, 0) + count.value
+        return False
+
+    @property
+    def n_kernels(self):
+        return sum(self.count.values())
+
+    @property
+    def busy_s(self):
+        return sum(self.us.values()) / 1e6
+
+    def kernels(self, *parts):
+        """Records whose name holds one of ``parts``."""
+        return sum(c for n, c in self.count.items()
+                   if any(part in n for part in parts))
 
 
 def profile_call(torch, run, label, warm_wall, top=6):
-    """One more warm call (``run()``) under ``torch.profiler`` (operator
-    input shapes recorded): the card's busy time (``device_busy``; one
-    stream, so kernels never overlap), its share of this call's wall time
-    and of ``warm_wall``, the same call's wall time without the profiler
-    (which slows the host), and the kernels that take the most device
-    time.  The ``sgl_prox`` kernels the profiler saw on the card, graph
-    replays included, must equal the wrapper's launch count for the same
-    call.  Returns (idle share, run's result, the profile, the launch
-    counts of the call, the busy seconds)."""
+    """One more warm call (``run()``) under ``DeviceTrace``.  Prints the
+    card's busy time (kernels, copies and sets), its share of this call's
+    wall time and of ``warm_wall``, the kernels that take the most device
+    time, and the seconds the trace took to start and, after the call, to
+    stop.  The ``sgl_prox`` kernels CUPTI saw on the card, graph replays
+    included, must equal the wrapper's launch count for the same call.
+    Returns (idle share, run's result, the ``DeviceTrace``, the launch
+    counts of the call)."""
     from repro_torch.kernels import ops
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    t_start = time.perf_counter()
+    with DeviceTrace(torch) as dev:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    stop = time.perf_counter() - t0 - wall
+    note_wall(wall)
     counts = ops.launch_counts()
     counted = counts["sgl_prox"]
-    by_name, n_kernels, n_prox, left_out = device_busy(torch, prof)
-    busy = sum(by_name.values()) / 1e6
-    say(f"[{label}] sgl_prox kernels seen by the profiler {n_prox}, "
-        f"launches counted by the wrapper {counted}")
-    require(n_prox == counted > 0, f"{label}: the profiler saw {n_prox} "
-            f"sgl_prox kernels, the wrapper counted {counted}")
-    say(f"[{label}] wall {wall:.3f} s (profiler on); device kernels, copies "
-        f"and sets {n_kernels}, device busy {busy:.3f} s; idle share "
-        f"{1 - busy / wall:.4f} of this wall, {1 - busy / warm_wall:.4f} "
-        f"of the unprofiled warm wall {warm_wall:.3f} s; device-side "
-        f"records left out, s by type: "
-        f"{json.dumps({k: v / 1e6 for k, v in sorted(left_out.items())})}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+    n_prox = dev.kernels("sgl_prox_flat_kernel")
+    busy = dev.busy_s
+    say(f"[{label}] sgl_prox kernels seen by CUPTI {n_prox}, launches "
+        f"counted by the wrapper {counted}")
+    require(busy <= wall, f"{label}: device busy {busy:.3f} s over a "
+            f"{wall:.3f} s wall on one stream (CUPTI's timestamps not in "
+            f"ns: a torch.profiler run with CUDA activity came first?)")
+    require(n_prox == counted > 0, f"{label}: CUPTI saw {n_prox} sgl_prox "
+            f"kernels, the wrapper counted {counted}")
+    say(f"[{label}] wall {wall:.3f} s (traced); device kernels, copies and "
+        f"sets {dev.n_kernels}, device busy {busy:.3f} s; idle share "
+        f"{1 - busy / wall:.4f} of this wall, {1 - busy / warm_wall:.4f} of "
+        f"the untraced warm wall {warm_wall:.3f} s; the trace's start "
+        f"{t0 - t_start:.3f} s, stop {stop:.3f} s")
+    for name, us in sorted(dev.us.items(), key=lambda kv: -kv[1])[:top]:
         say(f"[{label}]   {us / 1e3:10.3f} ms  {name[:100]}")
-    return 1 - busy / warm_wall, out, prof, counts, busy
-
-
-def busy_from_events(torch, prof, label, busy):
-    """The busy time as the event objects give it (``prof.events()``, every
-    CUDA-side event, as this script read it before) beside
-    ``device_busy``'s, on the same profile."""
-    events = [ev for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    old = sum(ev.time_range.elapsed_us() for ev in events) / 1e6
-    notes = sum(ev.time_range.elapsed_us() for ev in events
-                if getattr(ev, "is_user_annotation", False)) / 1e6
-    say(f"[{label}] device busy from prof.events() (every CUDA-side event) "
-        f"{old:.6f} s over {len(events)} events, of them user annotations "
-        f"{notes:.6f} s; from the raw trace (kernels, copies, sets) "
-        f"{busy:.6f} s; relative difference "
-        f"{abs(old - busy) / max(busy, 1e-30):.3e}")
+    return 1 - busy / warm_wall, out, dev, counts
 
 
 class ScreenRanges:
     """Inside the block, every call of ``screening._grid_group_stats`` (the
-    grid screen's group statistics) runs in a profiler range named
-    ``grid_group_stats``, so that a profile can be read for the screen."""
+    grid screen's group statistics) is counted (``calls``) and runs under a
+    function mode that records each torch function it calls with the
+    shapes of its tensor inputs (``ops``: (name, shapes)).  A function
+    mode, not a dispatch mode: the first dispatch mode of a process
+    imports ``torch._dynamo`` (seconds) inside the traced call."""
 
     def __init__(self, torch):
         self.torch = torch
+        self.calls, self.ops = 0, []
 
     def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+        from torch.utils._pytree import tree_leaves
         from repro_torch.core import screening
+        Tensor, ops = self.torch.Tensor, self.ops
+
+        class Record(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                ops.append((getattr(func, "__name__", repr(func)), [
+                    tuple(a.shape) for a in tree_leaves((args, kwargs))
+                    if isinstance(a, Tensor)]))
+                return func(*args, **kwargs)
+
         self.mod = screening
         self.orig = orig = screening._grid_group_stats
-        record = self.torch.profiler.record_function
 
         def ranged(*args, **kw):
-            with record("grid_group_stats"):
+            self.calls += 1
+            with Record():
                 return orig(*args, **kw)
 
         screening._grid_group_stats = ranged
@@ -577,43 +678,32 @@ class ScreenRanges:
         self.mod._grid_group_stats = self.orig
 
 
-def require_fused_screen(torch, prof, res, counts, spec, label,
+def require_fused_screen(dev, ranges, res, counts, spec, label,
                          per_screen=1):
-    """In a profiled call of the float32 SGL path run under
-    ``ScreenRanges``: the ``screen_norms`` kernels the profiler saw on the
-    card equal the wrapper's launches and ``per_screen`` times
-    ``EngineStats.n_pallas_screens`` (and the screen ranges; 2 under
+    """In a traced call of the float32 SGL path run under ``ScreenRanges``:
+    the ``screen_norms`` kernels CUPTI saw on the card (``dev``) equal the
+    wrapper's launches and ``per_screen`` times
+    ``EngineStats.n_pallas_screens`` (and the screen's calls; 2 under
     Gap-Safe: TLFre's grid and the Gap-Safe center row), and no operator
     inside the screen's group statistics took a tensor of the padded layout
     (., G, n_max): no gather or mask built a padded copy of the screen
     GEMM's output."""
     G, n_max = spec.pad_index.shape
-    events = list(prof.events())
-    n_dev = sum(1 for ev in events
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and ("screen_norms_small" in ev.name
-                     or "screen_norms_large" in ev.name))
-    cpu = [ev for ev in events
-           if ev.device_type == torch.autograd.DeviceType.CPU]
-    ranges = [(ev.thread, ev.time_range.start, ev.time_range.end)
-              for ev in cpu if ev.name == "grid_group_stats"]
-    inside = [ev for ev in cpu if ev.name != "grid_group_stats" and any(
-        ev.thread == t and a <= ev.time_range.start and ev.time_range.end <= b
-        for t, a, b in ranges)]
-    padded = sorted({ev.name for ev in inside
+    n_dev = dev.kernels("screen_norms_small", "screen_norms_large")
+    padded = sorted({name for name, shapes in ranges.ops
                      if any(len(sh) == 3 and list(sh[1:]) == [G, n_max]
-                            for sh in (ev.input_shapes or []))})
-    say(f"[{label}] screen_norms kernels seen by the profiler {n_dev}, "
-        f"launches counted {counts['screen_norms']}, n_pallas_screens "
-        f"{res.stats.n_pallas_screens}, screen ranges {len(ranges)}; "
+                            for sh in shapes)})
+    say(f"[{label}] screen_norms kernels seen by CUPTI {n_dev}, launches "
+        f"counted {counts['screen_norms']}, n_pallas_screens "
+        f"{res.stats.n_pallas_screens}, screen calls {ranges.calls}; "
         f"operators in the screen's group statistics "
-        f"{sorted({ev.name for ev in inside})}; of them on a (., {G}, "
+        f"{sorted({name for name, _ in ranges.ops})}; of them on a (., {G}, "
         f"{n_max}) tensor: {padded or 'none'}")
     require(n_dev == counts["screen_norms"]
-            == per_screen * res.stats.n_pallas_screens == len(ranges) > 0,
+            == per_screen * res.stats.n_pallas_screens == ranges.calls > 0,
             f"{label}: screen_norms kernels {n_dev}, launches "
             f"{counts['screen_norms']}, {per_screen} x n_pallas_screens "
-            f"{res.stats.n_pallas_screens}, screen ranges {len(ranges)}: "
+            f"{res.stats.n_pallas_screens}, screen calls {ranges.calls}: "
             f"not all equal")
     require(not padded, f"{label}: the screen built a padded copy ({padded})")
 
@@ -633,7 +723,8 @@ def graph_vs_eager(torch, T, calls, label):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        note_wall(time.perf_counter() - t0)
+        return out, CALL_WALLS[-1]
 
     eager, t_eager = timed(lambda: T.fista_sgl(*args, prox=_padded_prox(spec),
                                                **kw))
@@ -730,14 +821,12 @@ def main_path(torch, T, N=250, G=1000, n=10):
     require(len(sess.fista_graphs) == n_captures,
             "the warm call captured a graph")
     require_graph_route(warm, counts_w, calls_w, "synthetic1-f32-warm")
-    with ScreenRanges(torch):
-        idle, res_p, prof, counts_p, busy = profile_call(
+    with ScreenRanges(torch) as ranges:
+        idle, res_p, dev, counts_p = profile_call(
             torch, lambda: sess.path(plan), "synthetic1-f32-profiled",
             warm_wall)
-    require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
+    require_fused_screen(dev, ranges, res_p, counts_p, sess.problem.spec,
                          "synthetic1-f32-profiled")
-    busy_from_events(torch, prof, "synthetic1-f32-profiled", busy)
-    del prof
     say(f"[synthetic1] warm wall {warm_wall:.3f} s, idle share {idle:.4f}")
     graph_vs_eager(torch, T, calls, "synthetic1")
     from repro_torch.core.path_engine import _pow2_len
@@ -908,6 +997,7 @@ def run_cv(torch, sess, plan, label):
         res = sess.cv(plan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    note_wall(wall)
     counts = ops.launch_counts()
     st = res.stats
     say(f"[{label}] wall {wall:.3f} s = setup {res.setup_time:.3f} + screen "
@@ -1112,12 +1202,25 @@ def f64_session(torch, T, X, y, sizes, loss="squared"):
                              sizes, dtype=torch.float64))
 
 
+CALL_WALLS = []          # the wall of every call timed so far, s
+
+
+def note_wall(wall):
+    CALL_WALLS.append(wall)
+
+
 @contextlib.contextmanager
 def timed_phase(label):
-    """Prints the phase's seconds when it ends."""
+    """Prints the phase's seconds when it ends, beside the summed walls of
+    the calls it timed (``note_wall``) and the rest, spent outside them:
+    data, sessions, checks, the tracers' start and stop."""
     t0 = time.perf_counter()
+    n0 = len(CALL_WALLS)
     yield
-    say(f"[{label}] phase seconds {time.perf_counter() - t0:.3f}")
+    total = time.perf_counter() - t0
+    walls = sum(CALL_WALLS[n0:])
+    say(f"[{label}] phase seconds {total:.3f}; call walls {walls:.3f} s over "
+        f"{len(CALL_WALLS) - n0} calls; outside them {total - walls:.3f} s")
 
 
 def gapsafe_path_phase(torch, T, res_tlfre, N=250, G=1000, n=10):
@@ -1148,13 +1251,12 @@ def gapsafe_path_phase(torch, T, res_tlfre, N=250, G=1000, n=10):
             len(sess.fista_graphs) == n_captures,
             "gapsafe-sgl-f32-warm: compiled or captured")
     require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-f32-warm")
-    with ScreenRanges(torch):
-        idle, res_p, prof, counts_p, _ = profile_call(
+    with ScreenRanges(torch) as ranges:
+        idle, res_p, dev, counts_p = profile_call(
             torch, lambda: sess.path(plan), "gapsafe-sgl-f32-profiled",
             warm_wall)
-    require_fused_screen(torch, prof, res_p, counts_p, sess.problem.spec,
+    require_fused_screen(dev, ranges, res_p, counts_p, sess.problem.spec,
                          "gapsafe-sgl-f32-profiled", per_screen=2)
-    del prof
     say(f"[gapsafe-sgl] warm wall {warm_wall:.3f} s, idle share {idle:.4f}, "
         f"n_rejected {st.n_rejected}")
     sess64 = f64_session(torch, T, X, y, [n] * G)
@@ -1181,7 +1283,7 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     20): group and feature weights under TLFre and Gap-Safe (``xtv`` for
     every row; the prox and the screen statistics run plainly), then
     group weights alone under TLFre (the kernel route of phase 3); each
-    with its float64 twin at 10 lambdas against a float32 call on the
+    with its float64 twin at 20 lambdas against a float32 call on the
     same plan."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
@@ -1193,17 +1295,17 @@ def weights_phase(torch, T, N=250, G=1000, n=10):
     sess64 = f64_session(torch, T, X, y, [n] * G)
 
     def f64_twin(plan, label, **kw):
-        # the float64 twin at 10 lambdas (its bars repeat the 100-lambda
+        # the float64 twin at 20 lambdas (its bars repeat the 100-lambda
         # float32 route's), against a float32 call on the same plan
-        plan10 = plan.with_(n_lambdas=10)
-        res10 = run_path(torch, sess, plan10, f"{label}-f32-10")[0]
-        res64, counts64, _, _ = run_path(torch, sess64, plan10,
+        plan20 = plan.with_(n_lambdas=20)
+        res20 = run_path(torch, sess, plan20, f"{label}-f32-20")[0]
+        res64, counts64, _, _ = run_path(torch, sess64, plan20,
                                          f"{label}-f64")
         require_no_kernel(counts64, f"{label}-f64")
         spec = sess._effective(plan)[1]
-        compare_paths(res10, res64, plan10, spec_objectives(
-            X, y, spec, 1.0, res10.lambdas), label)
-        require_discards(torch, T, sess, res10, res64, plan10, label,
+        compare_paths(res20, res64, plan20, spec_objectives(
+            X, y, spec, 1.0, res20.lambdas), label)
+        require_discards(torch, T, sess, res20, res64, plan20, label,
                          spec=spec, **kw)
 
     out = {}
@@ -1265,7 +1367,7 @@ def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     """Phase 6's plan with ``screen='gapsafe'``: two ``screen_norms_folds``
     launches a stacked screen (TLFre's K x L rows, Gap-Safe's K rows),
     ``sgl_prox`` on graphed blocks, ``xtv``; cold, warm; float64 against
-    float32 at 10 lambdas."""
+    float32 at 20 lambdas."""
     from repro_torch.data_synth import synthetic_sgl
     X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
     plan = T.Plan(**CV_PLAN, screen="gapsafe")
@@ -1290,15 +1392,15 @@ def gapsafe_sgl_cv_phase(torch, T, N=250, G=1000, n=10):
     require_graph_route(warm, counts_w, calls_w, "gapsafe-sgl-cv-f32-warm")
     say(f"[gapsafe-sgl-cv] warm wall {warm_wall:.3f} s, n_rejected "
         f"{st.n_rejected}")
-    # the float64 twin at 10 lambdas (its bars repeat phase 6's at 100),
+    # the float64 twin at 20 lambdas (its bars repeat phase 6's at 100),
     # against a float32 call on the same plan
-    plan10 = plan.with_(n_lambdas=10)
-    res10, _, _, _ = run_cv(torch, sess, plan10, "gapsafe-sgl-cv-f32-10")
+    plan20 = plan.with_(n_lambdas=20)
+    res20, _, _, _ = run_cv(torch, sess, plan20, "gapsafe-sgl-cv-f32-20")
     sess64 = f64_session(torch, T, X, y, [n] * G)
-    res64, counts64, _, _ = run_cv(torch, sess64, plan10,
+    res64, counts64, _, _ = run_cv(torch, sess64, plan20,
                                    "gapsafe-sgl-cv-f64")
     require_no_kernel(counts64, "gapsafe-sgl-cv-f64")
-    compare_cv(res10, res64, "gapsafe-sgl-cv")
+    compare_cv(res20, res64, "gapsafe-sgl-cv")
     return counts
 
 
@@ -1413,6 +1515,7 @@ def run_legacy(torch, sess, plan, label):
         res = sess.path(plan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    note_wall(wall)
     counts = ops.launch_counts()
     iters = int(res.iters.sum())
     screens = int((res.lambdas < res.lam_max * (1.0 - 1e-12)).sum())
@@ -1535,6 +1638,7 @@ def run_counted(torch, label, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    note_wall(wall)
     counts = ops.launch_counts()
     say(f"[{label}] wall {wall:.3f} s; graphed FISTA iterations "
         f"{calls.iters} in {calls.solves} solves; launches "
@@ -1630,23 +1734,23 @@ def refine_phase(torch, T, N=250, G=1000, n=10):
     say(f"[refine] warm cv {walls[0]:.3f} s + refine {walls[1]:.3f} s + "
         f"refine by 3 {walls[2]:.3f} s")
 
-    # float64 reference at 10 lambdas: both dtypes on float64's coarse grid
+    # float64 reference at 20 lambdas: both dtypes on float64's coarse grid
     # and around float64's selection, so that the fine grids are equal
-    plan10 = plan.with_(n_lambdas=10)
+    plan20 = plan.with_(n_lambdas=20)
     sess64 = f64_session(torch, T, X, y, [n] * G)
     cv64, counts64, _, _ = run_counted(torch, "refine-cv-f64",
-                                       lambda: sess64.cv(plan10))
+                                       lambda: sess64.cv(plan20))
     ref64, counts64r, _, _ = run_counted(
         torch, "refine-f64", lambda: sess64.refine(
             around=cv64.best_lambda, factor=10.0))
     require_no_kernel(counts64, "refine-cv-f64")
     require_no_kernel(counts64r, "refine-f64")
-    cv32 = sess.cv(plan10.with_(lambdas=cv64.lambdas))
+    cv32 = sess.cv(plan20.with_(lambdas=cv64.lambdas))
     ref32 = sess.refine(around=cv64.best_lambda, factor=10.0)
-    compare_cv(cv32, cv64, "refine-coarse-10")
+    compare_cv(cv32, cv64, "refine-coarse-20")
     require(np.allclose(ref32.fine.lambdas, ref64.fine.lambdas, rtol=1e-12),
-            "refine-10: the fine grids differ")
-    compare_cv(ref32.fine, ref64.fine, "refine-10")
+            "refine-20: the fine grids differ")
+    compare_cv(ref32.fine, ref64.fine, "refine-20")
 
     Xn, yn, _ = synthetic_nn(1, N=N, p=G * n, seed=1)
     plan_nn = T.Plan(**CV_PLAN).with_(n_lambdas=20)
@@ -1778,7 +1882,7 @@ def stability_phase(torch, T, N=250, G=1000, n=10):
             "stability-f32-warm: probabilities differ from the cold call's")
     say(f"[stability] cold {wall:.3f} s, warm {wall_w:.3f} s")
 
-    small = plan.with_(n_subsamples=5, n_lambdas=10)
+    small = plan.with_(n_subsamples=10, n_lambdas=10)
     sess64 = f64_session(torch, T, X, y, [n] * G)
     with FoldBetas() as rec64:
         s64, counts64, _, _ = run_counted(torch, "stability-f64",
@@ -1794,7 +1898,7 @@ def stability_phase(torch, T, N=250, G=1000, n=10):
     band = 1e-2 * float(np.abs(b64).max()) + tol
     worst = float(np.abs(b64[flips]).max()) if flips.any() else 0.0
     dprob = float(np.abs(s32.selection_probs - s64.selection_probs).max())
-    say(f"[stability] f32 vs f64 (5 subsamples, 10 lambdas): "
+    say(f"[stability] f32 vs f64 (10 subsamples, 10 lambdas): "
         f"{int(flips.sum())} of {flips.size} (subsample, lambda, feature) "
         f"activity decisions differ, at float64 |beta| <= {worst:.3e} "
         f"(bound 1e-2 * max|beta| + active_tol = {band:.3e}); max "
@@ -2259,19 +2363,19 @@ def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
         f"{idle:.4f}")
     lap("Synthetic-1 float32, cold, warm, profiled")
 
-    plan10 = plan.with_(n_lambdas=10, feature_shards=0)
+    plan20 = plan.with_(n_lambdas=20, feature_shards=0)
     sess64 = f64_session(torch, T, X, y, sizes)
     (r64, c64, _, _), (r64s, c64s, _, _), _ = pair(
-        "synthetic1-f64-10", run_path, sess64, plan10)
+        "synthetic1-f64-20", run_path, sess64, plan20)
     dbeta = float(np.abs(r64s.betas - r64.betas).max())
-    say(f"[sharded-synthetic1-f64-10] max|beta_sharded - beta_unsharded| "
+    say(f"[sharded-synthetic1-f64-20] max|beta_sharded - beta_unsharded| "
         f"= {dbeta:.3e} (bound 1e-12); kept sets equal "
         f"{np.array_equal(r64s.kept_features, r64.kept_features)}")
     require(sum(c64.values()) == sum(c64s.values()) == 0,
             "a float64 path launched a kernel")
     require(np.array_equal(r64s.kept_features, r64.kept_features) and
             np.array_equal(r64s.kept_groups, r64.kept_groups) and
-            dbeta <= 1e-12, "sharded-synthetic1-f64-10: the sharded float64 "
+            dbeta <= 1e-12, "sharded-synthetic1-f64-20: the sharded float64 "
             "path is not the unsharded one")
     del sess64
     lap("Synthetic-1 float64 twins")
@@ -2506,6 +2610,7 @@ def run_ranks(target, world, args, load, label, timeout=300.0):
                     p.kill()
                     p.join(10)
         wall = time.perf_counter() - t0
+        note_wall(wall)
         codes = [p.exitcode for p in procs]
         require(not alive, f"{label}: ranks {alive} still running after "
                 f"{timeout} s")
@@ -2764,7 +2869,6 @@ def lm_example_phase(torch, dev="cuda"):
     pruning-threshold curve in float32 on the kernel route and its float64
     twin.  Returns (run, curve launch counts, graphed-solve record)."""
     from repro_torch.examples import sgl_pruned_lm as ex
-    from repro_torch.kernels import ops
     from repro_torch.sparsity import group_reg
     times = []
     torch.cuda.synchronize()
@@ -2791,37 +2895,48 @@ def lm_example_phase(torch, dev="cuda"):
         heads = group_reg.group_sparsity_stats(blocks[lname]["attn"]["wq"], 2)
         say(f"[lm-example] {lname} FFN channels {json.dumps(ffn)}; heads "
             f"{json.dumps(heads)}")
-    res, surv = run["curve"], run["surviving"]
+    require_curve(torch, run["curve"], run["surviving"], run["signal"],
+                  counts, calls, "lm-curve", dev)
+    return run, counts, calls
+
+
+def require_curve(torch, res, surv, signal, counts, calls, label, dev):
+    """A pruning-threshold curve in float32 on the card: ``xtv`` once a row
+    certified, ``screen_norms`` once a screen (``n_pallas_screens``),
+    ``sgl_prox`` once a FISTA iteration through graphed blocks, no other
+    kernel; its float64 twin (no kernel) keeps the same channels on every
+    row."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.kernels import ops
     st = res.stats
     rows = rows_run(res)
-    say(f"[lm-curve] f32 on the card: {len(res.lambdas)} lambdas, "
-        f"surviving channels {surv.tolist()}; rows certified {rows}, "
-        f"n_screens {st.n_screens} n_pallas_screens {st.n_pallas_screens} "
-        f"fista iterations {st.fista_iters} (graphed {calls.iters}, eager "
-        f"solves {calls.eager_solves}) n_rejected {st.n_rejected}; "
-        f"launches {json.dumps(counts)}")
-    require_only(counts, "lm-curve", PATH_KERNELS)
+    say(f"[{label}] f32 on the card: {len(res.lambdas)} lambdas over "
+        f"{len(signal)} channels, surviving channels {surv.tolist()}; rows "
+        f"certified {rows}, n_screens {st.n_screens} n_pallas_screens "
+        f"{st.n_pallas_screens} fista iterations {st.fista_iters} (graphed "
+        f"{calls.iters}, eager solves {calls.eager_solves}) n_rejected "
+        f"{st.n_rejected}; launches {json.dumps(counts)}")
+    require_only(counts, label, PATH_KERNELS)
     require(counts["xtv"] == rows == calls.rows > 0,
-            f"lm-curve: xtv launches {counts['xtv']}, rows certified {rows}, "
+            f"{label}: xtv launches {counts['xtv']}, rows certified {rows}, "
             f"rows solved {calls.rows}")
     require(counts["screen_norms"] == st.n_pallas_screens == st.n_screens,
-            f"lm-curve: screen_norms launches {counts['screen_norms']}, "
+            f"{label}: screen_norms launches {counts['screen_norms']}, "
             f"n_pallas_screens {st.n_pallas_screens}")
     require(counts["sgl_prox"] == st.fista_iters == calls.iters > 0
             and calls.eager_solves == 0,
-            f"lm-curve: sgl_prox launches {counts['sgl_prox']}, FISTA "
+            f"{label}: sgl_prox launches {counts['sgl_prox']}, FISTA "
             f"iterations {st.fista_iters}, graphed {calls.iters}")
     ops.reset_launch_counts()
-    res64, surv64 = ex.pruning_threshold_curve(run["signal"], device=dev,
+    res64, surv64 = ex.pruning_threshold_curve(signal, device=dev,
                                                dtype=torch.float64)
     require(sum(ops.launch_counts().values()) == 0,
-            "lm-curve: the float64 twin launched a kernel")
-    say(f"[lm-curve] f64 twin surviving channels {surv64.tolist()}; "
+            f"{label}: the float64 twin launched a kernel")
+    say(f"[{label}] f64 twin surviving channels {surv64.tolist()}; "
         f"max|beta_f32 - beta_f64| "
         f"{float(np.abs(res.betas - res64.betas).max()):.3e}")
     require(np.array_equal(surv, surv64),
-            "lm-curve: the float32 and float64 curves keep other channels")
-    return run, counts, calls
+            f"{label}: the float32 and float64 curves keep other channels")
 
 
 def lm_full_width_phase(torch, dev="cuda"):
@@ -2944,10 +3059,199 @@ def lm_resume_phase(torch, losses, dev="cuda"):
             "lm-resume: the resumed losses differ")
 
 
-def lm_phase(torch, T):
-    """Phase 21.  Returns (the curve's launch counts, each kernel's check
-    at the curve's shapes)."""
+def lm_moe_train_phase(torch, dev="cuda"):
+    """(e) ``granite-moe-1b-a400m`` at its published width and depth
+    through ``train.main``, float32, 4 steps at B 4, S 256, the SGL prox
+    on.  Returns its trained ``ffn/w_in`` channel signal (the example's
+    ``ffn_channel_signal``: one norm a channel of ``moe_d_ff``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    cfg = get_config("granite-moe-1b-a400m")
+    times, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, state = train_mod.main(
+        ["--arch", cfg.name, "--steps", "4", "--global-batch", "4",
+         "--seq", "256", "--lr", "3e-4", "--sgl-lambda", "3e-4",
+         "--log-every", "1", "--device", dev], return_state=True,
+        step_times=times, step_metrics=metrics)
+    peak = torch.cuda.max_memory_allocated()
+    pb = state.params["blocks"]["l0"]
+    zeros = {"wq": _zeros(pb["attn"]["wq"]), "w_in": _zeros(pb["ffn"]["w_in"])}
+    first, med, tok_s = _step_stats(times, 4 * 256)
+    aux = [m["aux"] for m in metrics]
+    say(f"[lm-granite-moe] {model_lib.param_count(cfg)} parameters, "
+        f"{cfg.num_experts} experts top {cfg.experts_per_token}, float32, "
+        f"B 4, S 256: losses {[round(l, 4) for l in losses]}, aux "
+        f"{[round(a, 4) for a in aux]}; train step first {first:.1f} ms, "
+        f"median of the rest {med:.1f} ms = {tok_s:.0f} tokens/s; peak "
+        f"device memory {peak / 2**30:.3f} GiB; exact zeros after the prox: "
+        f"wq (head groups) {zeros['wq']}, w_in (expert groups) "
+        f"{zeros['w_in']}")
+    require(len(losses) == 4 and np.isfinite(losses).all()
+            and np.isfinite(aux).all(), "lm-granite-moe: non-finite losses")
+    require(zeros["wq"] > 0 and zeros["w_in"] > 0,
+            "lm-granite-moe: the SGL prox left no zero in its groups")
+    signal = ex.ffn_channel_signal(state.params)
+    require(signal.shape == (cfg.moe_d_ff,),
+            f"lm-granite-moe: channel signal of shape {signal.shape}")
+    del state, pb
+    gc.collect()         # free the state before (g) reads its peak
+    torch.cuda.empty_cache()
+    return signal
+
+
+def lm_moe_curve_phase(torch, signal, dev="cuda"):
+    """(f) The pruning-threshold curve of (e)'s trained expert channels
+    (G = ``moe_d_ff`` = 512) through ``pruning_threshold_curve``, with the
+    gates of (a)'s curve.  Returns (launch counts, graphed-solve record,
+    the curve)."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    (res, surv), counts, _, calls = run_counted(
+        torch, "lm-moe-curve",
+        lambda: ex.pruning_threshold_curve(signal, device=dev))
+    require_curve(torch, res, surv, signal, counts, calls, "lm-moe-curve",
+                  dev)
+    return counts, calls, res
+
+
+def lm_mla_serve_phase(torch, dev="cuda"):
+    """(g) ``serve.main`` on ``minicpm3-4b`` at its published width and
+    depth (batch 4, prompt 16, gen 32, cache 128; the absorbed MLA decode
+    over the latent cache); then the absorbed decode of 16 tokens against
+    the expanded full forward on the same weights (B 1): within
+    ``1e-3 * max|logits|``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_lib
+    cfg = get_config("minicpm3-4b")
+    lat = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = serve_mod.main(["--arch", cfg.name, "--batch", "4",
+                          "--prompt-len", "16", "--gen", "32", "--cache-len",
+                          "128", "--device", dev], latencies=lat)
+    peak = torch.cuda.max_memory_allocated()
+    warm = np.asarray(lat[1:]) * 1e3
+    p50, p99 = np.percentile(warm, 50), np.percentile(warm, 99)
+    tok_s = 4 * len(warm) / (warm.sum() / 1e3)
+    say(f"[lm-minicpm3] {model_lib.param_count(cfg)} parameters, float32 "
+        f"batch 4, cache 128: per-step p50 {p50:.3f} ms p99 {p99:.3f} ms "
+        f"(warm; first step {1e3 * lat[0]:.3f} ms), {tok_s:.1f} tokens/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    require(gen.shape == (4, 32) and ((gen >= 0) & (gen < cfg.vocab_size))
+            .all(), "lm-minicpm3: wrong generated tokens")
+    torch.cuda.empty_cache()
+
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(0))
+    T_ = 16
+    toks = torch.as_tensor(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (1, T_)), device=dev)
+    with torch.no_grad():
+        x = model_lib.embed_tokens(params, cfg, toks, torch.float32)
+        x, _, _ = model_lib.decoder_stack(params, x, torch.arange(
+            T_, device=dev), cfg, remat="none")
+        full = model_lib.logits_fn(params, cfg, model_lib.rms_norm(
+            x, params["final_norm"], cfg.norm_eps))
+        caches = model_lib.init_cache(cfg, 1, T_, torch.float32, device=dev)
+        errs = torch.zeros(T_, device=dev)
+        for t in range(T_):
+            logits, caches = model_lib.forward_decode(
+                params, cfg, caches, toks[:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            errs[t] = (logits[:, 0] - full[:, t]).abs().max()
+    err, scale = float(errs.max()), float(full.abs().max())
+    say(f"[lm-minicpm3] absorbed decode against the expanded full forward, "
+        f"B 1, T {T_}, full width: max|logits diff| {err:.3e}, max|logits| "
+        f"{scale:.3e}, bar 1e-3 * max|logits| = {1e-3 * scale:.3e}")
+    require(err < 1e-3 * scale,
+            "lm-minicpm3: the absorbed decode disagrees with the expanded "
+            "forward")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(p50_ms=p50, p99_ms=p99, tokens_per_s=tok_s, decode_err=err)
+
+
+def lm_deepseek_phase(torch, dev="cuda"):
+    """(h) ``deepseek-v2-236b`` ``reduced()`` (a dense prologue layer, MLA,
+    8 routed experts top 2 and 2 shared): 3 train steps (finite losses, aux
+    > 0); decode of T 48 against the full forward at
+    ``capacity_factor=None``, within 1e-4; the MoE layer called twice on
+    the same input gives the same bits."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("deepseek-v2-236b").reduced()
+    metrics = []
+    losses = train_mod.main(
+        ["--arch", "deepseek-v2-236b", "--smoke", "--steps", "3",
+         "--global-batch", "4", "--seq", "64", "--lr", "1e-3",
+         "--sgl-lambda", "3e-4", "--log-every", "1", "--device", dev],
+        step_metrics=metrics)
+    aux = [m["aux"] for m in metrics]
+    say(f"[lm-deepseek-v2] reduced, float32: losses "
+        f"{[round(l, 4) for l in losses]}, aux {[round(a, 4) for a in aux]}")
+    require(len(losses) == 3 and np.isfinite(losses).all()
+            and min(aux) > 0, "lm-deepseek-v2: non-finite losses or no aux")
+
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(2))
+    B, T_ = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (B, T_)), device=dev)
+    with torch.no_grad():
+        x = model_lib.embed_tokens(params, cfg, toks, torch.float32)
+        x, _, _ = model_lib.decoder_stack(params, x, torch.arange(
+            T_, device=dev), cfg, remat="none", capacity_factor=None)
+        full = model_lib.logits_fn(params, cfg, model_lib.rms_norm(
+            x, params["final_norm"], cfg.norm_eps))
+        caches = model_lib.init_cache(cfg, B, 64, torch.float32, device=dev)
+        errs = torch.zeros(T_, device=dev)
+        for t in range(T_):
+            logits, caches = model_lib.forward_decode(
+                params, cfg, caches, toks[:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            errs[t] = (logits[:, 0] - full[:, t]).abs().max()
+        ffn = {k: v[0] for k, v in params["blocks"]["l0"]["ffn"].items()}
+        h = torch.randn((4, 64, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        once, aux1 = moe_mod.moe_forward(ffn, h, cfg)
+        twice, aux2 = moe_mod.moe_forward(ffn, h, cfg)
+    err = float(errs.max())
+    same = bool(torch.equal(once, twice) and torch.equal(aux1, aux2))
+    say(f"[lm-deepseek-v2] decode against the full forward (lossless "
+        f"dispatch), T {T_}: max|logits diff| {err:.3e} (bar 1e-4); the "
+        f"MoE layer twice on (4, 64, {cfg.d_model}): bitwise equal {same}")
+    require(err < 1e-4, "lm-deepseek-v2: decode disagrees with the full "
+            "forward")
+    require(same, "lm-deepseek-v2: two calls of the MoE layer differ")
+
+
+def curve_checks(torch, T, res, calls, label):
+    """``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
+    versions at a pruning curve's shapes: X = eye(G), the first screen's
+    padded grid, the prox bucket that ran the most iterations."""
     from repro_torch.core.path_engine import _pow2_len
+    G = res.betas.shape[1]
+    spec = T.GroupSpec.uniform_groups(G, 1, device="cuda")
+    return {
+        "xtv": check_xtv(torch, torch.eye(G, device="cuda"), label),
+        "screen_norms": check_screen_norms(
+            torch, _pow2_len(len(res.lambdas) - 1), spec, label),
+        "sgl_prox": check_sgl_prox(torch, calls.busiest_spec,
+                                   f"{label}-bucket"),
+    }
+
+
+def lm_phase(torch, T):
+    """Phase 21.  Returns (the launch counts of each pruning curve, by
+    path; each kernel's checks at the curves' shapes, by curve)."""
     with timed_phase("lm-example"):
         run, counts, calls = lm_example_phase(torch)
     losses = run["losses"]
@@ -2959,17 +3263,23 @@ def lm_phase(torch, T):
         lm_serve_phase(torch)
     with timed_phase("lm-resume"):
         lm_resume_phase(torch, losses)
+    with timed_phase("lm-granite-moe"):
+        signal = lm_moe_train_phase(torch)
+    with timed_phase("lm-moe-curve"):
+        counts_moe, calls_moe, res_moe = lm_moe_curve_phase(torch, signal)
+    with timed_phase("lm-minicpm3"):
+        lm_mla_serve_phase(torch)
+    with timed_phase("lm-deepseek-v2"):
+        lm_deepseek_phase(torch)
     torch.cuda.empty_cache()
-    G = res.betas.shape[1]
-    spec = T.GroupSpec.uniform_groups(G, 1, device="cuda")
-    checks = {
-        "xtv": check_xtv(torch, torch.eye(G, device="cuda"), "lm-curve"),
-        "screen_norms": check_screen_norms(
-            torch, _pow2_len(len(res.lambdas) - 1), spec, "lm-curve"),
-        "sgl_prox": check_sgl_prox(torch, calls.busiest_spec,
-                                   "lm-curve-bucket"),
-    }
-    return counts, checks
+    checks = {}
+    for key, (r, c, label) in {"lm_curve": (res, calls, "lm-curve"),
+                               "lm_moe_curve": (res_moe, calls_moe,
+                                                "lm-moe-curve")}.items():
+        for name, row in curve_checks(torch, T, r, c, label).items():
+            checks.setdefault(name, {})[key] = row
+    return {"lm-pruning-curve": counts,
+            "lm-moe-pruning-curve": counts_moe}, checks
 
 
 # ---------------------------------------------------------------------------
@@ -3429,14 +3739,15 @@ def main() -> int:
         audit.close()
         audit_phase(audit)
     with timed_phase("lm"):
-        new_paths["lm-pruning-curve"], lm_checks = lm_phase(torch, T)
+        lm_paths, lm_checks = lm_phase(torch, T)
+    new_paths.update(lm_paths)
     with timed_phase("kernels"):
         rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
                              snf_shape, dsf_shape)
     for name, by_input in sharded_checks.items():
         rows[name]["sharded"] = by_input     # at the sharded route's inputs
-    for name, by_input in lm_checks.items():
-        rows[name]["lm_curve"] = by_input    # at the pruning curve's inputs
+    for name, by_curve in lm_checks.items():
+        rows[name].update(by_curve)          # at the pruning curves' inputs
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,

@@ -21,9 +21,9 @@ backend; the feature group uses the default backend, with a ``gloo`` twin
 for its host gathers when that backend is not ``gloo``.
 
 Not ported: ``make_production_mesh`` and ``make_local_mesh`` build the
-LM zoo's (data, model) meshes, and wait for it (ROADMAP item 15);
-``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only the XLA
-resource audit, which has no counterpart here (ROADMAP item 14).
+LM zoo's (data, model) meshes, and wait for its sharding rules (ROADMAP
+item 41); ``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only
+the XLA resource audit, which has no counterpart here (ROADMAP item 14).
 """
 from __future__ import annotations
 

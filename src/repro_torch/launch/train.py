@@ -87,10 +87,12 @@ def sgl_prox_step(params, cfg, t_lam1, t_lam2):
     return params
 
 
-def main(argv=None, return_state=False, step_times=None):
+def main(argv=None, return_state=False, step_times=None, step_metrics=None):
     """Train; returns the losses (and the final ``TrainState`` with
     ``return_state``).  ``step_times``, a list, receives each step's
-    seconds (the step alone, as the log prints them)."""
+    seconds (the step alone, as the log prints them); ``step_metrics``, a
+    list, each step's ``loss``, ``ce`` and ``aux`` (the MoE's
+    load-balancing loss, 0 without experts) as floats."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -155,6 +157,10 @@ def main(argv=None, return_state=False, step_times=None):
             dt = time.perf_counter() - t0
             if step_times is not None:
                 step_times.append(dt)
+            if step_metrics is not None:
+                step_metrics.append({"loss": loss,
+                                     "ce": float(metrics["ce"]),
+                                     "aux": float(metrics["aux"])})
             if args.sgl_lambda > 0:
                 sgl_prox_step(state.params, cfg, t_l1, t_l2)
             slow = dog.observe(dt)

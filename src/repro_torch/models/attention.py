@@ -1,5 +1,5 @@
-"""Attention: GQA with local windows, softcap and qk-norm (PyTorch port of
-the GQA half of ``repro.models.attention``).
+"""Attention: GQA with local windows, softcap and qk-norm, and MLA with its
+latent cache (PyTorch port of ``repro.models.attention``).
 
 Two execution strategies, as in the reference:
   * ``einsum`` — materialises (B, KV, rep, Sq, Skv) scores; short S / decode.
@@ -10,8 +10,11 @@ Two execution strategies, as in the reference:
 The scores stay plain torch ops: gemma2's soft-capped scores and the ring
 buffer's positions are outside ``F.scaled_dot_product_attention``.
 
-MLA (``mla_descs``, ``mla_forward``, ``MLACache``) waits for ROADMAP item
-35; ``models.model.check_supported`` refuses it.
+MLA (``mla_forward``) runs the expanded form for train and prefill, through
+``sdpa`` with a value head dim other than the query's, and the absorbed
+form for decode: ``W_uk`` folded into the query and ``W_uv`` into the
+output, so attention reads the latent cache ``(B, S, kv_lora_rank)`` plus
+``(B, S, qk_rope_head_dim)`` and never expands it a head.
 """
 from __future__ import annotations
 
@@ -45,6 +48,26 @@ def gqa_descs(cfg):
     if cfg.qk_norm:
         descs["q_norm"] = ParamDesc((dh,), (None,), scale=0.0)
         descs["k_norm"] = ParamDesc((dh,), (None,), scale=0.0)
+    return descs
+
+
+def mla_descs(cfg):
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rp, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    descs = {
+        "wkv_a": ParamDesc((d, kvr + rp), ("embed", None)),
+        "kv_norm": ParamDesc((kvr,), (None,), scale=0.0),
+        "wk_b": ParamDesc((kvr, H, nope), (None, "heads", None)),
+        "wv_b": ParamDesc((kvr, H, vd), (None, "heads", None)),
+        "wo": ParamDesc((H, vd, d), ("heads", None, "embed")),
+    }
+    if qr > 0:
+        descs["wq_a"] = ParamDesc((d, qr), ("embed", None))
+        descs["q_norm"] = ParamDesc((qr,), (None,), scale=0.0)
+        descs["wq_b"] = ParamDesc((qr, H, nope + rp), (None, "heads", None))
+    else:
+        descs["wq"] = ParamDesc((d, H, nope + rp), ("embed", "heads", None))
     return descs
 
 
@@ -221,3 +244,80 @@ def gqa_cache_shape(cfg, batch, cache_len, window=None):
     """Shape of one layer's k (and v) cache."""
     S = min(cache_len, window) if window is not None else cache_len
     return (batch, S, cfg.num_kv_heads, cfg.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# MLA layer — latent KV cache (kv_lora + rope dims per token)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor      # (B, S, kv_lora_rank)
+    krope: torch.Tensor    # (B, S, qk_rope_head_dim), rope applied
+
+
+def mla_forward(p, x, positions, cfg, *, cache: Optional[MLACache] = None,
+                cache_pos=None, force_impl=None):
+    """x: (B, S, d).  Training/prefill (the expanded form) when cache is
+    None; decode (the absorbed form) otherwise, with the contract of
+    ``gqa_forward``: one token a step, ``cache_pos`` an int, the step's
+    latent and rope key written into the cache in place.  Slots past
+    ``cache_pos`` are masked (no ring)."""
+    B, S, d = x.shape
+    nope, rp = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    kvr = cfg.kv_lora_rank
+    w = lambda name: p[name].to(x.dtype)
+
+    if cfg.q_lora_rank > 0:
+        qa = rms_norm(x @ w("wq_a"), p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", qa, w("wq_b"))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = x @ w("wkv_a")                                  # (B, S, kvr + rp)
+    ckv = rms_norm(kv_a[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    krope = rope(kv_a[..., kvr:][:, :, None, :], positions,
+                 cfg.rope_theta)[:, :, 0, :]               # (B, S, rp)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    scale = (nope + rp) ** -0.5
+
+    if cache is None:
+        # the expanded form: the softmax pipeline needs per-position K/V
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, w("wk_b"))
+        val = torch.einsum("bsr,rhk->bshk", ckv, w("wv_b"))
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+            k_nope.shape[:3] + (rp,))], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = sdpa(qq, k, val, positions, positions, window=None, scale=scale,
+                 cap=cfg.attn_softcap, force_impl=force_impl)
+        out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), w("wo"))
+        return out, None
+
+    # the absorbed decode:
+    #   score_h(t) = <W_uk_h^T q_nope_h, c_t> + <q_rope_h, k_rope_t>
+    #   out_h      = W_uv_h (sum_t p_h(t) c_t)
+    if S != 1:
+        raise ValueError(f"decode takes one token a step, got S={S}")
+    cache_pos = int(cache_pos)
+    cache.ckv[:, cache_pos] = ckv[:, 0].to(cache.ckv.dtype)
+    cache.krope[:, cache_pos] = krope[:, 0].to(cache.krope.dtype)
+    ckv_all = cache.ckv.to(x.dtype)
+    k_pos = torch.arange(ckv_all.shape[1], device=x.device)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w("wk_b"))
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ckv_all)
+         + torch.einsum("bshk,btk->bhst", q_rope,
+                        cache.krope.to(x.dtype))).to(torch.float32) * scale
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    s = torch.where((k_pos <= cache_pos)[None, None, None, :], s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btr->bshr", prob, ckv_all)
+    o = torch.einsum("bshr,rhv->bshv", o_lat, w("wv_b"))
+    out = torch.einsum("bshv,hvd->bsd", o, w("wo"))
+    return out, cache
+
+
+def mla_cache_shape(cfg, batch, cache_len):
+    """Shapes of one layer's latent cache: (ckv, krope)."""
+    return ((batch, cache_len, cfg.kv_lora_rank),
+            (batch, cache_len, cfg.qk_rope_head_dim))

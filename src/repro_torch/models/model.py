@@ -1,8 +1,9 @@
-"""Model assembly for the dense decoder family: parameter trees, the layer
-stack, train / prefill / decode (PyTorch port of the dense path of
-``repro.models.model``).
+"""Model assembly for the attention decoders (dense, MLA and MoE):
+parameter trees, the layer stack, train / prefill / decode (PyTorch port of
+the decoder path of ``repro.models.model``).
 
-The layer stack is ``repeats`` copies of the ``block_pattern`` period.  Each
+The layer stack is the unrolled ``prologue`` layers (``pro{i}``), then
+``repeats`` copies of the ``block_pattern`` period.  Each
 parameter keeps the reference's name and stacked shape (``blocks.l0.attn.wq``
 is ``(R, d, H, dh)``), and ``decoder_stack`` unbinds each stacked leaf once
 a forward and loops over ``r in range(repeats)`` on those slices.  Indexing
@@ -12,11 +13,14 @@ stacked leaves: an SGL weight group spans every copy of its layer, the init
 fan-in counts the stack axis, and checkpoint leaves come in the reference's
 order.
 
-Covered: block kinds ``attn``, ``local`` and ``global`` with ``qk_norm``,
-``rope_theta_local``, tied or untied heads and the four MLP activations
-(``gemma2-2b``, ``gemma3-12b``, ``nemotron-4-340b``).  Every other family or
+Covered: block kinds ``attn``, ``local``, ``global``, ``dense_ffn_attn``
+and ``moe`` with ``qk_norm``, ``rope_theta_local``, tied or untied heads,
+the four MLP activations, MLA attention and the MoE FFN with shared experts
+(``gemma2-2b``, ``gemma3-12b``, ``nemotron-4-340b``, ``minicpm3-4b``,
+``granite-moe-1b-a400m``, ``deepseek-v2-236b``).  Every other family or
 kind raises ``NotImplementedError`` naming its ROADMAP item.  The decode
-cache is a nested dict of stacked ``KVCache`` tensors, written in place.
+cache is a nested dict of stacked ``KVCache`` (or, under MLA, ``MLACache``)
+tensors, written in place, and a ``prologue`` list of unstacked ones.
 """
 from __future__ import annotations
 
@@ -34,15 +38,12 @@ from ..pytree import flatten, plain_structure, tree_map, unflatten
 from .common import ParamDesc, rms_norm, softcap, tree_init
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 
-ATTN_KINDS = ("attn", "local", "global")
+ATTN_KINDS = ("attn", "local", "global", "dense_ffn_attn", "moe")
 
 # what the port does not build yet, and the ROADMAP item that ports it
 NOT_PORTED = {
-    "mla": "MLA attention (ROADMAP item 35)",
-    "moe": "MoE (models/moe.py, ROADMAP item 36)",
-    "dense_ffn_attn": "the dense prologue of MoE models (ROADMAP item 36)",
-    "prologue": "the dense prologue of MoE models (ROADMAP item 36)",
     "mamba": "Mamba2 (models/ssm.py, ROADMAP item 37)",
     "mamba+shared_attn": "Mamba2 with shared attention (ROADMAP item 37)",
     "mlstm": "xLSTM (models/xlstm.py, ROADMAP item 38)",
@@ -61,11 +62,8 @@ def check_supported(cfg: ArchConfig) -> None:
         parts.append("encdec")
     if cfg.frontend is not None:
         parts.append(cfg.frontend)
-    if cfg.mla:
-        parts.append("mla")
-    if cfg.prologue:
-        parts.append("prologue")
-    parts += [k for k in cfg.block_pattern if k not in ATTN_KINDS]
+    parts += [k for k in cfg.prologue + cfg.block_pattern
+              if k not in ATTN_KINDS]
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {NOT_PORTED.get(parts[0], parts[0])} is not "
@@ -85,8 +83,10 @@ def refuse_mesh(mesh, seq_shard) -> None:
 def _block_descs(cfg: ArchConfig, kind: str):
     d = cfg.d_model
     ln = lambda: ParamDesc((d,), (None,), scale=0.0)
-    return {"ln1": ln(), "ln2": ln(), "attn": attn.gqa_descs(cfg),
-            "ffn": mlp_mod.mlp_descs(cfg)}
+    return {"ln1": ln(), "ln2": ln(),
+            "attn": attn.mla_descs(cfg) if cfg.mla else attn.gqa_descs(cfg),
+            "ffn": moe_mod.moe_descs(cfg) if kind == "moe"
+            else mlp_mod.mlp_descs(cfg)}
 
 
 def _stack_descs(descs, n):
@@ -104,6 +104,8 @@ def param_descs(cfg: ArchConfig):
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamDesc((d, V), ("embed", "vocab"))
+    for i, kind in enumerate(cfg.prologue):
+        tree[f"pro{i}"] = _block_descs(cfg, kind)
     period = {f"l{i}": _block_descs(cfg, kind)
               for i, kind in enumerate(cfg.block_pattern)}
     tree["blocks"] = _stack_descs(period, cfg.repeats)
@@ -125,20 +127,29 @@ def param_count(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
-                    cache_pos=None):
-    """Returns (x, new_cache, aux); aux is 0 for dense layers."""
+                    cache_pos=None, capacity_factor=1.25):
+    """Returns (x, new_cache, aux); aux is the MoE's load-balancing loss, 0
+    for dense layers."""
     window = cfg.window_size if kind == "local" else None
     theta = (cfg.rope_theta_local if kind == "local" and cfg.rope_theta_local
              else cfg.rope_theta)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a_out, new_cache = attn.gqa_forward(p["attn"], h, positions, cfg,
-                                        window=window, rope_theta=theta,
-                                        cache=cache, cache_pos=cache_pos)
+    if cfg.mla:
+        a_out, new_cache = attn.mla_forward(p["attn"], h, positions, cfg,
+                                            cache=cache, cache_pos=cache_pos)
+    else:
+        a_out, new_cache = attn.gqa_forward(p["attn"], h, positions, cfg,
+                                            window=window, rope_theta=theta,
+                                            cache=cache, cache_pos=cache_pos)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_mod.mlp_forward(p["ffn"], h, cfg)
-    return x, new_cache, torch.zeros((), dtype=torch.float32,
-                                     device=x.device)
+    if kind == "moe":
+        f_out, aux = moe_mod.moe_forward(p["ffn"], h, cfg,
+                                         capacity_factor=capacity_factor)
+    else:
+        f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +188,31 @@ def _remat_wrap(fn, policy: str):
     return wrapped
 
 
+def _layer_cache(full, r=None):
+    """One layer's cache: the tensors of ``full`` (a ``KVCache`` or an
+    ``MLACache``), or their slice ``r`` of the stack; None stays None."""
+    if full is None:
+        return None
+    return full if r is None else type(full)(*(a[r] for a in full))
+
+
 def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
-                  cache_pos=None, mesh=None, remat="full", seq_shard=False):
+                  cache_pos=None, mesh=None, remat="full",
+                  capacity_factor=1.25, seq_shard=False):
     """x: (B, S, d).  caches: None (train/prefill) or the tree of
-    ``init_cache``, written in place.  Returns (x, caches, aux)."""
+    ``init_cache``, written in place.  ``capacity_factor``: the MoE's
+    (None: lossless).  Returns (x, caches, aux)."""
     check_supported(cfg)
     refuse_mesh(mesh, seq_shard)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the prologue, unrolled
+    for i, kind in enumerate(cfg.prologue):
+        c = _layer_cache(caches["prologue"][i] if caches is not None
+                         else None)
+        x, _, a = _attn_ffn_block(params[f"pro{i}"], x, positions, cfg, kind,
+                                  cache=c, cache_pos=cache_pos,
+                                  capacity_factor=capacity_factor)
+        aux_total = aux_total + a
     block_caches = caches["blocks"] if caches is not None else None
     # one unbind a leaf: its backward stacks the R slices' gradients in one
     # op, where indexing a[r] R times would add R full-size gradients
@@ -194,18 +224,15 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
     def period_body(x, r):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.block_pattern):
-            p_step = per_r[r][f"l{i}"]
-            c = None
-            if block_caches is not None:
-                full = block_caches[f"l{i}"]
-                c = attn.KVCache(full.k[r], full.v[r])
-            x, _, a = _attn_ffn_block(p_step, x, positions, cfg, kind,
-                                      cache=c, cache_pos=cache_pos)
+            c = _layer_cache(block_caches[f"l{i}"], r) \
+                if block_caches is not None else None
+            x, _, a = _attn_ffn_block(per_r[r][f"l{i}"], x, positions, cfg,
+                                      kind, cache=c, cache_pos=cache_pos,
+                                      capacity_factor=capacity_factor)
             aux = aux + a
         return x, aux
 
     body = _remat_wrap(period_body, remat)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.repeats):
         x, aux = body(x, r)
         aux_total = aux_total + aux
@@ -286,20 +313,24 @@ class TensorSpec:
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
                  dtype=torch.bfloat16):
-    """The decode cache's ``TensorSpec`` tree: a ``KVCache`` per layer of
-    the period, stacked over ``repeats`` (local layers: ``min(cache_len,
-    window)`` ring slots)."""
+    """The decode cache's ``TensorSpec`` tree: a ``KVCache`` (under MLA an
+    ``MLACache``) per layer of the period, stacked over ``repeats`` (local
+    layers: ``min(cache_len, window)`` ring slots), and one per prologue
+    layer, unstacked."""
     check_supported(cfg)
 
-    def kv(kind):
+    def layer(kind, stack=()):
+        if cfg.mla and kind != "local":
+            shapes = attn.mla_cache_shape(cfg, batch, cache_len)
+            return attn.MLACache(*(TensorSpec(stack + s, dtype)
+                                   for s in shapes))
         window = cfg.window_size if kind == "local" else None
-        shp = (cfg.repeats,) + attn.gqa_cache_shape(cfg, batch, cache_len,
-                                                    window)
+        shp = stack + attn.gqa_cache_shape(cfg, batch, cache_len, window)
         return attn.KVCache(TensorSpec(shp, dtype), TensorSpec(shp, dtype))
 
-    return {"blocks": {f"l{i}": kv(kind)
+    return {"blocks": {f"l{i}": layer(kind, (cfg.repeats,))
                        for i, kind in enumerate(cfg.block_pattern)},
-            "prologue": []}
+            "prologue": [layer(kind) for kind in cfg.prologue]}
 
 
 def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
@@ -342,6 +373,7 @@ def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
     x = embed_tokens(params, cfg, tokens, compute_dtype)
     positions = torch.full((1,), int(pos), device=x.device)
     x, caches, _ = decoder_stack(params, x, positions, cfg, caches=caches,
-                                 cache_pos=pos, remat="none")
+                                 cache_pos=pos, remat="none",
+                                 capacity_factor=None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x), caches

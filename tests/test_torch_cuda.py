@@ -1034,3 +1034,96 @@ def test_lm_pruning_curve_launch_counts(dev):
     assert sum(ops.launch_counts().values()) == 0
     np.testing.assert_array_equal(surv64, surv)
     assert surv[0] == 0 and surv[-1] == 256
+
+
+# ---------------------------------------------------------------------------
+# MLA attention and the MoE FFN (plain torch on the card)
+# ---------------------------------------------------------------------------
+
+def test_mla_absorbed_decode_matches_expanded_on_the_card(dev):
+    """Reduced minicpm3's first MLA layer: 20 absorbed decode steps into a
+    32-slot latent cache, each within 1e-5 of the expanded forward's row on
+    the card and of the CPU's decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as A
+    cfg = get_config("minicpm3-4b").reduced()
+    cpu, card = _lm_params(cfg, 0, dev)
+    layer = {d: {k: v[0] for k, v in p["blocks"]["l0"]["attn"].items()}
+             for d, p in (("cpu", cpu), (dev, card))}
+    B, T_, S = 2, 20, 32
+    x = torch.randn((B, T_, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.no_grad():
+        full, _ = A.mla_forward(layer[dev], x.to(dev),
+                                torch.arange(T_, device=dev), cfg)
+        steps = {}
+        for d in ("cpu", dev):
+            ckv, kr = A.mla_cache_shape(cfg, B, S)
+            cache = A.MLACache(torch.zeros(ckv, device=d),
+                               torch.zeros(kr, device=d))
+            out = []
+            for t in range(T_):
+                y, cache = A.mla_forward(
+                    layer[d], x[:, t:t + 1].to(d),
+                    torch.full((1,), t, device=d), cfg, cache=cache,
+                    cache_pos=t)
+                out.append(y[:, 0].cpu())
+            steps[d] = torch.stack(out, 1)
+    torch.testing.assert_close(steps[dev], full.cpu(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(steps[dev], steps["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("cf", [1.25, None])
+def test_moe_forward_on_the_card_matches_the_cpu_and_repeats(dev, cf):
+    """Reduced deepseek-v2's MoE layer (routed and shared experts) on 256
+    tokens: within 1e-4 of the CPU's output (the same tokens dropped at
+    capacity 1.25), and two calls on the card bit for bit; the second
+    call synchronizes with the host nowhere (the sync debug mode raises)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-236b").reduced()
+    cpu, card = _lm_params(cfg, 3, dev)
+    ffn = {d: {k: v[0] for k, v in p["blocks"]["l0"]["ffn"].items()}
+           for d, p in (("cpu", cpu), (dev, card))}
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    with torch.no_grad():
+        want, aux_c = moe.moe_forward(ffn["cpu"], x, cfg, capacity_factor=cf)
+        xd = x.to(dev)
+        got, aux_g = moe.moe_forward(ffn[dev], xd, cfg, capacity_factor=cf)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again, aux_a = moe.moe_forward(ffn[dev], xd, cfg,
+                                           capacity_factor=cf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-5 * float(aux_c)
+    assert torch.equal(got, again) and torch.equal(aux_g, aux_a)
+
+
+def test_deepseek_v2_decode_matches_full_forward_on_the_card(dev):
+    """Reduced deepseek-v2 (a dense prologue, MLA, MoE) decoded for 48
+    steps into a 64-slot cache against the full forward at
+    ``capacity_factor=None``: within 1e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("deepseek-v2-236b").reduced()
+    _, card = _lm_params(cfg, 0, dev)
+    B, T_ = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, T_)), device=dev)
+    with torch.no_grad():
+        x = M.embed_tokens(card, cfg, toks, torch.float32)
+        x, _, _ = M.decoder_stack(card, x, torch.arange(T_, device=dev), cfg,
+                                  remat="none", capacity_factor=None)
+        full = M.logits_fn(card, cfg, M.rms_norm(x, card["final_norm"],
+                                                 cfg.norm_eps))
+        caches = M.init_cache(cfg, B, 64, torch.float32, device=dev)
+        for t in range(T_):
+            logits, caches = M.forward_decode(card, cfg, caches,
+                                              toks[:, t:t + 1], t,
+                                              compute_dtype=torch.float32)
+            assert float((logits[:, 0] - full[:, t]).abs().max()) < 1e-4

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's LM train step and decode step spend their time on the
-card: wall per step without the profiler, then ``torch.profiler`` over a
-few warm steps (device busy time per step, kernels per step, the kernels
-and the host operators that take the most time).
+card: for each step, wall per step without a tracer and CUPTI's records
+over a few warm steps (device busy time per step, kernels per step, the
+kernels that take the most time; ``chip_smoke.DeviceTrace``); then, for
+each step again, ``torch.profiler`` over a few more (the host operators
+and CUDA API calls that take the most time).
 
     python3 tools/lm_profile.py [--train gemma2-100m:8:256 gemma2-2b:2:256]
                                 [--decode gemma2-2b:4:128]
@@ -31,35 +33,78 @@ def _top(prof, key, n, by):
             f"{e.key[:90]}" for e in rows]
 
 
-def _profile(torch, label, run, n):
-    """``run`` n times unprofiled, then n times under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import device_busy
+def _trace(torch, label, run, n):
+    """``run`` n times untraced, then n times under
+    ``chip_smoke.DeviceTrace`` (the card's kernels, copies and sets)."""
+    from chip_smoke import DeviceTrace
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
+    with DeviceTrace(torch) as dev:
+        for _ in range(n):
+            run()
+    busy = dev.busy_s * 1e3 / n
+    print(f"[{label}] wall {1e3 * wall:.3f} ms a step; device busy "
+          f"{busy:.3f} ms a step, {dev.n_kernels / n:.0f} kernels, copies "
+          f"and sets a step; idle share {1 - busy / (1e3 * wall):.4f} of "
+          f"the untraced wall", flush=True)
+    print(f"[{label}] kernels by device time over {n} steps:")
+    for name, us in sorted(dev.us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+def _profile(torch, label, run, n):
+    """``run`` n times under ``torch.profiler``: the host's operators and
+    CUDA API calls."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-        wall_p = (time.perf_counter() - t0) / n
-    by_name, n_kernels, _, _ = device_busy(torch, prof)
-    busy = sum(by_name.values()) / 1e3 / n
-    print(f"[{label}] wall {1e3 * wall:.3f} ms a step ({1e3 * wall_p:.3f} "
-          f"with the profiler); device busy {busy:.3f} ms a step, "
-          f"{n_kernels / n:.0f} kernels, copies and sets a step; idle share "
-          f"{1 - busy / (1e3 * wall):.4f} of the unprofiled wall", flush=True)
-    print(f"[{label}] kernels by device time over {n} steps:")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
     print(f"[{label}] host operators by self CPU time over {n} steps:")
     print("\n".join(_top(prof, "self_cpu_time_total", 12, "self cpu")),
           flush=True)
+
+
+def _train(torch, cfg, B, S):
+    """A warm float32 train step of ``cfg`` at B x S: (run, cleanup)."""
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    box = [adamw.init_state(params), make_train_step(
+        cfg, remat="none", compute_dtype=torch.float32,
+        lr_kwargs=dict(base_lr=1e-4, warmup=1))]
+    batch = {k: v.cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, S, B).fast_batch_at(0).items()}
+
+    def run():
+        box[0], metrics = box[1](box[0], batch)
+        float(metrics["loss"])
+    return run, box.clear
+
+
+def _decode(torch, cfg, B, L):
+    """A warm float32 greedy decode step of ``cfg``, batch B, cache L."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as model_lib
+    box = [model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)),
+        model_lib.init_cache(cfg, B, L, torch.float32, device="cuda")]
+    serve = make_serve_step(cfg, compute_dtype=torch.float32)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    pos = [0]
+
+    def run():
+        serve(box[0], box[1], tok, pos[0] % L)
+        pos[0] += 1
+    return run, box.clear
 
 
 def main(argv=None) -> int:
@@ -75,53 +120,30 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs.base import get_config
-    from repro_torch.data.lm_data import SyntheticLM
     from repro_torch.examples.sgl_pruned_lm import example_config
-    from repro_torch.launch.steps import make_serve_step, make_train_step
-    from repro_torch.models import model as model_lib
-    from repro_torch.optim import adamw
     example_config()
     print(torch.cuda.get_device_name(0), flush=True)
 
+    items = []
     for item in args.train:
         arch, B, S = item.split(":")
-        cfg, B, S = get_config(arch), int(B), int(S)
-        params = model_lib.init_params(
-            cfg, torch.Generator(device="cuda").manual_seed(0))
-        box = [adamw.init_state(params)]
-        step = make_train_step(cfg, remat="none",
-                               compute_dtype=torch.float32,
-                               lr_kwargs=dict(base_lr=1e-4, warmup=1))
-        batch = {k: v.cuda() for k, v in
-                 SyntheticLM(cfg.vocab_size, S, B).fast_batch_at(0).items()}
-
-        def run():
-            box[0], metrics = step(box[0], batch)
-            float(metrics["loss"])
-        for _ in range(2):
-            run()
-        _profile(torch, f"train {arch} B {B} S {S}", run, 3)
-        del box, params, step
-        torch.cuda.empty_cache()
-
+        items.append((f"train {arch} B {B} S {S}", _train,
+                      (get_config(arch), int(B), int(S)), 3))
     for item in args.decode:
         arch, B, L = item.split(":")
-        cfg, B, L = get_config(arch), int(B), int(L)
-        params = model_lib.init_params(
-            cfg, torch.Generator(device="cuda").manual_seed(0))
-        caches = model_lib.init_cache(cfg, B, L, torch.float32, device="cuda")
-        serve = make_serve_step(cfg, compute_dtype=torch.float32)
-        tok = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
-        pos = [0]
-
-        def run():
-            serve(params, caches, tok, pos[0] % L)
-            pos[0] += 1
-        for _ in range(2):
-            run()
-        _profile(torch, f"decode {arch} B {B} cache {L}", run, 12)
-        del params, caches
-        torch.cuda.empty_cache()
+        items.append((f"decode {arch} B {B} cache {L}", _decode,
+                      (get_config(arch), int(B), int(L)), 12))
+    # every CUPTI trace before the first torch.profiler run with CUDA
+    # activity, which leaves its own timestamp source with CUPTI
+    for measure in (_trace, _profile):
+        for label, make, shape, n in items:
+            run, cleanup = make(torch, *shape)
+            for _ in range(2):
+                run()
+            measure(torch, label, run, n)
+            cleanup()
+            del run
+            torch.cuda.empty_cache()
     return 0
 
 
