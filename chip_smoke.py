@@ -165,7 +165,7 @@ Phases (each fails loudly, with a non-zero exit):
     plans (each rank audits its own), the five kernels hold under 1e30
     poison against their plain versions (``kernel_check.mask_coverage``),
     and the float64 gate refuses the kernels.
-21. The LM zoo's attention decoders (``repro_torch.models``, float32,
+21. The LM zoo's decoders (``repro_torch.models``, float32,
     TF32 off): (a) the example's ``gemma2-100m`` (12 layers, d 512, 8 / 4 heads,
     d_ff 2048, vocabulary 32 768, window 256; B 8, S 256, lr 1e-3, SGL
     lambda 3e-4) through ``python -m repro_torch.examples.sgl_pruned_lm``'s
@@ -198,7 +198,24 @@ Phases (each fails loudly, with a non-zero exit):
     max|logits|.  (h) ``deepseek-v2-236b`` ``reduced()`` (a dense prologue
     layer, MLA, routed and shared experts): 3 train steps (finite, aux >
     0), decode of 48 tokens within 1e-4 of the full forward at lossless
-    dispatch, and the MoE layer twice on one input bit for bit.  Then
+    dispatch, and the MoE layer twice on one input bit for bit.  (i)
+    ``zamba2-2.7b`` (Mamba2 + two shared attention blocks; 2.53 B
+    parameters) at its published width and depth through ``train.main``,
+    3 steps at B 2, S 256 (one full Mamba2 chunk of 256, where the
+    reference's gradient is NaN), no prox: finite losses, step ms,
+    tokens/s and peak memory printed.  (j) ``serve.main`` on
+    ``zamba2-2.7b`` as in (c), peak memory printed; then decode of 32
+    tokens against the full forward (B 1): the conv ring, the SSM state
+    and the shared blocks' KV caches, within 1e-4 * max|logits|.  (k) One
+    Mamba2 layer of ``zamba2-2.7b`` at full width, B 2, S 300 (a full
+    chunk and a padded ragged tail): the chunked forward against the
+    token-by-token decode within 1e-4 * max|y|; the gradient of
+    ``sum(y**2)`` through the chunked form finite everywhere and within
+    1e-3 relative L2 of the gradient through the decode recurrence, leaf
+    by leaf.  (l) ``xlstm-350m`` at its published width and depth through
+    ``train.main``, 3 steps at B 4, S 256 (the sLSTM's two checkpointed
+    chunks of 128): finite losses; ``serve.main`` as in (c); decode of 32
+    tokens against the full forward (B 1) within 1e-4 * max|logits|.  Then
     ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain versions
     at each curve's shapes (X G x G, C (32, G) with n_max 1, the busiest
     prox bucket).  Every phase and part prints its seconds beside the summed
@@ -2846,7 +2863,7 @@ def audit_phase(audit):
 
 
 # ---------------------------------------------------------------------------
-# phase 21: the LM zoo's dense decoders
+# phase 21: the LM zoo (dense, MLA, MoE, Mamba2 with shared attention, xLSTM)
 # ---------------------------------------------------------------------------
 
 LM_STEPS = 20            # the host draws every batch (PERF.md section 5)
@@ -3233,6 +3250,178 @@ def lm_deepseek_phase(torch, dev="cuda"):
     require(same, "lm-deepseek-v2: two calls of the MoE layer differ")
 
 
+def decode_errors(torch, cfg, params, toks, cache_len):
+    """``toks`` (B, T) decoded step by step into a fresh ``cache_len``
+    cache against the full forward on the same weights: (each step's
+    max|logits diff| (T,), the full forward's max|logits|)."""
+    from repro_torch.models import model as model_lib
+    B, T_ = toks.shape
+    with torch.no_grad():
+        x = model_lib.embed_tokens(params, cfg, toks, torch.float32)
+        x, _, _ = model_lib.decoder_stack(params, x, torch.arange(
+            T_, device=toks.device), cfg, remat="none")
+        full = model_lib.logits_fn(params, cfg, model_lib.rms_norm(
+            x, params["final_norm"], cfg.norm_eps))
+        caches = model_lib.init_cache(cfg, B, cache_len, torch.float32,
+                                      device=toks.device)
+        errs = torch.zeros(T_, device=toks.device)
+        for t in range(T_):
+            logits, caches = model_lib.forward_decode(
+                params, cfg, caches, toks[:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            errs[t] = (logits[:, 0] - full[:, t]).abs().max()
+    return errs, float(full.abs().max())
+
+
+def lm_train_full(torch, arch, B, S, label, dev="cuda"):
+    """``train.main`` on ``arch`` at its published width and depth,
+    float32, 3 steps at B x S, no prox: finite losses; prints the losses,
+    the first and median step ms, tokens/s and the peak device memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    cfg = get_config(arch)
+    times = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", arch, "--steps", "3", "--global-batch", str(B), "--seq",
+         str(S), "--lr", "3e-4", "--log-every", "1", "--device", dev],
+        step_times=times)
+    note_wall(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    first, med, tok_s = _step_stats(times, B * S)
+    say(f"[{label}] {model_lib.param_count(cfg)} parameters, float32, B "
+        f"{B}, S {S}, remat none: losses {[round(l, 4) for l in losses]}; "
+        f"train step first {first:.1f} ms, median of the rest {med:.1f} ms "
+        f"= {tok_s:.0f} tokens/s; peak device memory {peak / 2**30:.3f} GiB")
+    require(len(losses) == 3 and np.isfinite(losses).all(),
+            f"{label}: non-finite losses")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=med, first_step_ms=first, tokens_per_s=tok_s,
+                peak_gib=peak / 2**30)
+
+
+def lm_serve_full(torch, arch, label, seed, dev="cuda"):
+    """``serve.main`` on ``arch`` at its published width and depth (batch
+    4, prompt 16, gen 32, cache 128), peak memory printed; then decode of
+    32 tokens against the full forward (B 1) on freshly drawn weights,
+    within 1e-4 * max|logits|."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_lib
+    cfg = get_config(arch)
+    lat = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = serve_mod.main(["--arch", arch, "--batch", "4", "--prompt-len",
+                          "16", "--gen", "32", "--cache-len", "128",
+                          "--device", dev], latencies=lat)
+    note_wall(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    warm = np.asarray(lat[1:]) * 1e3
+    p50, p99 = np.percentile(warm, 50), np.percentile(warm, 99)
+    tok_s = 4 * len(warm) / (warm.sum() / 1e3)
+    say(f"[{label}] float32 batch 4, cache 128: per-step p50 {p50:.3f} ms "
+        f"p99 {p99:.3f} ms (warm; first step {1e3 * lat[0]:.3f} ms), "
+        f"{tok_s:.1f} tokens/s; peak device memory {peak / 2**30:.3f} GiB")
+    require(gen.shape == (4, 32) and ((gen >= 0) & (gen < cfg.vocab_size))
+            .all(), f"{label}: wrong generated tokens")
+    torch.cuda.empty_cache()
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(seed))
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, 32)), device=dev)
+    t0 = time.perf_counter()
+    errs, scale = decode_errors(torch, cfg, params, toks, 32)
+    err = float(errs.max())
+    note_wall(time.perf_counter() - t0)
+    say(f"[{label}] decode against the full forward, B 1, T 32, full "
+        f"width: max|logits diff| {err:.3e}, max|logits| {scale:.3e}, bar "
+        f"1e-4 * max|logits| = {1e-4 * scale:.3e}")
+    require(err < 1e-4 * scale,
+            f"{label}: decode disagrees with the full forward")
+    del params
+    torch.cuda.empty_cache()
+    return dict(p50_ms=p50, p99_ms=p99, tokens_per_s=tok_s, decode_err=err,
+                peak_gib=peak / 2**30)
+
+
+def lm_mamba_layer_phase(torch, dev="cuda"):
+    """(k) One Mamba2 layer of ``zamba2-2.7b`` at full width (d 2 560, 80
+    heads of 64, state 64, chunk 256) on freshly drawn weights, B 2, S 300:
+    a full chunk and a padded tail of 44.  The chunked forward against
+    the token-by-token decode within 1e-4 * max|y|; the gradient of
+    ``sum(y**2)`` through the chunked form finite everywhere and within
+    1e-3 relative L2 of the gradient through the decode recurrence, leaf
+    by leaf."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.common import tree_init
+    cfg = get_config("zamba2-2.7b")
+    B, S = 2, 300
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = {k: v.detach().requires_grad_(True) for k, v in
+              tree_init(ssm.mamba2_descs(cfg), gen).items()}
+    keys = sorted(params)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    y, _ = ssm.mamba2_forward(params, x, cfg)
+    g_chunk = torch.autograd.grad(torch.sum(y ** 2),
+                                  [params[k] for k in keys])
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    conv, state = ssm.mamba2_cache_shape(cfg, B)
+    cache = ssm.MambaCache(torch.zeros(conv, device=dev),
+                           torch.zeros(state, device=dev))
+    ys = []
+    for t in range(S):
+        y_t, cache = ssm.mamba2_forward(params, x[:, t:t + 1], cfg,
+                                        cache=cache)
+        ys.append(y_t)
+    y_rec = torch.cat(ys, dim=1)
+    g_rec = torch.autograd.grad(torch.sum(y_rec ** 2),
+                                [params[k] for k in keys])
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    note_wall(chunk_s + rec_s)
+    y, y_rec = y.detach(), y_rec.detach()
+    y_err = float((y - y_rec).abs().max())
+    y_scale = float(y_rec.abs().max())
+    finite = all(bool(torch.isfinite(g).all()) for g in g_chunk)
+    rel = {k: float(torch.linalg.vector_norm(a - b)
+                    / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+           for k, a, b in zip(keys, g_chunk, g_rec)}
+    say(f"[lm-mamba2-layer] zamba2-2.7b's Mamba2 layer, B {B}, S {S} "
+        f"(chunk {cfg.ssm_chunk} + a padded tail): chunked forward and "
+        f"backward {1e3 * chunk_s:.1f} ms (peak {peak / 2**30:.3f} GiB above "
+        f"the weights), the decode recurrence's {1e3 * rec_s:.1f} ms; "
+        f"max|y_chunked - y_decode| {y_err:.3e} of max|y| {y_scale:.3e} "
+        f"(bar 1e-4 * max|y|); chunked gradient finite {finite}; relative "
+        f"L2 against the recurrence's {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
+        f"(bar 1e-3)")
+    require(finite, "lm-mamba2-layer: the chunked gradient is not finite")
+    require(y_err <= 1e-4 * y_scale,
+            "lm-mamba2-layer: the chunked forward disagrees with decode")
+    require(max(rel.values()) < 1e-3,
+            "lm-mamba2-layer: the chunked gradient disagrees with the "
+            "recurrence's")
+    del params, g_chunk, g_rec, y, y_rec, ys, cache
+    torch.cuda.empty_cache()
+    return dict(y_err=y_err, grad_rel=max(rel.values()))
+
+
 def curve_checks(torch, T, res, calls, label):
     """``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
     versions at a pruning curve's shapes: X = eye(G), the first screen's
@@ -3271,6 +3460,15 @@ def lm_phase(torch, T):
         lm_mla_serve_phase(torch)
     with timed_phase("lm-deepseek-v2"):
         lm_deepseek_phase(torch)
+    with timed_phase("lm-zamba2-train"):
+        lm_train_full(torch, "zamba2-2.7b", 2, 256, "lm-zamba2-train")
+    with timed_phase("lm-zamba2-serve"):
+        lm_serve_full(torch, "zamba2-2.7b", "lm-zamba2-serve", 24)
+    with timed_phase("lm-mamba2-layer"):
+        lm_mamba_layer_phase(torch)
+    with timed_phase("lm-xlstm"):
+        lm_train_full(torch, "xlstm-350m", 4, 256, "lm-xlstm-train")
+        lm_serve_full(torch, "xlstm-350m", "lm-xlstm-serve", 25)
     torch.cuda.empty_cache()
     checks = {}
     for key, (r, c, label) in {"lm_curve": (res, calls, "lm-curve"),

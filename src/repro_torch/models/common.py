@@ -77,6 +77,17 @@ def rms_norm(x, gamma, eps=1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * (1.0 + gamma.to(dt))
 
 
+def causal_conv(u, w):
+    """Depthwise causal conv, no bias: ``out[:, t] = sum_i u[:, t - K + 1 +
+    i] * w[i]`` (zero before the start) for u (B, S, C), w (K, C).  The
+    terms are summed in i's order, as the reference's sum over a padded
+    copy, but each term is one shifted (B, S, C) tensor: no (B, S + K -
+    1, C) copy is made."""
+    K, S = w.shape[0], u.shape[1]
+    return sum(F.pad(u[:, :S - s] * w[i], (0, 0, s, 0))
+               for i, s in ((i, K - 1 - i) for i in range(K)) if s < S)
+
+
 def softcap(x, cap):
     return torch.tanh(x / cap) * cap
 

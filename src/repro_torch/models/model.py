@@ -1,6 +1,6 @@
-"""Model assembly for the attention decoders (dense, MLA and MoE):
-parameter trees, the layer stack, train / prefill / decode (PyTorch port of
-the decoder path of ``repro.models.model``).
+"""Model assembly for the decoders: parameter trees, the layer stack, train /
+prefill / decode (PyTorch port of the decoder path of
+``repro.models.model``).
 
 The layer stack is the unrolled ``prologue`` layers (``pro{i}``), then
 ``repeats`` copies of the ``block_pattern`` period.  Each
@@ -17,10 +17,20 @@ Covered: block kinds ``attn``, ``local``, ``global``, ``dense_ffn_attn``
 and ``moe`` with ``qk_norm``, ``rope_theta_local``, tied or untied heads,
 the four MLP activations, MLA attention and the MoE FFN with shared experts
 (``gemma2-2b``, ``gemma3-12b``, ``nemotron-4-340b``, ``minicpm3-4b``,
-``granite-moe-1b-a400m``, ``deepseek-v2-236b``).  Every other family or
-kind raises ``NotImplementedError`` naming its ROADMAP item.  The decode
-cache is a nested dict of stacked ``KVCache`` (or, under MLA, ``MLACache``)
-tensors, written in place, and a ``prologue`` list of unstacked ones.
+``granite-moe-1b-a400m``, ``deepseek-v2-236b``); ``mamba`` and
+``mamba+shared_attn`` (Mamba2, and after it one of two ``shared_attn``
+attention + MLP blocks, ``shared_attn[r % 2]`` in repeat r; ``zamba2-2.7b``)
+and ``mlstm`` / ``slstm`` (``xlstm-350m``).  The enc-dec family, the vision
+prefix and a mesh raise ``NotImplementedError`` naming their ROADMAP item.
+
+The decode cache is a nested dict, a leaf tree a layer of the period
+stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
+``KVCache`` (under MLA ``MLACache``) for attention, ``{"mamba":
+MambaCache}`` or ``{"mamba": ..., "shared": KVCache}`` for Mamba2 (each
+application of a shared block has its own KV cache), ``MLSTMCache`` and
+``SLSTMCache``.  Recurrent states are float32, rings and KV rows in the
+cache's dtype, the xLSTM stabilisers ``m`` start at -1e30.  Decode writes
+every cache in place into its slice of the stack.
 """
 from __future__ import annotations
 
@@ -39,15 +49,15 @@ from .common import ParamDesc, rms_norm, softcap, tree_init
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 
 ATTN_KINDS = ("attn", "local", "global", "dense_ffn_attn", "moe")
+MAMBA_KINDS = ("mamba", "mamba+shared_attn")
+KINDS = ATTN_KINDS + MAMBA_KINDS + ("mlstm", "slstm")
 
 # what the port does not build yet, and the ROADMAP item that ports it
 NOT_PORTED = {
-    "mamba": "Mamba2 (models/ssm.py, ROADMAP item 37)",
-    "mamba+shared_attn": "Mamba2 with shared attention (ROADMAP item 37)",
-    "mlstm": "xLSTM (models/xlstm.py, ROADMAP item 38)",
-    "slstm": "xLSTM (models/xlstm.py, ROADMAP item 38)",
     "encdec": "enc-dec and cross-attention (ROADMAP item 39)",
     "vision": "the vision prefix (ROADMAP item 40)",
     "mesh": "the sharding rules and ZeRO-3 training (ROADMAP item 41)",
@@ -63,7 +73,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.frontend is not None:
         parts.append(cfg.frontend)
     parts += [k for k in cfg.prologue + cfg.block_pattern
-              if k not in ATTN_KINDS]
+              if k not in KINDS]
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {NOT_PORTED.get(parts[0], parts[0])} is not "
@@ -83,6 +93,12 @@ def refuse_mesh(mesh, seq_shard) -> None:
 def _block_descs(cfg: ArchConfig, kind: str):
     d = cfg.d_model
     ln = lambda: ParamDesc((d,), (None,), scale=0.0)
+    if kind in MAMBA_KINDS:
+        return {"ln": ln(), "mamba": ssm_mod.mamba2_descs(cfg)}
+    if kind == "mlstm":
+        return {"ln": ln(), "mlstm": xlstm_mod.mlstm_descs(cfg)}
+    if kind == "slstm":
+        return {"ln": ln(), "slstm": xlstm_mod.slstm_descs(cfg)}
     return {"ln1": ln(), "ln2": ln(),
             "attn": attn.mla_descs(cfg) if cfg.mla else attn.gqa_descs(cfg),
             "ffn": moe_mod.moe_descs(cfg) if kind == "moe"
@@ -109,6 +125,12 @@ def param_descs(cfg: ArchConfig):
     period = {f"l{i}": _block_descs(cfg, kind)
               for i, kind in enumerate(cfg.block_pattern)}
     tree["blocks"] = _stack_descs(period, cfg.repeats)
+    if "mamba+shared_attn" in cfg.block_pattern:
+        # two alternating attention + MLP blocks shared by every repeat
+        ln = lambda: ParamDesc((d,), (None,), scale=0.0)
+        tree["shared_attn"] = _stack_descs(
+            {"ln1": ln(), "attn": attn.gqa_descs(cfg), "ln2": ln(),
+             "ffn": mlp_mod.mlp_descs(cfg)}, 2)
     return tree
 
 
@@ -128,19 +150,19 @@ def param_count(cfg) -> int:
 
 def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
                     cache_pos=None, capacity_factor=1.25):
-    """Returns (x, new_cache, aux); aux is the MoE's load-balancing loss, 0
-    for dense layers."""
+    """Returns (x, aux); aux is the MoE's load-balancing loss, 0 for dense
+    layers.  A decode ``cache`` is written in place."""
     window = cfg.window_size if kind == "local" else None
     theta = (cfg.rope_theta_local if kind == "local" and cfg.rope_theta_local
              else cfg.rope_theta)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
-        a_out, new_cache = attn.mla_forward(p["attn"], h, positions, cfg,
-                                            cache=cache, cache_pos=cache_pos)
+        a_out, _ = attn.mla_forward(p["attn"], h, positions, cfg,
+                                    cache=cache, cache_pos=cache_pos)
     else:
-        a_out, new_cache = attn.gqa_forward(p["attn"], h, positions, cfg,
-                                            window=window, rope_theta=theta,
-                                            cache=cache, cache_pos=cache_pos)
+        a_out, _ = attn.gqa_forward(p["attn"], h, positions, cfg,
+                                    window=window, rope_theta=theta,
+                                    cache=cache, cache_pos=cache_pos)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
@@ -149,7 +171,50 @@ def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
     else:
         f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f_out, new_cache, aux
+    return x + f_out, aux
+
+
+def _write(cache, new):
+    """A recurrent layer's next cache, written into ``cache`` (its slice of
+    the stack) in place."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+
+
+def _block_forward(kind, p, x, positions, cfg, *, cache=None, cache_pos=None,
+                   shared=None, capacity_factor=1.25):
+    """One layer of ``kind``; a decode ``cache`` is written in place.
+    ``shared``: the ``shared_attn`` block a ``mamba+shared_attn`` layer
+    applies after its Mamba2 (the layer's cache holds its own KV cache).
+    Returns (x, aux)."""
+    if kind in ATTN_KINDS:
+        return _attn_ffn_block(p, x, positions, cfg, kind, cache=cache,
+                               cache_pos=cache_pos,
+                               capacity_factor=capacity_factor)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if kind in MAMBA_KINDS:
+        out, new = ssm_mod.mamba2_forward(
+            p["mamba"], h, cfg, cache=None if cache is None
+            else cache["mamba"])
+        if new is not None:
+            _write(cache["mamba"], new)
+        x = x + out
+        if kind == "mamba+shared_attn":
+            h = rms_norm(x, shared["ln1"], cfg.norm_eps)
+            a_out, _ = attn.gqa_forward(
+                shared["attn"], h, positions, cfg, cache=None if cache is None
+                else cache["shared"], cache_pos=cache_pos)
+            x = x + a_out
+            h = rms_norm(x, shared["ln2"], cfg.norm_eps)
+            x = x + mlp_mod.mlp_forward(shared["ffn"], h, cfg)
+        return x, zero
+    fwd = xlstm_mod.mlstm_forward if kind == "mlstm" \
+        else xlstm_mod.slstm_forward
+    out, new = fwd(p[kind], h, cfg, cache=cache)
+    if new is not None:
+        _write(cache, new)
+    return x + out, zero
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +254,24 @@ def _remat_wrap(fn, policy: str):
 
 
 def _layer_cache(full, r=None):
-    """One layer's cache: the tensors of ``full`` (a ``KVCache`` or an
-    ``MLACache``), or their slice ``r`` of the stack; None stays None."""
+    """One layer's cache: the tensors of ``full`` (a cache tuple, or a dict
+    of them), or their slice ``r`` of the stack (views, so a write lands in
+    the stack); None stays None."""
     if full is None:
         return None
+    if isinstance(full, dict):
+        return {k: _layer_cache(v, r) for k, v in full.items()}
     return full if r is None else type(full)(*(a[r] for a in full))
+
+
+def _unbind(stacked, n):
+    """The n slices of a tree of stacked leaves, one ``unbind`` a leaf: its
+    backward stacks the n slices' gradients in one op, where indexing
+    a[r] n times would add n full-size gradients."""
+    flat, td = flatten(stacked)
+    unbound = [a.unbind(0) for a in flat]
+    return [unflatten(plain_structure(td), [u[r] for u in unbound])
+            for r in range(n)]
 
 
 def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
@@ -209,26 +287,24 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
     for i, kind in enumerate(cfg.prologue):
         c = _layer_cache(caches["prologue"][i] if caches is not None
                          else None)
-        x, _, a = _attn_ffn_block(params[f"pro{i}"], x, positions, cfg, kind,
-                                  cache=c, cache_pos=cache_pos,
-                                  capacity_factor=capacity_factor)
+        x, a = _block_forward(kind, params[f"pro{i}"], x, positions, cfg,
+                              cache=c, cache_pos=cache_pos,
+                              capacity_factor=capacity_factor)
         aux_total = aux_total + a
     block_caches = caches["blocks"] if caches is not None else None
-    # one unbind a leaf: its backward stacks the R slices' gradients in one
-    # op, where indexing a[r] R times would add R full-size gradients
-    flat, td = flatten(params["blocks"])
-    unbound = [a.unbind(0) for a in flat]
-    per_r = [unflatten(plain_structure(td), [u[r] for u in unbound])
-             for r in range(cfg.repeats)]
+    per_r = _unbind(params["blocks"], cfg.repeats)
+    shared = _unbind(params["shared_attn"], 2) \
+        if "shared_attn" in params else None
 
     def period_body(x, r):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.block_pattern):
             c = _layer_cache(block_caches[f"l{i}"], r) \
                 if block_caches is not None else None
-            x, _, a = _attn_ffn_block(per_r[r][f"l{i}"], x, positions, cfg,
-                                      kind, cache=c, cache_pos=cache_pos,
-                                      capacity_factor=capacity_factor)
+            x, a = _block_forward(kind, per_r[r][f"l{i}"], x, positions, cfg,
+                                  cache=c, cache_pos=cache_pos,
+                                  shared=shared[r % 2] if shared else None,
+                                  capacity_factor=capacity_factor)
             aux = aux + a
         return x, aux
 
@@ -309,24 +385,47 @@ def chunked_ce_loss(params, cfg, x, labels, mask=None):
 class TensorSpec:
     shape: tuple
     dtype: torch.dtype
+    fill: float = 0.0
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
                  dtype=torch.bfloat16):
-    """The decode cache's ``TensorSpec`` tree: a ``KVCache`` (under MLA an
-    ``MLACache``) per layer of the period, stacked over ``repeats`` (local
-    layers: ``min(cache_len, window)`` ring slots), and one per prologue
-    layer, unstacked."""
+    """The decode cache's ``TensorSpec`` tree, one leaf tree a layer of the
+    period stacked over ``repeats`` and one a prologue layer, unstacked:
+    a ``KVCache`` (under MLA an ``MLACache``; local layers
+    ``min(cache_len, window)`` ring slots), ``{"mamba": MambaCache}`` (and
+    ``"shared"``, the shared block's ``KVCache``), ``MLSTMCache`` or
+    ``SLSTMCache``.  KV rows and conv rings are in ``dtype``, recurrent
+    states float32, the xLSTM's ``m`` filled with -1e30."""
     check_supported(cfg)
+    f32 = torch.float32
 
     def layer(kind, stack=()):
+        spec = lambda shp, dt=dtype, fill=0.0: TensorSpec(stack + shp, dt,
+                                                          fill)
+        if kind in MAMBA_KINDS:
+            conv, state = ssm_mod.mamba2_cache_shape(cfg, batch)
+            out = {"mamba": ssm_mod.MambaCache(spec(conv), spec(state, f32))}
+            if kind == "mamba+shared_attn":
+                kv = attn.gqa_cache_shape(cfg, batch, cache_len)
+                out["shared"] = attn.KVCache(spec(kv), spec(kv))
+            return out
+        if kind == "mlstm":
+            C, n, m, conv = xlstm_mod.mlstm_cache_shape(cfg, batch)
+            return xlstm_mod.MLSTMCache(spec(C, f32), spec(n, f32),
+                                        spec(m, f32, xlstm_mod.NEG),
+                                        spec(conv))
+        if kind == "slstm":
+            c, n, h, m = xlstm_mod.slstm_cache_shape(cfg, batch)
+            return xlstm_mod.SLSTMCache(spec(c, f32), spec(n, f32),
+                                        spec(h, f32),
+                                        spec(m, f32, xlstm_mod.NEG))
         if cfg.mla and kind != "local":
             shapes = attn.mla_cache_shape(cfg, batch, cache_len)
-            return attn.MLACache(*(TensorSpec(stack + s, dtype)
-                                   for s in shapes))
+            return attn.MLACache(*(spec(s) for s in shapes))
         window = cfg.window_size if kind == "local" else None
-        shp = stack + attn.gqa_cache_shape(cfg, batch, cache_len, window)
-        return attn.KVCache(TensorSpec(shp, dtype), TensorSpec(shp, dtype))
+        shp = attn.gqa_cache_shape(cfg, batch, cache_len, window)
+        return attn.KVCache(spec(shp), spec(shp))
 
     return {"blocks": {f"l{i}": layer(kind, (cfg.repeats,))
                        for i, kind in enumerate(cfg.block_pattern)},
@@ -334,9 +433,11 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
-    """Zeros of ``cache_shapes``; ``device=None`` is the card."""
+    """``cache_shapes`` filled (zeros, the xLSTM's ``m`` -1e30);
+    ``device=None`` is the card."""
     dev = resolve_device(device)
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+    return tree_map(lambda s: torch.full(s.shape, s.fill, dtype=s.dtype,
+                                         device=dev),
                     cache_shapes(cfg, batch, cache_len, dtype))
 
 

@@ -1127,3 +1127,129 @@ def test_deepseek_v2_decode_matches_full_forward_on_the_card(dev):
                                               toks[:, t:t + 1], t,
                                               compute_dtype=torch.float32)
             assert float((logits[:, 0] - full[:, t]).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 with shared attention, and xLSTM (plain torch on the card)
+# ---------------------------------------------------------------------------
+
+def _full_logits(M, params, cfg, toks):
+    x = M.embed_tokens(params, cfg, toks, torch.float32)
+    x, _, _ = M.decoder_stack(params, x, torch.arange(
+        toks.shape[1], device=toks.device), cfg, remat="none")
+    return M.logits_fn(params, cfg, M.rms_norm(x, params["final_norm"],
+                                               cfg.norm_eps))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
+def test_recurrent_decode_matches_full_forward_on_the_card(dev, arch):
+    """Reduced zamba2 (the conv ring, the SSM state, the shared block's KV
+    cache) and xlstm (the mLSTM and sLSTM caches) decoded for 48 steps
+    into a 64-slot cache: within 1e-4 * max|logits| of the full forward on
+    the card, and of the CPU's decode."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    cpu, card = _lm_params(cfg, 0, dev)
+    B, T_ = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, T_)))
+    with torch.no_grad():
+        full = _full_logits(M, card, cfg, toks.to(dev)).cpu()
+        out = {}
+        for name, params, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            caches = M.init_cache(cfg, B, 64, torch.float32, device=d)
+            steps = []
+            for t in range(T_):
+                logits, caches = M.forward_decode(
+                    params, cfg, caches, toks[:, t:t + 1].to(d), t,
+                    compute_dtype=torch.float32)
+                steps.append(logits[:, 0].cpu())
+            out[name] = torch.stack(steps, 1)
+    tol = 1e-4 * float(full.abs().max())
+    torch.testing.assert_close(out["card"], full, rtol=0, atol=tol)
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch,seq", [("zamba2-2.7b", 64),
+                                      ("xlstm-350m", 256)])
+def test_recurrent_train_step_on_the_card_matches_the_cpu(dev, arch, seq):
+    """Reduced zamba2 (two repeats: both shared blocks) and xlstm (S 256:
+    the sLSTM's two checkpointed chunks): each gradient leaf within the
+    CPU tests' bars of the CPU's (1e-4 relative L2; xlstm 1e-3), then two
+    float32 train steps from equal weights on equal batches, losses
+    within 1e-5 relative."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import leaves
+    cfg = get_config(arch).reduced()
+    if arch == "zamba2-2.7b":
+        cfg = dataclasses.replace(cfg, num_layers=12)
+    pair = _lm_params(cfg, 1, dev)
+    gen = np.random.default_rng(2)
+    batches = [torch.as_tensor(gen.integers(0, cfg.vocab_size, (2, seq + 1)))
+               for _ in range(2)]
+    batch = lambda toks, d: {"tokens": toks[:, :-1].to(d),
+                             "labels": toks[:, 1:].to(d)}
+    grads = []
+    for params, d in zip(pair, ("cpu", dev)):
+        loss, _ = M.forward_train(params, cfg, batch(batches[0], d),
+                                  remat="full", compute_dtype=torch.float32)
+        grads.append(torch.autograd.grad(loss, leaves(params)))
+    bar = 1e-3 if arch == "xlstm-350m" else 1e-4
+    for a, b in zip(*grads):
+        err = torch.linalg.vector_norm(b.cpu() - a) / torch.clamp(
+            torch.linalg.vector_norm(a), min=1e-30)
+        assert float(err) < bar
+    step = make_train_step(cfg, remat="full", compute_dtype=torch.float32,
+                           lr_kwargs=dict(base_lr=1e-3, warmup=1, total=10))
+    states = [adamw.init_state(p) for p in pair]
+    for toks in batches:
+        losses = []
+        for j, d in enumerate(("cpu", dev)):
+            states[j], metrics = step(states[j], batch(toks, d))
+            losses.append(float(metrics["loss"]))
+        assert np.isfinite(losses).all()
+        assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+
+
+def test_mamba2_layer_at_full_width_on_the_card(dev):
+    """One Mamba2 layer of zamba2-2.7b at full width (d 2 560, 80 heads of
+    64, state 64, chunk 256), B 1, S 300 (a full chunk and a padded tail):
+    the chunked forward within 1e-4 * max|y| of the token-by-token decode;
+    the gradient of sum(y**2) through the chunked form finite, and within
+    1e-3 relative L2 of the gradient through the decode recurrence."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.common import tree_init
+    cfg = get_config("zamba2-2.7b")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = {k: v.detach().requires_grad_(True) for k, v in
+              tree_init(ssm.mamba2_descs(cfg), gen).items()}
+    keys = sorted(params)
+    B, S = 1, 300
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    y, _ = ssm.mamba2_forward(params, x, cfg)
+    g_chunk = torch.autograd.grad(torch.sum(y ** 2),
+                                  [params[k] for k in keys])
+    conv, state = ssm.mamba2_cache_shape(cfg, B)
+    cache = ssm.MambaCache(torch.zeros(conv, device=dev),
+                           torch.zeros(state, device=dev))
+    ys = []
+    for t in range(S):
+        y_t, cache = ssm.mamba2_forward(params, x[:, t:t + 1], cfg,
+                                        cache=cache)
+        ys.append(y_t)
+    y_rec = torch.cat(ys, dim=1)
+    g_rec = torch.autograd.grad(torch.sum(y_rec ** 2),
+                                [params[k] for k in keys])
+    y, y_rec = y.detach(), y_rec.detach()
+    assert float((y - y_rec).abs().max()) <= 1e-4 * float(y_rec.abs().max())
+    for k, a, b in zip(keys, g_chunk, g_rec):
+        assert bool(torch.isfinite(a).all()), k
+        err = torch.linalg.vector_norm(a - b) / torch.clamp(
+            torch.linalg.vector_norm(b), min=1e-30)
+        assert float(err) < 1e-3, k

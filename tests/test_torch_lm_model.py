@@ -1,4 +1,5 @@
-"""The port's LM decoders (``repro_torch.models``: dense, MLA, MoE) against
+"""The port's LM decoders (``repro_torch.models``: dense, MLA, MoE, Mamba2
+with shared attention, xLSTM) against
 the live JAX reference (``repro.models``) on the same inputs, weights carried
 across by ``repro_torch.convert.lm_params``.
 
@@ -13,14 +14,22 @@ Tolerances:
 * ``forward_train``: the loss (and the MoE's aux) within 1e-5 relative,
   the logits within 1e-4 absolute, for reduced ``gemma2-2b``,
   ``gemma3-12b``, ``nemotron-4-340b``, ``minicpm3-4b`` (MLA),
-  ``granite-moe-1b-a400m`` (MoE) and ``deepseek-v2-236b`` (MLA, MoE with
-  shared experts, a dense prologue layer).
+  ``granite-moe-1b-a400m`` (MoE), ``deepseek-v2-236b`` (MLA, MoE with
+  shared experts, a dense prologue layer), ``zamba2-2.7b`` (Mamba2 and the
+  shared attention blocks) and ``xlstm-350m`` (mLSTM, sLSTM).  The
+  logits of ``xlstm-350m`` within 1e-4 of max|logits| instead: its
+  exponential gates amplify float32 rounding, and the reference's logits
+  lie 1.4e-4 from a float64 evaluation of the same model at max|logits|
+  4.5, the port's 4.7e-5 (``tests/test_torch_lm_ssm_xlstm.py::
+  test_xlstm_float32_error_is_the_references``).
 * Gradients: each leaf within 1e-4 relative L2.
 * Decode against the full forward, past the local window (the ring wraps):
   2e-2 as in the reference's test, and within 1e-4 of the reference's full
   forward.  The MLA and MoE configs: decode (absorbed MLA, lossless MoE
   dispatch) within 1e-4 of the full forward at ``capacity_factor=None``,
-  the port's and the reference's.
+  the port's and the reference's; ``zamba2-2.7b`` and ``xlstm-350m``
+  through their recurrent caches, ``xlstm-350m`` within 1e-4 of
+  max|logits| (as above).
 """
 import dataclasses
 
@@ -43,7 +52,8 @@ from repro_torch.pytree import flatten, leaves
 
 DENSE = ["gemma2-2b", "gemma3-12b", "nemotron-4-340b"]
 MLA_MOE = ["minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-236b"]
-PORTED = DENSE + MLA_MOE
+RECURRENT = ["zamba2-2.7b", "xlstm-350m"]
+PORTED = DENSE + MLA_MOE + RECURRENT
 F32 = jnp.float32
 
 
@@ -159,7 +169,10 @@ def test_param_tree_matches_reference(arch):
             assert float(w.detach().abs().max()) == 0.0
         else:
             std = desc.scale / np.sqrt(np.prod(desc.shape[:-1]))
-            assert abs(float(w.detach().std()) / std - 1) < 0.1
+            # 0.1, or three standard errors of a sample std where that is
+            # more (under 450 draws: zamba2's (1, 8) ``d_skip``)
+            tol = max(0.1, 3 / np.sqrt(2 * w.numel()))
+            assert abs(float(w.detach().std()) / std - 1) < tol
 
 
 def test_init_draws_from_the_generator_device():
@@ -184,6 +197,12 @@ def test_cache_shapes_match_reference(arch):
 # ---------------------------------------------------------------------------
 # forward, gradients, decode
 # ---------------------------------------------------------------------------
+
+def _logits_tol(arch, logits):
+    """1e-4, or 1e-4 of max|logits| for xLSTM (see the module's note)."""
+    scale = float(np.abs(logits).max()) if arch == "xlstm-350m" else 1.0
+    return 1e-4 * scale
+
 
 def _ref_logits(jp, jc, tokens, capacity_factor=1.25):
     x = JM.embed_tokens(jp, jc, tokens, F32)
@@ -217,9 +236,9 @@ def test_forward_train_matches_reference(arch):
         assert abs(float(metrics["aux"]) / float(jm["aux"]) - 1) < 1e-5
     else:
         assert float(metrics["aux"]) == 0.0
-    np.testing.assert_allclose(_port_logits(tp, tc, tb["tokens"]),
-                               _ref_logits(jp, jc, jb["tokens"]),
-                               rtol=0, atol=1e-4)
+    ref = _ref_logits(jp, jc, jb["tokens"])
+    np.testing.assert_allclose(_port_logits(tp, tc, tb["tokens"]), ref,
+                               rtol=0, atol=_logits_tol(arch, ref))
 
 
 def test_gradients_match_reference():
@@ -272,19 +291,22 @@ def test_decode_matches_full_forward_past_the_window():
     assert max(errs) < 2e-2 and max(errs_ref) < 1e-4
 
 
-@pytest.mark.parametrize("arch", MLA_MOE)
+@pytest.mark.parametrize("arch", MLA_MOE + RECURRENT)
 def test_decode_matches_full_forward_lossless(arch):
     """The reference's ``tests/test_models.py`` decode case: T 48 steps into
     a 64-slot cache against the full forward at ``capacity_factor=None``
-    (MLA decodes in the absorbed form, MoE dispatches losslessly), within
-    1e-4 of the port's and of the reference's full forward."""
+    (MLA decodes in the absorbed form, MoE dispatches losslessly; Mamba2,
+    the shared blocks and xLSTM through their caches), within 1e-4 (xLSTM:
+    1e-4 of max|logits|) of the port's and of the reference's full
+    forward."""
     jc, tc, jp, tp = _pair(arch)
     B, T = 2, 48
     toks = np.random.default_rng(4).integers(0, tc.vocab_size, (B, T))
     full = _port_logits(tp, tc, torch.as_tensor(toks), capacity_factor=None)
     ref = _ref_logits(jp, jc, jnp.asarray(toks, jnp.int32),
                       capacity_factor=None)
-    np.testing.assert_allclose(full, ref, rtol=0, atol=1e-4)
+    tol = _logits_tol(arch, ref)
+    np.testing.assert_allclose(full, ref, rtol=0, atol=tol)
     caches = TM.init_cache(tc, B, 64, torch.float32, device="cpu")
     errs = []
     with torch.no_grad():
@@ -294,7 +316,7 @@ def test_decode_matches_full_forward_lossless(arch):
                 compute_dtype=torch.float32)
             errs.append(max(np.abs(_np(logits[:, 0]) - full[:, t]).max(),
                             np.abs(_np(logits[:, 0]) - ref[:, t]).max()))
-    assert max(errs) < 1e-4
+    assert max(errs) < tol
 
 
 def test_prefill_and_serve_steps():
@@ -318,7 +340,6 @@ def test_prefill_and_serve_steps():
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "zamba2-2.7b": "item 37", "xlstm-350m": "item 38",
     "seamless-m4t-medium": "item 39", "llava-next-mistral-7b": "item 40",
 }
 

@@ -460,9 +460,9 @@ def test_lm_converters_default_to_the_card():
 
 
 def test_train_main_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="item 38"):
-        ttrain.main(["--arch", "xlstm-350m", "--smoke", "--steps", "1",
-                     "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 39"):
+        ttrain.main(["--arch", "seamless-m4t-medium", "--smoke", "--steps",
+                     "1", "--device", "cpu"])
 
 
 def test_serve_main_cpu(capsys):

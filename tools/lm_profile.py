@@ -12,8 +12,10 @@ and CUDA API calls that take the most time).
 Each ``--train`` item is ``arch:batch:seq`` (float32, TF32 off, remat
 none, the SGL prox off; iid tokens from ``SyntheticLM.fast_batch_at``, so
 the host draws no Markov batch), each ``--decode`` item
-``arch:batch:cache_len`` (float32 greedy decode).  ``gemma2-100m`` is the
-example's configuration.  Needs a CUDA card.
+``arch:batch:cache_len`` (float32 greedy decode).  ``arch`` is any
+configuration the port builds (``zamba2-2.7b:2:256``,
+``xlstm-350m:4:128``, ...); ``gemma2-100m`` is the example's.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
