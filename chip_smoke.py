@@ -165,7 +165,7 @@ Phases (each fails loudly, with a non-zero exit):
     plans (each rank audits its own), the five kernels hold under 1e30
     poison against their plain versions (``kernel_check.mask_coverage``),
     and the float64 gate refuses the kernels.
-21. The LM zoo's decoders (``repro_torch.models``, float32,
+21. The LM zoo (``repro_torch.models``, float32,
     TF32 off): (a) the example's ``gemma2-100m`` (12 layers, d 512, 8 / 4 heads,
     d_ff 2048, vocabulary 32 768, window 256; B 8, S 256, lr 1e-3, SGL
     lambda 3e-4) through ``python -m repro_torch.examples.sgl_pruned_lm``'s
@@ -215,11 +215,32 @@ Phases (each fails loudly, with a non-zero exit):
     by leaf.  (l) ``xlstm-350m`` at its published width and depth through
     ``train.main``, 3 steps at B 4, S 256 (the sLSTM's two checkpointed
     chunks of 128): finite losses; ``serve.main`` as in (c); decode of 32
-    tokens against the full forward (B 1) within 1e-4 * max|logits|.  Then
-    ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain versions
-    at each curve's shapes (X G x G, C (32, G) with n_max 1, the busiest
-    prox bucket).  Every phase and part prints its seconds beside the summed
-    walls of the calls it timed.
+    tokens against the full forward (B 1) within 1e-4 * max|logits|.  (m)
+    ``seamless-m4t-medium`` (enc-dec, 12 + 12 layers, d 1 024, V 256 206;
+    877 M parameters) at its published width and depth through
+    ``steps.make_train_step``, 3 steps at B 4, S 256, remat none, the
+    batch drawn by hand from a seeded numpy generator (frames from a
+    normal, tokens and labels from ``integers``; the reference's
+    ``train.main`` has no frames): finite losses, step ms, decoder
+    tokens/s and peak memory printed.  (n) ``serve.main`` on it as in (c)
+    (the reference's loop, over a zero ``enc_out``); the encoder once over
+    frames (1, 32, 1 024) into a cache of 32, then 32 tokens decoded
+    against the full ``encdec_forward`` within 1e-4 * max|logits|;
+    ``make_prefill_step`` at B 4, frames 128, tokens 16 (p50 of 5 warm
+    calls).  (o) ``llava-next-mistral-7b`` (7.24 B parameters) at its
+    published width and depth: ``serve.main`` and decode against the full
+    forward as in (j); ``make_prefill_step`` with 576 patches and 16
+    tokens at B 4; ``forward_train``'s masked loss at B 1, 576 patches and
+    64 tokens within 1e-5 relative of a cross-entropy by hand over the
+    text positions.  (p) ``llava-next-mistral-7b`` at full width on 8 of
+    its 32 layers (2.01 B parameters; a ``dataclasses.replace`` here, not
+    registered), 3 steps at B 2 with 576 patches and 256 tokens, the SGL
+    prox after each: finite losses, exact zeros in the prox's groups.
+    (q) The pruning curve of (p)'s 14 336 FFN channels with (a)'s gates.
+    Then ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
+    versions at each curve's shapes (X G x G, C (32, G) with n_max 1, the
+    busiest prox bucket).  Every phase and part prints its seconds beside
+    the summed walls of the calls it timed.
 22. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
@@ -2863,7 +2884,8 @@ def audit_phase(audit):
 
 
 # ---------------------------------------------------------------------------
-# phase 21: the LM zoo (dense, MLA, MoE, Mamba2 with shared attention, xLSTM)
+# phase 21: the LM zoo (dense, MLA, MoE, Mamba2 with shared attention, xLSTM,
+# the enc-dec family and the vision prefix)
 # ---------------------------------------------------------------------------
 
 LM_STEPS = 20            # the host draws every batch (PERF.md section 5)
@@ -3306,14 +3328,12 @@ def lm_train_full(torch, arch, B, S, label, dev="cuda"):
                 peak_gib=peak / 2**30)
 
 
-def lm_serve_full(torch, arch, label, seed, dev="cuda"):
+def serve_cli(torch, arch, label, dev="cuda"):
     """``serve.main`` on ``arch`` at its published width and depth (batch
-    4, prompt 16, gen 32, cache 128), peak memory printed; then decode of
-    32 tokens against the full forward (B 1) on freshly drawn weights,
-    within 1e-4 * max|logits|."""
+    4, prompt 16, gen 32, cache 128): warm p50 / p99 ms a step, tokens/s
+    and the peak device memory printed."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import model as model_lib
     cfg = get_config(arch)
     lat = []
     torch.cuda.synchronize()
@@ -3333,7 +3353,19 @@ def lm_serve_full(torch, arch, label, seed, dev="cuda"):
         f"{tok_s:.1f} tokens/s; peak device memory {peak / 2**30:.3f} GiB")
     require(gen.shape == (4, 32) and ((gen >= 0) & (gen < cfg.vocab_size))
             .all(), f"{label}: wrong generated tokens")
-    torch.cuda.empty_cache()
+    _free(torch)
+    return dict(p50_ms=p50, p99_ms=p99, tokens_per_s=tok_s,
+                peak_gib=peak / 2**30)
+
+
+def lm_serve_full(torch, arch, label, seed, dev="cuda", keep=False):
+    """``serve_cli`` on ``arch``; then decode of 32 tokens against the full
+    forward (B 1) on freshly drawn weights, within 1e-4 * max|logits|.
+    ``keep``: also return those weights."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config(arch)
+    out = serve_cli(torch, arch, label, dev)
     params = model_lib.init_params(cfg, torch.Generator(
         device=dev).manual_seed(seed))
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -3347,10 +3379,12 @@ def lm_serve_full(torch, arch, label, seed, dev="cuda"):
         f"1e-4 * max|logits| = {1e-4 * scale:.3e}")
     require(err < 1e-4 * scale,
             f"{label}: decode disagrees with the full forward")
+    out["decode_err"] = err
+    if keep:
+        return out, params
     del params
     torch.cuda.empty_cache()
-    return dict(p50_ms=p50, p99_ms=p99, tokens_per_s=tok_s, decode_err=err,
-                peak_gib=peak / 2**30)
+    return out
 
 
 def lm_mamba_layer_phase(torch, dev="cuda"):
@@ -3422,6 +3456,259 @@ def lm_mamba_layer_phase(torch, dev="cuda"):
     return dict(y_err=y_err, grad_rel=max(rel.values()))
 
 
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _seeded_batch(torch, cfg, B, S, seed, dev, frames=0, patches=0):
+    """A batch drawn from a seeded numpy generator, as the reference's
+    smoke tests build one by hand: ``tokens`` and ``labels`` (B, S) from
+    ``integers``, and ``frames`` (B, frames, d) or ``patches`` (B, patches,
+    d) from a normal."""
+    rng = np.random.default_rng(seed)
+    ints = lambda: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                   device=dev)
+    batch = {"tokens": ints(), "labels": ints()}
+    for key, n in (("frames", frames), ("patches", patches)):
+        if n:
+            batch[key] = torch.as_tensor(rng.standard_normal(
+                (B, n, cfg.d_model), dtype=np.float32), device=dev)
+    return batch
+
+
+def train_steps(torch, cfg, batch, label, n_steps=3, prox=None, dev="cuda"):
+    """``steps.make_train_step`` on ``cfg`` (float32, remat none, the
+    learning rate of ``train.main``'s defaults at lr 3e-4) for ``n_steps``
+    steps on one ``batch``, the SGL prox ``(t_l1, t_l2)`` after each when
+    given: finite losses.  Returns (losses, step seconds, peak device
+    bytes, the final ``TrainState``)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(0))
+    state = adamw.init_state(params)
+    del params
+    step = steps_mod.make_train_step(
+        cfg, remat="none", compute_dtype=torch.float32,
+        lr_kwargs=dict(base_lr=3e-4, warmup=20, total=100))
+    losses, times = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if prox is not None:
+            train_mod.sgl_prox_step(state.params, cfg, *prox)
+    note_wall(sum(times))
+    peak = torch.cuda.max_memory_allocated()
+    require(len(losses) == n_steps and np.isfinite(losses).all(),
+            f"{label}: non-finite losses {losses}")
+    return losses, times, peak, state
+
+
+def prefill_p50(torch, cfg, params, batch, label, reps=5):
+    """``steps.make_prefill_step`` on ``batch``: one cold call, then the
+    p50 of ``reps`` warm calls (ms, each to its synchronize)."""
+    from repro_torch.launch import steps as steps_mod
+    prefill = steps_mod.make_prefill_step(cfg, compute_dtype=torch.float32)
+    out = prefill(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    note_wall(sum(times))
+    require(tuple(out.shape) == (batch["tokens"].shape[0], 1,
+                                 cfg.vocab_size)
+            and bool(torch.isfinite(out).all()),
+            f"{label}: prefill logits of shape {tuple(out.shape)}, or not "
+            f"finite")
+    return 1e3 * float(np.median(times))
+
+
+def lm_seamless_train_phase(torch, dev="cuda"):
+    """(m) ``seamless-m4t-medium`` (enc-dec, 12 + 12 layers, d 1 024, V
+    256 206) at its published width and depth through
+    ``steps.make_train_step``, float32, remat none, 3 steps at B 4, S 256
+    (frames (4, 256, 1 024) from a normal, tokens and labels drawn from
+    ``integers``): finite losses."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("seamless-m4t-medium")
+    B, S = 4, 256
+    batch = _seeded_batch(torch, cfg, B, S, 31, dev, frames=S)
+    losses, times, peak, state = train_steps(torch, cfg, batch,
+                                             "lm-seamless-train", dev=dev)
+    first, med, tok_s = _step_stats(times, B * S)
+    say(f"[lm-seamless-train] {model_lib.param_count(cfg)} parameters "
+        f"({cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers), "
+        f"float32, B {B}, frames {S}, tokens {S}, remat none: losses "
+        f"{[round(l, 4) for l in losses]}; train step first {first:.1f} ms, "
+        f"median of the rest {med:.1f} ms = {tok_s:.0f} decoder tokens/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    del state, batch
+    _free(torch)
+    return dict(step_ms=med, first_step_ms=first, tokens_per_s=tok_s,
+                peak_gib=peak / 2**30)
+
+
+def lm_seamless_serve_phase(torch, dev="cuda"):
+    """(n) ``serve.main`` on ``seamless-m4t-medium`` (the reference's
+    prefill-free loop over the cache's zero ``enc_out``); then the encoder
+    once over frames (1, 32, 1 024), its output written into a cache of
+    32, and 32 tokens decoded against the full ``encdec_forward``, within
+    1e-4 * max|logits|; then ``make_prefill_step`` at B 4, frames 128,
+    tokens 16: the p50 of 5 warm calls."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("seamless-m4t-medium")
+    out = serve_cli(torch, cfg.name, "lm-seamless-serve", dev)
+    params = model_lib.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(27))
+    one = _seeded_batch(torch, cfg, 1, 32, 27, dev, frames=32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y, enc_out, _ = model_lib.encdec_forward(
+            params, cfg, one["frames"], one["tokens"], remat="none")
+        full = model_lib.logits_fn(params, cfg, y)
+        caches = model_lib.init_cache(cfg, 1, 32, torch.float32, device=dev)
+        caches["enc_out"].copy_(enc_out)
+        errs = torch.zeros(32, device=dev)
+        for t in range(32):
+            logits, caches = model_lib.forward_decode(
+                params, cfg, caches, one["tokens"][:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            errs[t] = (logits[:, 0] - full[:, t]).abs().max()
+        same_enc = bool(torch.equal(caches["enc_out"], enc_out))
+    err, scale = float(errs.max()), float(full.abs().max())
+    note_wall(time.perf_counter() - t0)
+    say(f"[lm-seamless-serve] the encoder over frames (1, 32, "
+        f"{cfg.d_model}) into a cache of 32, then decode of 32 tokens "
+        f"against the full encdec_forward: max|logits diff| {err:.3e}, "
+        f"max|logits| {scale:.3e}, bar 1e-4 * max|logits| = "
+        f"{1e-4 * scale:.3e}; enc_out untouched by decode {same_enc}")
+    require(err < 1e-4 * scale and same_enc,
+            "lm-seamless-serve: decode disagrees with the full forward")
+    batch = _seeded_batch(torch, cfg, 4, 16, 28, dev, frames=128)
+    p50 = prefill_p50(torch, cfg, params, batch, "lm-seamless-prefill")
+    say(f"[lm-seamless-serve] make_prefill_step at B 4, frames 128, tokens "
+        f"16: p50 of 5 warm calls {p50:.3f} ms")
+    del params, caches, full, y, enc_out
+    _free(torch)
+    return dict(out, decode_err=err, prefill_p50_ms=p50)
+
+
+def lm_llava_serve_phase(torch, dev="cuda"):
+    """(o) ``llava-next-mistral-7b`` at its published width and depth
+    (32 layers, d 4 096, d_ff 14 336): ``serve.main`` and decode against
+    the full forward within 1e-4 * max|logits| (``lm_serve_full``); then
+    ``make_prefill_step`` with 576 patches and 16 tokens at B 4 (p50 of 5
+    warm calls); then ``forward_train``'s loss under ``no_grad`` at B 1,
+    576 patches and 64 tokens, within 1e-5 relative of a cross-entropy
+    computed by hand over the text positions alone."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("llava-next-mistral-7b")
+    P = cfg.num_patches
+    out, params = lm_serve_full(torch, cfg.name, "lm-llava-serve", 26, dev,
+                                keep=True)
+    batch = _seeded_batch(torch, cfg, 4, 16, 29, dev, patches=P)
+    p50 = prefill_p50(torch, cfg, params, batch, "lm-llava-prefill")
+    say(f"[lm-llava-serve] make_prefill_step at B 4, {P} patches + 16 "
+        f"tokens: p50 of 5 warm calls {p50:.3f} ms")
+    one = _seeded_batch(torch, cfg, 1, 64, 30, dev, patches=P)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = model_lib.forward_train(params, cfg, one, remat="none",
+                                          compute_dtype=torch.float32)
+        x = model_lib.assemble_inputs(params, cfg, one, torch.float32)
+        x, _, _ = model_lib.decoder_stack(params, x, torch.arange(
+            x.shape[1], device=dev), cfg, remat="none")
+        x = model_lib.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = model_lib.logits_fn(params, cfg, x[:, P:])
+        gold = torch.gather(logits, -1, one["labels"][..., None])[..., 0]
+        by_hand = torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+    rel = abs(float(loss) / float(by_hand) - 1)
+    note_wall(time.perf_counter() - t0)
+    say(f"[lm-llava-serve] forward_train's masked loss at B 1, {P} patches "
+        f"+ 64 tokens: {float(loss):.6f}; the cross-entropy by hand over "
+        f"the 64 text positions {float(by_hand):.6f}; relative diff "
+        f"{rel:.3e} (bar 1e-5)")
+    require(rel < 1e-5, "lm-llava-serve: the masked loss is not the text "
+            "positions' cross-entropy")
+    del params, logits, x
+    _free(torch)
+    return dict(out, prefill_p50_ms=p50, loss_rel=rel)
+
+
+def lm_llava_train_phase(torch, dev="cuda"):
+    """(p) ``llava-next-mistral-7b`` at full width on 8 of its 32 layers
+    (``dataclasses.replace(cfg, num_layers=8)``; the full depth's 107.9
+    GiB of state does not fit on the card) through
+    ``steps.make_train_step``, float32, remat none, 3 steps at B 2 with
+    576 patches and 256 tokens (S 832, one CE chunk), ``train.
+    sgl_prox_step`` after each as ``train.main`` applies it (lr 3e-4, SGL
+    lambda 3e-4): finite losses, exact zeros in the prox's groups
+    (``attn/wq`` heads, ``ffn/w_in`` channels) and none in ``wk``.
+    Returns its trained FFN channel signal (G = d_ff = 14 336)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(get_config("llava-next-mistral-7b"),
+                              num_layers=8)
+    B, S, P = 2, 256, cfg.num_patches
+    batch = _seeded_batch(torch, cfg, B, S, 32, dev, patches=P)
+    t = 3e-4 * 3e-4
+    losses, times, peak, state = train_steps(
+        torch, cfg, batch, "lm-llava-train", prox=(t, t), dev=dev)
+    pb = state.params["blocks"]["l0"]
+    zeros = {"wq": _zeros(pb["attn"]["wq"]), "w_in": _zeros(pb["ffn"]["w_in"]),
+             "wk": _zeros(pb["attn"]["wk"])}
+    first, med, tok_s = _step_stats(times, B * S)
+    say(f"[lm-llava-train] {model_lib.param_count(cfg)} parameters (8 of 32 "
+        f"layers), float32, B {B}, {P} patches + {S} tokens (S {P + S}), "
+        f"remat none: losses {[round(l, 4) for l in losses]}; train step "
+        f"first {first:.1f} ms, median of the rest {med:.1f} ms = "
+        f"{tok_s:.0f} text tokens/s, {tok_s * (P + S) / S:.0f} positions/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB; exact zeros after the "
+        f"prox wq {zeros['wq']}, w_in {zeros['w_in']}, wk (no prox) "
+        f"{zeros['wk']}")
+    require(zeros["wq"] > 0 and zeros["w_in"] > 0 and zeros["wk"] == 0,
+            "lm-llava-train: the SGL prox left no zero in its groups")
+    signal = ex.ffn_channel_signal(state.params)
+    require(signal.shape == (cfg.d_ff,),
+            f"lm-llava-train: channel signal of shape {signal.shape}")
+    del state, pb, batch
+    _free(torch)
+    return signal, dict(step_ms=med, first_step_ms=first,
+                        tokens_per_s=tok_s, peak_gib=peak / 2**30)
+
+
+def lm_vlm_curve_phase(torch, signal, dev="cuda"):
+    """(q) The pruning-threshold curve of (p)'s trained FFN channels (G =
+    14 336, X = eye(14 336)) through ``pruning_threshold_curve``, with the
+    gates of (a)'s curve.  Returns (launch counts, graphed-solve record,
+    the curve)."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    (res, surv), counts, _, calls = run_counted(
+        torch, "lm-vlm-curve",
+        lambda: ex.pruning_threshold_curve(signal, device=dev))
+    require_curve(torch, res, surv, signal, counts, calls, "lm-vlm-curve",
+                  dev)
+    _free(torch)
+    return counts, calls, res
+
+
 def curve_checks(torch, T, res, calls, label):
     """``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
     versions at a pruning curve's shapes: X = eye(G), the first screen's
@@ -3469,15 +3756,34 @@ def lm_phase(torch, T):
     with timed_phase("lm-xlstm"):
         lm_train_full(torch, "xlstm-350m", 4, 256, "lm-xlstm-train")
         lm_serve_full(torch, "xlstm-350m", "lm-xlstm-serve", 25)
+    counts_vlm, calls_vlm, res_vlm = lm_encdec_vision_phase(torch)
     torch.cuda.empty_cache()
     checks = {}
     for key, (r, c, label) in {"lm_curve": (res, calls, "lm-curve"),
                                "lm_moe_curve": (res_moe, calls_moe,
-                                                "lm-moe-curve")}.items():
+                                                "lm-moe-curve"),
+                               "lm_vlm_curve": (res_vlm, calls_vlm,
+                                                "lm-vlm-curve")}.items():
         for name, row in curve_checks(torch, T, r, c, label).items():
             checks.setdefault(name, {})[key] = row
     return {"lm-pruning-curve": counts,
-            "lm-moe-pruning-curve": counts_moe}, checks
+            "lm-moe-pruning-curve": counts_moe,
+            "lm-vlm-pruning-curve": counts_vlm}, checks
+
+
+def lm_encdec_vision_phase(torch, dev="cuda"):
+    """Parts (m)-(q): the enc-dec family and the vision prefix.  Returns
+    (q)'s (launch counts, graphed-solve record, curve)."""
+    with timed_phase("lm-seamless-train"):
+        lm_seamless_train_phase(torch, dev)
+    with timed_phase("lm-seamless-serve"):
+        lm_seamless_serve_phase(torch, dev)
+    with timed_phase("lm-llava-serve"):
+        lm_llava_serve_phase(torch, dev)
+    with timed_phase("lm-llava-train"):
+        signal, _ = lm_llava_train_phase(torch, dev)
+    with timed_phase("lm-vlm-curve"):
+        return lm_vlm_curve_phase(torch, signal, dev)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ counterpart of ``repro.analysis``'s compile and Pallas layers).
 CLI::
 
     PYTHONPATH=src python -m repro_torch.analysis --compile --kernels \\
-        [--device cpu]
+        [--device cpu]    # default cuda; raises without a card
 
 The reference's jaxpr lint, AST rules and XLA resource audit read JAX
 traces and have no counterpart here.
@@ -30,10 +30,11 @@ KNOWN_RULES = (
 )
 
 
-def run_layers(layers=LAYERS, device="cpu") -> list:
+def run_layers(layers=LAYERS, device=None) -> list:
     """Run the requested layers; returns all findings.  ``device`` is
     where the kernel layer runs the wrappers ("cuda" launches the
-    kernels)."""
+    kernels, "cpu" runs their plain versions); None means the card and
+    raises without CUDA."""
     findings = []
     if "compile" in layers:
         from . import compile_audit

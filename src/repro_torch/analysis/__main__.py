@@ -2,13 +2,16 @@
 finding.
 
     PYTHONPATH=src python -m repro_torch.analysis --compile --kernels
-    PYTHONPATH=src python -m repro_torch.analysis --kernels --device cuda
+    PYTHONPATH=src python -m repro_torch.analysis --kernels --device cpu
+
+``--device`` defaults to ``cuda``; without a card that raises.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+from ..launch.steps import resolve_cli_device
 from . import LAYERS, format_report, run_layers
 
 
@@ -21,13 +24,14 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="mask coverage of the kernel wrappers and the "
                          "float64 gate")
-    ap.add_argument("--device", default="cpu",
+    ap.add_argument("--device", default="cuda",
                     help="where the kernel layer runs the wrappers "
-                         "(default cpu: their plain versions; cuda "
-                         "launches the kernels)")
+                         "(default cuda: launches the kernels, and raises "
+                         "without a card; cpu: their plain versions)")
     args = ap.parse_args(argv)
+    dev = resolve_cli_device(args.device)
     layers = tuple(name for name in LAYERS if getattr(args, name)) or LAYERS
-    findings = run_layers(layers, device=args.device)
+    findings = run_layers(layers, device=dev)
     print(f"repro_torch.analysis: layers={','.join(layers)} "
           f"device={args.device}")
     print(format_report(findings, [], []))

@@ -39,13 +39,15 @@ def _ragged_spec(device):
     return GroupSpec.from_sizes(list(RAGGED_SIZES), device=device)
 
 
-def mask_coverage(device="cpu", errors: dict = None) -> list:
+def mask_coverage(device=None, errors: dict = None) -> list:
     """Each wrapper on poisoned padding against its plain version on the
-    clean data, on ``device``.  ``errors`` (a dict), when given, receives
-    each kernel's largest absolute difference."""
+    clean data, on ``device`` (None: the card, raising without CUDA).
+    ``errors`` (a dict), when given, receives each kernel's largest
+    absolute difference."""
+    from ..core.groups import resolve_device
     from ..kernels import ops, ref
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(1)
     findings = []
     spec = _ragged_spec(dev)
@@ -178,5 +180,6 @@ def f64_gate() -> list:
     return findings
 
 
-def run(device="cpu") -> list:
+def run(device=None) -> list:
+    """Both checks; ``device=None`` is the card."""
     return mask_coverage(device) + f64_gate()

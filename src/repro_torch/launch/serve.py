@@ -1,6 +1,8 @@
 """Batched decode loop with a KV cache (PyTorch port of
 ``repro.launch.serve``): teacher-forced prefill through the decode step,
-greedy decode, warm-only per-step p50 / p99 and tokens per second.
+greedy decode, warm-only per-step p50 / p99 and tokens per second.  An
+enc-dec config decodes, as the reference's loop does, against the cache's
+all-zero ``enc_out``: the loop runs no encoder.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --smoke --batch 4 --prompt-len 16 --gen 32 --device cpu

@@ -94,16 +94,22 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
 
 def make_prefill_step(cfg: ArchConfig, mesh=None,
                       compute_dtype=torch.bfloat16):
-    """Full-sequence forward -> last-position logits."""
+    """Full-sequence forward -> last-position logits.  batch: ``tokens``,
+    and an enc-dec config's ``frames`` or a vision config's ``patches``."""
     model_lib.refuse_mesh(mesh, False)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x = model_lib.assemble_inputs(params, cfg, batch, compute_dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, _, _ = model_lib.decoder_stack(params, x, positions, cfg,
-                                          remat="none")
-        y = model_lib.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.family == "encdec":
+            y, _, _ = model_lib.encdec_forward(
+                params, cfg, batch["frames"].to(compute_dtype),
+                batch["tokens"], remat="none")
+        else:
+            x = model_lib.assemble_inputs(params, cfg, batch, compute_dtype)
+            positions = torch.arange(x.shape[1], device=x.device)
+            x, _, _ = model_lib.decoder_stack(params, x, positions, cfg,
+                                              remat="none")
+            y = model_lib.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return model_lib.logits_fn(params, cfg, y[:, -1:, :])
 
     return prefill_step

@@ -1,6 +1,5 @@
-"""Model assembly for the decoders: parameter trees, the layer stack, train /
-prefill / decode (PyTorch port of the decoder path of
-``repro.models.model``).
+"""Model assembly: parameter trees, the layer stack, the encoder-decoder,
+train / prefill / decode (PyTorch port of ``repro.models.model``).
 
 The layer stack is the unrolled ``prologue`` layers (``pro{i}``), then
 ``repeats`` copies of the ``block_pattern`` period.  Each
@@ -20,8 +19,13 @@ the four MLP activations, MLA attention and the MoE FFN with shared experts
 ``granite-moe-1b-a400m``, ``deepseek-v2-236b``); ``mamba`` and
 ``mamba+shared_attn`` (Mamba2, and after it one of two ``shared_attn``
 attention + MLP blocks, ``shared_attn[r % 2]`` in repeat r; ``zamba2-2.7b``)
-and ``mlstm`` / ``slstm`` (``xlstm-350m``).  The enc-dec family, the vision
-prefix and a mesh raise ``NotImplementedError`` naming their ROADMAP item.
+and ``mlstm`` / ``slstm`` (``xlstm-350m``); the enc-dec family
+(``encdec_forward``: ``encoder`` and ``decoder`` stacks of ``enc_layers`` and
+``dec_layers``, cross-attention over the encoder's output, the ``audio``
+frontend's precomputed frames; ``seamless-m4t-medium``) and the ``vision``
+prefix (precomputed patch embeddings before the tokens, masked out of the
+loss; ``llava-next-mistral-7b``).  A mesh raises ``NotImplementedError``
+naming its ROADMAP item.
 
 The decode cache is a nested dict, a leaf tree a layer of the period
 stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
@@ -29,8 +33,10 @@ stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
 MambaCache}`` or ``{"mamba": ..., "shared": KVCache}`` for Mamba2 (each
 application of a shared block has its own KV cache), ``MLSTMCache`` and
 ``SLSTMCache``.  Recurrent states are float32, rings and KV rows in the
-cache's dtype, the xLSTM stabilisers ``m`` start at -1e30.  Decode writes
-every cache in place into its slice of the stack.
+cache's dtype, the xLSTM stabilisers ``m`` start at -1e30.  The enc-dec
+cache is ``{"decoder": {"self": KVCache stacked over dec_layers},
+"enc_out": (B, cache_len, d)}``.  Decode writes every cache in place into
+its slice of the stack.
 """
 from __future__ import annotations
 
@@ -58,26 +64,17 @@ KINDS = ATTN_KINDS + MAMBA_KINDS + ("mlstm", "slstm")
 
 # what the port does not build yet, and the ROADMAP item that ports it
 NOT_PORTED = {
-    "encdec": "enc-dec and cross-attention (ROADMAP item 39)",
-    "vision": "the vision prefix (ROADMAP item 40)",
     "mesh": "the sharding rules and ZeRO-3 training (ROADMAP item 41)",
 }
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    part of ``cfg`` that the port does not build."""
-    parts = []
-    if cfg.family == "encdec":
-        parts.append("encdec")
-    if cfg.frontend is not None:
-        parts.append(cfg.frontend)
-    parts += [k for k in cfg.prologue + cfg.block_pattern
-              if k not in KINDS]
+    """Raise ``NotImplementedError`` naming the first block kind of
+    ``cfg`` that the port does not know."""
+    parts = [k for k in cfg.prologue + cfg.block_pattern if k not in KINDS]
     if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: {NOT_PORTED.get(parts[0], parts[0])} is not "
-            f"ported yet")
+        raise NotImplementedError(f"{cfg.name}: block kind {parts[0]!r} is "
+                                  f"not ported")
 
 
 def refuse_mesh(mesh, seq_shard) -> None:
@@ -120,6 +117,15 @@ def param_descs(cfg: ArchConfig):
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamDesc((d, V), ("embed", "vocab"))
+    ln = lambda: ParamDesc((d,), (None,), scale=0.0)
+    if cfg.family == "encdec":
+        enc_block = {"ln1": ln(), "attn": attn.gqa_descs(cfg), "ln2": ln(),
+                     "ffn": mlp_mod.mlp_descs(cfg)}
+        dec_block = dict(enc_block, ln_x=ln(), xattn=attn.gqa_descs(cfg))
+        tree["encoder"] = _stack_descs(enc_block, cfg.enc_layers)
+        tree["decoder"] = _stack_descs(dec_block, cfg.dec_layers)
+        tree["enc_final_norm"] = ln()
+        return tree
     for i, kind in enumerate(cfg.prologue):
         tree[f"pro{i}"] = _block_descs(cfg, kind)
     period = {f"l{i}": _block_descs(cfg, kind)
@@ -127,7 +133,6 @@ def param_descs(cfg: ArchConfig):
     tree["blocks"] = _stack_descs(period, cfg.repeats)
     if "mamba+shared_attn" in cfg.block_pattern:
         # two alternating attention + MLP blocks shared by every repeat
-        ln = lambda: ParamDesc((d,), (None,), scale=0.0)
         tree["shared_attn"] = _stack_descs(
             {"ln1": ln(), "attn": attn.gqa_descs(cfg), "ln2": ln(),
              "ffn": mlp_mod.mlp_descs(cfg)}, 2)
@@ -378,6 +383,89 @@ def chunked_ce_loss(params, cfg, x, labels, mask=None):
 
 
 # ---------------------------------------------------------------------------
+# encoder-decoder (seamless): frames are precomputed embeddings (stub)
+# ---------------------------------------------------------------------------
+
+def encdec_forward(params, cfg, frames, tokens, *, mesh=None, remat="full",
+                   dec_caches=None, cache_pos=None, enc_out=None,
+                   compute_dtype=None):
+    """frames: (B, S_enc, d) float embeddings; tokens: (B, S_dec) int64.
+    If ``enc_out`` is given (decode), the encoder is skipped.
+
+    The encoder is causal, as the reference's is: each layer is
+    ``gqa_forward`` with RoPE at ``arange(S_enc)`` and ``q_pos = k_pos``,
+    so its output at t reads no frame after t.  Each decoder layer is
+    causal self-attention (``dec_caches``' ``self`` KV cache written in
+    place when decoding), then cross-attention over ``enc_out``, then the
+    MLP.  ``remat`` checkpoints each layer body.  Returns (y, enc_out,
+    dec_caches or None)."""
+    refuse_mesh(mesh, False)
+    if compute_dtype is not None:
+        dt = compute_dtype
+    elif frames is not None:
+        dt = frames.dtype
+    else:
+        dt = enc_out.dtype
+
+    if enc_out is None:
+        x = frames
+        pos_e = torch.arange(x.shape[1], device=x.device)
+
+        def enc_body(x, p):
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            a, _ = attn.gqa_forward(p["attn"], h, pos_e, cfg)
+            x = x + a
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            return x + mlp_mod.mlp_forward(p["ffn"], h, cfg)
+
+        body = _remat_wrap(enc_body, remat)
+        for p in _unbind(params["encoder"], cfg.enc_layers):
+            x = body(x, p)
+        enc_out = rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    y = embed_tokens(params, cfg, tokens, dt)
+    if dec_caches is None:
+        pos_d = torch.arange(tokens.shape[1], device=y.device)
+    else:
+        pos_d = torch.full((1,), int(cache_pos), device=y.device)
+    self_caches = dec_caches["self"] if dec_caches is not None else None
+
+    def dec_body(y, enc_out, p, r):
+        c = _layer_cache(self_caches, r) if self_caches is not None \
+            else None
+        h = rms_norm(y, p["ln1"], cfg.norm_eps)
+        a, _ = attn.gqa_forward(p["attn"], h, pos_d, cfg, cache=c,
+                                cache_pos=cache_pos)
+        y = y + a
+        # cross-attention over the encoder's states (enc_out is fixed)
+        h = rms_norm(y, p["ln_x"], cfg.norm_eps)
+        y = y + _cross_attention(p["xattn"], h, enc_out, cfg)
+        h = rms_norm(y, p["ln2"], cfg.norm_eps)
+        return y + mlp_mod.mlp_forward(p["ffn"], h, cfg)
+
+    body = _remat_wrap(dec_body, remat)
+    for r, p in enumerate(_unbind(params["decoder"], cfg.dec_layers)):
+        y = body(y, enc_out, p, r)
+    y = rms_norm(y, params["final_norm"], cfg.norm_eps)
+    return y, enc_out, dec_caches
+
+
+def _cross_attention(p, q_in, kv_in, cfg):
+    """q from the decoder's states, k and v from the encoder's; no RoPE, no
+    cap, every encoder position visible (``q_pos`` is ``Skv - 1`` for each
+    query), GQA grouping as in self-attention."""
+    q = torch.einsum("bsd,dhk->bshk", q_in, p["wq"].to(q_in.dtype))
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"].to(q_in.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"].to(q_in.dtype))
+    Sq, Skv = q.shape[1], k.shape[1]
+    q_pos = torch.full((Sq,), Skv - 1, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    o = attn.sdpa(q, k, v, q_pos, k_pos)
+    return torch.einsum("bshk,hkd->bsd", o.to(q_in.dtype),
+                        p["wo"].to(q_in.dtype))
+
+
+# ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 
@@ -396,9 +484,18 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
     ``min(cache_len, window)`` ring slots), ``{"mamba": MambaCache}`` (and
     ``"shared"``, the shared block's ``KVCache``), ``MLSTMCache`` or
     ``SLSTMCache``.  KV rows and conv rings are in ``dtype``, recurrent
-    states float32, the xLSTM's ``m`` filled with -1e30."""
+    states float32, the xLSTM's ``m`` filled with -1e30.  The enc-dec
+    cache is the decoder's self-attention ``KVCache`` stacked over
+    ``dec_layers`` and ``enc_out`` (B, cache_len, d): the encoder's length
+    is the cache's, as in the reference."""
     check_supported(cfg)
     f32 = torch.float32
+    if cfg.family == "encdec":
+        kv = (cfg.dec_layers,) + attn.gqa_cache_shape(cfg, batch, cache_len)
+        return {"decoder": {"self": attn.KVCache(TensorSpec(kv, dtype),
+                                                 TensorSpec(kv, dtype))},
+                "enc_out": TensorSpec((batch, cache_len, cfg.d_model),
+                                      dtype)}
 
     def layer(kind, stack=()):
         spec = lambda shp, dt=dtype, fill=0.0: TensorSpec(stack + shp, dt,
@@ -446,21 +543,43 @@ def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
 # ---------------------------------------------------------------------------
 
 def assemble_inputs(params, cfg, batch, compute_dtype):
-    """tokens -> (B, S, d) input states (the vision prefix waits for
-    ROADMAP item 40)."""
+    """tokens (+ the vision prefix) -> (B, S, d) input states: a vision
+    config's ``patches`` (B, num_patches, d), cast to the compute dtype,
+    come before the token embeddings."""
     check_supported(cfg)
-    return embed_tokens(params, cfg, batch["tokens"], compute_dtype)
+    x = embed_tokens(params, cfg, batch["tokens"], compute_dtype)
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(compute_dtype), x], dim=1)
+    return x
 
 
 def forward_train(params, cfg: ArchConfig, batch, *, mesh=None, remat="full",
                   compute_dtype=torch.bfloat16, seq_shard=False):
-    """Returns (loss, metrics).  batch: tokens/labels, int64 (B, S)."""
+    """Returns (loss, metrics).  batch: tokens/labels, int64 (B, S); an
+    enc-dec config's ``frames`` (B, S_enc, d) (metrics ``ce`` alone), a
+    vision config's ``patches`` (B, num_patches, d), whose positions the
+    loss masks out."""
     refuse_mesh(mesh, seq_shard)
+    if cfg.family == "encdec":
+        y, _, _ = encdec_forward(params, cfg,
+                                 batch["frames"].to(compute_dtype),
+                                 batch["tokens"], remat=remat)
+        loss = chunked_ce_loss(params, cfg, y, batch["labels"])
+        return loss, {"ce": loss}
     x = assemble_inputs(params, cfg, batch, compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = decoder_stack(params, x, positions, cfg, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    ce = chunked_ce_loss(params, cfg, x, batch["labels"])
+    labels, mask = batch["labels"], None
+    if cfg.frontend == "vision" and "patches" in batch:
+        pad = torch.zeros((labels.shape[0], batch["patches"].shape[1]),
+                          dtype=labels.dtype, device=labels.device)
+        mask = torch.cat([torch.zeros(pad.shape, dtype=torch.float32,
+                                      device=x.device),
+                          torch.ones(labels.shape, dtype=torch.float32,
+                                     device=x.device)], dim=1)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = chunked_ce_loss(params, cfg, x, labels, mask)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -469,8 +588,15 @@ def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
                    mesh=None, compute_dtype=torch.bfloat16):
     """One decode step.  tokens: (B, 1) int64; pos: the absolute position
     (an int).  Returns (logits (B, 1, V) float32, caches), the caches
-    written in place."""
+    written in place (an enc-dec cache's ``enc_out`` is read, never
+    written)."""
     refuse_mesh(mesh, False)
+    if cfg.family == "encdec":
+        y, _, _ = encdec_forward(
+            params, cfg, None, tokens, dec_caches=caches["decoder"],
+            cache_pos=pos, enc_out=caches["enc_out"].to(compute_dtype),
+            compute_dtype=compute_dtype)
+        return logits_fn(params, cfg, y), caches
     x = embed_tokens(params, cfg, tokens, compute_dtype)
     positions = torch.full((1,), int(pos), device=x.device)
     x, caches, _ = decoder_stack(params, x, positions, cfg, caches=caches,

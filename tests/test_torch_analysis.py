@@ -182,9 +182,21 @@ def test_unpredicted_graph_is_flagged():
 
 
 def test_static_layers_are_clean():
-    assert analysis.run_layers(("compile", "kernels")) == []
+    assert analysis.run_layers(("compile", "kernels"), device="cpu") == []
     from repro_torch.analysis.__main__ import main
-    assert main(["--compile", "--kernels"]) == 0
+    assert main(["--compile", "--kernels", "--device", "cpu"]) == 0
+
+
+def test_audits_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.analysis.__main__ import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--kernels"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis.run_layers(("kernels",))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kc.mask_coverage()
 
 
 def test_f64_gate_is_clean():

@@ -1253,3 +1253,81 @@ def test_mamba2_layer_at_full_width_on_the_card(dev):
         err = torch.linalg.vector_norm(a - b) / torch.clamp(
             torch.linalg.vector_norm(b), min=1e-30)
         assert float(err) < 1e-3, k
+
+
+def test_encdec_decode_matches_full_forward_on_the_card(dev):
+    """Reduced seamless: the encoder over 24 frames into a 24-slot cache,
+    then 24 decode steps: within 1e-4 * max|logits| of the full
+    ``encdec_forward`` on the card, and of the CPU's decode; ``enc_out``
+    untouched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("seamless-m4t-medium").reduced()
+    cpu, card = _lm_params(cfg, 3, dev)
+    B, T_ = 2, 24
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T_)))
+    frames = torch.as_tensor(rng.standard_normal(
+        (B, T_, cfg.d_model)).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        for name, params, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            y, enc, _ = M.encdec_forward(params, cfg, frames.to(d),
+                                         toks.to(d), remat="none")
+            if name == "card":
+                full = M.logits_fn(params, cfg, y).cpu()
+            caches = M.init_cache(cfg, B, T_, torch.float32, device=d)
+            caches["enc_out"].copy_(enc)
+            steps = []
+            for t in range(T_):
+                logits, caches = M.forward_decode(
+                    params, cfg, caches, toks[:, t:t + 1].to(d), t,
+                    compute_dtype=torch.float32)
+                steps.append(logits[:, 0].cpu())
+            assert torch.equal(caches["enc_out"], enc)
+            out[name] = torch.stack(steps, 1)
+    tol = 1e-4 * float(full.abs().max())
+    torch.testing.assert_close(out["card"], full, rtol=0, atol=tol)
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=0, atol=tol)
+
+
+def test_vision_loss_on_the_card_masks_the_patches(dev):
+    """Reduced llava, 16 patches and 48 tokens: ``forward_train``'s loss on
+    the card within 1e-5 relative of a cross-entropy by hand over the text
+    positions and of the CPU's loss; its gradients within 1e-4 relative
+    L2 of the CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.pytree import leaves
+    cfg = get_config("llava-next-mistral-7b").reduced()
+    pair = _lm_params(cfg, 4, dev)
+    rng = np.random.default_rng(6)
+    B, S, P = 2, 48, cfg.num_patches
+    host = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (B, S))),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (B, S))),
+            "patches": torch.as_tensor(rng.standard_normal(
+                (B, P, cfg.d_model)).astype(np.float32))}
+    losses, grads = [], []
+    for params, d in zip(pair, ("cpu", dev)):
+        batch = {k: v.to(d) for k, v in host.items()}
+        loss, _ = M.forward_train(params, cfg, batch, remat="none",
+                                  compute_dtype=torch.float32)
+        losses.append(float(loss))
+        grads.append(torch.autograd.grad(loss, leaves(params)))
+    with torch.no_grad():
+        card, batch = pair[1], {k: v.to(dev) for k, v in host.items()}
+        x = M.assemble_inputs(card, cfg, batch, torch.float32)
+        x, _, _ = M.decoder_stack(card, x, torch.arange(P + S, device=dev),
+                                  cfg, remat="none")
+        logits = M.logits_fn(card, cfg, M.rms_norm(
+            x, card["final_norm"], cfg.norm_eps))[:, P:]
+        by_hand = float(torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), batch["labels"].reshape(-1)))
+    assert losses[1] == pytest.approx(by_hand, rel=1e-5)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for a, b in zip(*grads):
+        err = torch.linalg.vector_norm(b.cpu() - a) / torch.clamp(
+            torch.linalg.vector_norm(a), min=1e-30)
+        assert float(err) < 1e-4

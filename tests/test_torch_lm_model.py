@@ -1,5 +1,6 @@
 """The port's LM decoders (``repro_torch.models``: dense, MLA, MoE, Mamba2
-with shared attention, xLSTM) against
+with shared attention, xLSTM; the enc-dec and vision families only build
+here) against
 the live JAX reference (``repro.models``) on the same inputs, weights carried
 across by ``repro_torch.convert.lm_params``.
 
@@ -336,29 +337,39 @@ def test_prefill_and_serve_steps():
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# the registry, the enc-dec and vision families, refusals
 # ---------------------------------------------------------------------------
 
-UNPORTED = {
-    "seamless-m4t-medium": "item 39", "llava-next-mistral-7b": "item 40",
-}
+# their forward, decode and gradients: tests/test_torch_lm_encdec_vision.py
+ENCDEC_VISION = ["seamless-m4t-medium", "llava-next-mistral-7b"]
 
 
 def test_registry_holds_the_ten_configs():
-    assert sorted(list_archs()) == sorted(PORTED + list(UNPORTED))
+    assert sorted(list_archs()) == sorted(PORTED + ENCDEC_VISION)
     for name in list_archs():
         assert dataclasses.asdict(tget(name)) == dataclasses.asdict(
             jget(name))
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_refuse(arch):
-    cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        TM.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP " +
-                       UNPORTED[arch]):
-        TM.cache_shapes(cfg, 1, 8)
+@pytest.mark.parametrize("arch", ENCDEC_VISION)
+def test_encdec_and_vision_families_build_the_references_tree(arch):
+    """The reduced config builds: the parameters in the reference's leaf
+    order with its paths and shapes, the decode cache with its leaf
+    shapes and dtypes."""
+    jc, tc = jget(arch).reduced(), tget(arch).reduced()
+    jp = JM.init_params(jc, jax.random.PRNGKey(0), F32)
+    tp = TM.init_params(tc, torch.Generator().manual_seed(0))
+    ref_paths = ["/".join(str(k.key) for k in path) for path, _ in
+                 jax.tree_util.tree_flatten_with_path(jp)[0]]
+    named = dict(tp.named_parameters())
+    assert sorted(n.replace(".", "/") for n in named) == sorted(ref_paths)
+    for path, leaf, want in zip(ref_paths, leaves(tp), jax.tree.leaves(jp)):
+        assert leaf is named[path.replace("/", ".")]
+        assert tuple(leaf.shape) == want.shape
+    want = jax.tree.leaves(JM.init_cache(jc, 2, 8, F32))
+    got = leaves(TM.init_cache(tc, 2, 8, torch.float32, device="cpu"))
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert all(g.dtype == torch.float32 for g in got)
 
 
 def test_mesh_seq_shard_and_unknown_remat_refuse():

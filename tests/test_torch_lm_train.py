@@ -459,10 +459,16 @@ def test_lm_converters_default_to_the_card():
         convert.lm_train_state(js)
 
 
-def test_train_main_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="item 39"):
-        ttrain.main(["--arch", "seamless-m4t-medium", "--smoke", "--steps",
-                     "1", "--device", "cpu"])
+def test_train_main_on_seamless_fails_as_the_references():
+    """``train.main``'s data stream draws tokens alone, so the enc-dec
+    loss finds no ``frames``: the reference's ``KeyError``, and the
+    port's."""
+    argv = ["--arch", "seamless-m4t-medium", "--smoke", "--steps", "1",
+            "--global-batch", "2", "--seq", "16"]
+    with pytest.raises(KeyError, match="frames"):
+        jtrain.main(argv)
+    with pytest.raises(KeyError, match="frames"):
+        ttrain.main(argv + ["--device", "cpu"])
 
 
 def test_serve_main_cpu(capsys):

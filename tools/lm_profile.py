@@ -14,12 +14,18 @@ none, the SGL prox off; iid tokens from ``SyntheticLM.fast_batch_at``, so
 the host draws no Markov batch), each ``--decode`` item
 ``arch:batch:cache_len`` (float32 greedy decode).  ``arch`` is any
 configuration the port builds (``zamba2-2.7b:2:256``,
-``xlstm-350m:4:128``, ...); ``gemma2-100m`` is the example's.  Needs a
-CUDA card.
+``xlstm-350m:4:128``, ``seamless-m4t-medium:4:256``, ...);
+``gemma2-100m`` is the example's; ``arch@L`` cuts it to L layers
+(``llava-next-mistral-7b@8:2:256``).  An enc-dec configuration trains on
+``frames`` (batch, seq, d) and a vision one on ``num_patches`` patches
+before its ``seq`` tokens, both drawn from a seeded normal; their decode
+is the tokens' alone (an enc-dec cache's ``enc_out`` stays zero, as in
+``launch/serve.py``).  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -85,6 +91,13 @@ def _train(torch, cfg, B, S):
         lr_kwargs=dict(base_lr=1e-4, warmup=1))]
     batch = {k: v.cuda() for k, v in
              SyntheticLM(cfg.vocab_size, S, B).fast_batch_at(0).items()}
+    n = {"frames": S if cfg.family == "encdec" else 0,
+         "patches": cfg.num_patches if cfg.frontend == "vision" else 0}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for key, rows in n.items():
+        if rows:
+            batch[key] = torch.randn((B, rows, cfg.d_model), device="cuda",
+                                     generator=gen)
 
     def run():
         box[0], metrics = box[1](box[0], batch)
@@ -126,15 +139,21 @@ def main(argv=None) -> int:
     example_config()
     print(torch.cuda.get_device_name(0), flush=True)
 
+    def config(arch):
+        name, _, layers = arch.partition("@")
+        cfg = get_config(name)
+        return dataclasses.replace(cfg, num_layers=int(layers)) if layers \
+            else cfg
+
     items = []
     for item in args.train:
         arch, B, S = item.split(":")
         items.append((f"train {arch} B {B} S {S}", _train,
-                      (get_config(arch), int(B), int(S)), 3))
+                      (config(arch), int(B), int(S)), 3))
     for item in args.decode:
         arch, B, L = item.split(":")
         items.append((f"decode {arch} B {B} cache {L}", _decode,
-                      (get_config(arch), int(B), int(L)), 12))
+                      (config(arch), int(B), int(L)), 12))
     # every CUPTI trace before the first torch.profiler run with CUDA
     # activity, which leaves its own timestamp source with CUPTI
     for measure in (_trace, _profile):
