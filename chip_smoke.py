@@ -3,7 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases (each fails loudly, with a non-zero exit):
+Phases (each fails loudly, with a non-zero exit).  After phase 2 four
+worker processes (``Workers``; ``python3 chip_smoke.py --worker NAME
+OUT``, one group of ``WORKERS`` each) run beside this one on the same
+card: ``cv`` phases 6, 7 and 12, ``selection`` 9, 10, 13 and 15,
+``serving`` 11 and 16-18, ``lm`` 21, while this process runs 3-5, 8, 14,
+19 and 20 with the audits.  Each worker's output is printed when it ends.
+Every kernel timing runs alone on the card: the ``lm`` worker's curve
+checks once the other processes are idle, then phase 19's sharded checks
+and phase 22 here after every worker has ended.  Other times printed by
+phases 3-21 are taken with the other processes running.
 
 1. Environment: the card's name and power limit (as ``nvidia-smi`` gives
    them), torch and CUDA versions, TF32 flags (turned off and checked).
@@ -162,7 +171,8 @@ Phases (each fails loudly, with a non-zero exit):
     kernel a stacked screen.  Then the audits:
     every session of phases 3-20 pays only sweep-shape keys and FISTA
     graphs that ``repro_torch.analysis.compile_audit`` predicts for its
-    plans (each rank audits its own), the five kernels hold under 1e30
+    plans (each process and each rank audits its own), and, in this
+    process after this phase, the five kernels hold under 1e30
     poison against their plain versions (``kernel_check.mask_coverage``),
     and the float64 gate refuses the kernels.
 21. The LM zoo (``repro_torch.models``, float32,
@@ -237,6 +247,32 @@ Phases (each fails loudly, with a non-zero exit):
     registered), 3 steps at B 2 with 576 patches and 256 tokens, the SGL
     prox after each: finite losses, exact zeros in the prox's groups.
     (q) The pruning curve of (p)'s 14 336 FFN channels with (a)'s gates.
+    Parts (r)-(v), after (f): one spawn of two ``gloo`` ranks sharing the
+    card runs (r) ``granite-moe-1b-a400m`` at full width and depth through
+    ``train.main`` on ``make_local_mesh()`` = (data 2, model 1), ZeRO-3,
+    (e)'s argv for ``ZERO_STEPS`` steps: every rank's loss, ce and aux
+    within 1e-5 relative of (e)'s and the prox's exact zeros equal to
+    (e)'s after each step; each rank's state bytes, peak, step ms and its
+    seconds in collectives printed; (s) one MoE layer of it on (data 1,
+    model 2), 16 experts a rank, B 4, S 256, at capacity factors 1.25 and
+    0.05: output and gradients (x, ``w_in``, router) within 1e-5 x
+    max|.| of the emulation (each shard's experts through
+    ``moe_ffn_local`` at the per-shard capacity, summed) in the same rank,
+    the pairs each dispatch keeps counted inside ``moe_ffn_local``: the
+    rank's equal to the emulation's shard, all 8 192 in windows of 5 120
+    at 1.25 and fewer in windows of 205 at 0.05 (the unsharded layer's
+    windows 320 and 13); (t)'s rank half: (d)'s step-2 checkpoint resumed
+    on the ranks to step 4, within 1e-5 relative of (a), writing a step-4
+    checkpoint; (u) the example on (data 1, model 2) through
+    ``make_train_step(seq_shard=True, remat="full")``, 2 steps on (a)'s
+    batches within 1e-5 relative of (a)'s, the stack's bytes saved for
+    backward (``saved_tensors_hooks``) exactly half of those without
+    ``seq_shard``.  Then this process resumes the ranks' step-4
+    checkpoint with no mesh to step 6 (within 1e-5 of (a)), and (v)
+    ``compress_tree`` / ``decompress_tree`` over random normal gradients
+    of granite's tree (1.33 B values): every element within its block's
+    max|.| / 127, the error feedback to 1e-7, ``wire_bytes`` the padded
+    payload plus its scales exactly; the calls' ms printed.
     Then ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
     versions at each curve's shapes (X G x G, C (32, G) with n_max 1, the
     busiest prox bucket).  Every phase and part prints its seconds beside
@@ -2343,8 +2379,9 @@ def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
     dropped (18 184 groups: 8 blocks of unequal width) against the
     unsharded path at 4 lambdas, SGL and NN CV at 20 lambdas and the NN
     path at 20 lambdas, each against its unsharded twin with the peak
-    memory of both; then the two-rank rehearsal and each kernel at the
-    sharded inputs.  Returns (launches by path, kernel checks)."""
+    memory of both; then the two-rank rehearsal.  Returns (launches by
+    path, a function that checks and times each kernel at the sharded
+    inputs, called when the card is otherwise idle)."""
     from repro_torch.data_synth import ragged_sizes, synthetic_nn, \
         synthetic_sgl
     from repro_torch.kernels import dpc_screen_folds as dsf
@@ -2493,15 +2530,16 @@ def feature_shard_phase(torch, T, res64, N=250, G=1000, n=10, N2=747,
     two_ranks(torch, T, X, y, sizes, plan.with_(n_lambdas=20,
                                                 feature_shards=0))
     lap("two ranks, with the stacked run")
-    # the sharded shapes: a block's C (L, p_shard), the stacked fold rows
-    # (K*L, G_shard, n_max) and (K, L, p_shard) of each route's first screen
-    floor = time_ms(torch, lambda: torch.empty(1, device="cuda").zero_())
-    checks = sharded_kernel_checks(
-        torch, sess.problem.X, sess.problem.spec, shapes1.shapes[0],
-        sess2.problem.X, sess2.problem.spec, shapes2[0], shapes_cv[0],
-        shapes_nn[0], floor)
-    del sess2
-    lap("each kernel at the sharded inputs")
+
+    def checks():
+        # the sharded shapes: a block's C (L, p_shard), the stacked fold
+        # rows (K*L, G_shard, n_max) and (K, L, p_shard) of each route's
+        # first screen
+        floor = time_ms(torch, lambda: torch.empty(1, device="cuda").zero_())
+        return sharded_kernel_checks(
+            torch, sess.problem.X, sess.problem.spec, shapes1.shapes[0],
+            sess2.problem.X, sess2.problem.spec, shapes2[0], shapes_cv[0],
+            shapes_nn[0], floor)
     return out, checks
 
 
@@ -2863,14 +2901,20 @@ def fold_mesh_phase(torch, T, card, N=250, G=1000, n=10):
     return out
 
 
-def audit_phase(audit):
-    """Every session of phases 3-20 against the compile audit's universes,
-    then the kernel audit on the card."""
-    from repro_torch.analysis import kernel_check
+def audit_sessions(audit):
+    """Every session this process built while ``audit`` was installed,
+    against the compile audit's universes."""
+    audit.close()
     sessions, n_keys, n_graphs, found = audit.check()
     say(f"[audit] {sessions} sessions: {n_keys} sweep-shape keys and "
         f"{n_graphs} FISTA graphs paid, findings {len(found)}")
     require(found == [], f"audit: {[str(f) for f in found[:5]]}")
+
+
+def audit_kernels():
+    """The kernel audit on the card: mask coverage under poison and the
+    float64 gate."""
+    from repro_torch.analysis import kernel_check
     errors = {}
     found = kernel_check.mask_coverage("cuda", errors)
     say(f"[audit] mask coverage on the card under 1e30 poison: "
@@ -2888,7 +2932,8 @@ def audit_phase(audit):
 # the enc-dec family and the vision prefix)
 # ---------------------------------------------------------------------------
 
-LM_STEPS = 20            # the host draws every batch (PERF.md section 5)
+LM_STEPS = 20            # the host draws every batch (PERF.md section 5);
+                         # (d), (t) and (u) read its losses
 
 
 def _step_stats(times, tokens):
@@ -3076,16 +3121,21 @@ def lm_serve_phase(torch, dev="cuda"):
 def lm_resume_phase(torch, losses, dev="cuda"):
     """(d) The example's run to step 2 with a checkpoint, then resumed to
     step 4: the losses of steps 3-4 equal the uninterrupted run's within
-    1e-5 relative (the embedding's backward uses atomics)."""
+    1e-5 relative (the embedding's backward uses atomics).  Returns a
+    directory holding a copy of the step-2 checkpoint, for (t) to resume
+    on two ranks (the caller removes it)."""
     import shutil
     import tempfile
     from repro_torch.examples import sgl_pruned_lm as ex
     from repro_torch.launch import train as train_mod
     (ROOT / "build").mkdir(exist_ok=True)
     ck = tempfile.mkdtemp(prefix="lm_ckpt_", dir=ROOT / "build")
+    keep = tempfile.mkdtemp(prefix="lm_ckpt_d2_", dir=ROOT / "build")
     try:
         train_mod.main(ex.train_argv(2, dev) + [
             "--ckpt-dir", ck, "--ckpt-every", "2"])
+        shutil.copytree(Path(ck) / "step_00000002",
+                        Path(keep) / "step_00000002")
         resumed = train_mod.main(ex.train_argv(4, dev) + [
             "--ckpt-dir", ck, "--resume"])
     finally:
@@ -3096,13 +3146,15 @@ def lm_resume_phase(torch, losses, dev="cuda"):
         f"{float(rel.max()):.3e} (bar 1e-5)")
     require(len(resumed) == 2 and float(rel.max()) <= 1e-5,
             "lm-resume: the resumed losses differ")
+    return keep
 
 
 def lm_moe_train_phase(torch, dev="cuda"):
     """(e) ``granite-moe-1b-a400m`` at its published width and depth
     through ``train.main``, float32, 4 steps at B 4, S 256, the SGL prox
     on.  Returns its trained ``ffn/w_in`` channel signal (the example's
-    ``ffn_channel_signal``: one norm a channel of ``moe_d_ff``)."""
+    ``ffn_channel_signal``: one norm a channel of ``moe_d_ff``) and each
+    step's metrics (loss, ce, aux, the prox's exact zeros)."""
     from repro_torch.configs.base import get_config
     from repro_torch.examples import sgl_pruned_lm as ex
     from repro_torch.launch import train as train_mod
@@ -3140,7 +3192,7 @@ def lm_moe_train_phase(torch, dev="cuda"):
     del state, pb
     gc.collect()         # free the state before (g) reads its peak
     torch.cuda.empty_cache()
-    return signal
+    return signal, metrics
 
 
 def lm_moe_curve_phase(torch, signal, dev="cuda"):
@@ -3725,9 +3777,459 @@ def curve_checks(torch, T, res, calls, label):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 21 (r)-(v): ZeRO-3, expert parallelism, elastic restore, seq_shard,
+# compression
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = 2       # (r)'s steps
+MOE_ARGV = ["--arch", "granite-moe-1b-a400m", "--global-batch", "4",
+            "--seq", "256", "--lr", "3e-4", "--sgl-lambda", "3e-4",
+            "--log-every", "1"]
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, acc):
+    """Adds the wall of every collective call of ``torch.distributed``
+    (``all_gather``, ``all_reduce``, ``reduce_scatter``, ``barrier``) to
+    ``acc["s"]``, the card synchronized on both sides of each call (the
+    compute before it is waited for outside the sum)."""
+    import torch.distributed as dist
+    names = ("all_gather", "all_reduce", "reduce_scatter", "barrier")
+    real = {n: getattr(dist, n) for n in names}
+
+    def wrap(fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            return out
+        return timed
+    for n in names:
+        setattr(dist, n, wrap(real[n]))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _zero_train(torch, out, dev):
+    """(r) on this rank: ``train.main`` on granite at full width for
+    ``ZERO_STEPS`` steps, the mesh ``make_local_mesh()``."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.pytree import leaves
+    times, metrics, acc = [], [], {"s": 0.0, "calls": 0}
+    torch.cuda.reset_peak_memory_stats()
+    sh.reset_collective_counts()
+    t0 = time.perf_counter()
+    with timed_collectives(torch, acc):
+        losses, state = train_mod.main(
+            MOE_ARGV + ["--steps", str(ZERO_STEPS), "--device", dev],
+            return_state=True, step_times=times, step_metrics=metrics)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      leaves(state.params) + leaves(state.m)
+                      + leaves(state.v))
+    out["r"] = dict(losses=losses, metrics=metrics, step_s=times,
+                    state_bytes=state_bytes, wall=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    collective_s=acc["s"], collective_calls=acc["calls"],
+                    counts=sh.collective_counts())
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+EP_FACTORS = (1.25, 0.05)   # (s)'s capacity factors: the training one, and
+                            # one whose windows drop pairs on both layers
+
+
+def _zero_expert_layer(torch, out, dev):
+    """(s) on this rank: granite's first MoE layer (the init of (r)) on
+    ``lm_mesh({"data": 1, "model": 2})``, B 4, S 256, at each capacity
+    factor of ``EP_FACTORS``, against the emulation (the port's
+    ``moe_ffn_local`` over each model shard's expert slice at the
+    per-shard capacity, summed) run here on the full expert set with no
+    mesh; the pairs each dispatch keeps, counted inside ``moe_ffn_local``
+    (``moe.log_kept``): this rank's layer, the emulation's shard of this
+    rank and the unsharded layer's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("granite-moe-1b-a400m")
+    mesh = mesh_mod.lm_mesh({"data": 1, "model": 2})
+    full = model_lib.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+    p = {k: v.detach()[0].clone().requires_grad_()
+         for k, v in full["blocks"]["l0"]["ffn"].items()}
+    del full
+    torch.cuda.empty_cache()
+    B, S, d = 4, 256, cfg.d_model
+    E, k, M = cfg.num_experts, cfg.experts_per_token, 2
+    n_local, mi = E // M, mesh.coords["model"]
+    T_ = B * S
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn((B, S, d), generator=gen, device=dev)
+    R = torch.randn((B, S, d), generator=gen, device=dev)
+    x.requires_grad_()
+    wrt = lambda: [x, p["w_in"], p["router"]]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    es = slice(mi * n_local, (mi + 1) * n_local)
+    out["s"] = {}
+    for cf in EP_FACTORS:
+        cap = max(min(int(np.ceil(T_ * k / M * cf)), T_ * k), 8)
+
+        def emulation(x, w_in, router):
+            q = dict(p, w_in=w_in, router=router)
+            idx, gw, aux = moe_mod.router_topk(q, x, cfg)
+            acc = 0.0
+            for m in range(M):
+                sl = slice(m * n_local, (m + 1) * n_local)
+                acc = acc + moe_mod.moe_ffn_local(
+                    x.reshape(T_, d), idx.reshape(T_, k), gw.reshape(T_, k),
+                    w_in[sl], q["w_gate"][sl], q["w_out"][sl],
+                    e_lo=m * n_local, n_local=n_local, capacity=cap,
+                    act=cfg.mlp_act)
+            return acc.reshape(B, S, d), aux
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_mod.log_kept() as kept:
+            y, aux = moe_mod.moe_forward(p, x, cfg, mesh=mesh,
+                                         capacity_factor=cf)
+        got = torch.autograd.grad((y * R).sum() + aux, wrt())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with moe_mod.log_kept() as kept_e:
+            ye, auxe = emulation(*wrt())
+        want = torch.autograd.grad((ye * R).sum() + auxe, wrt())
+        with moe_mod.log_kept() as kept_1, torch.no_grad():
+            moe_mod.moe_forward(p, x, cfg, capacity_factor=cf)
+        out["s"][str(cf)] = dict(
+            wall=wall, cap=cap, cap_unsharded=moe_mod.capacity_of(
+                T_, k, E, cf),
+            out=rel(y.detach(), ye.detach()),
+            aux=abs(float(aux.detach() - auxe.detach())),
+            gx=rel(got[0], want[0]), gw_in=rel(got[1][es], want[1][es]),
+            router=rel(got[2], want[2]),
+            kept=[int(c) for c in kept], kept_emulation=int(kept_e[mi]),
+            kept_unsharded=[int(c) for c in kept_1], pairs=T_ * k)
+        del y, ye, got, want
+
+
+def _zero_resume(torch, out, ck_d, dev):
+    """(t) on the ranks: part (d)'s step-2 checkpoint (no mesh) resumed
+    here to step 4, which writes its step-4 checkpoint (on this mesh) for
+    the parent to resume."""
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import train as train_mod
+    ex.example_config()
+    t0 = time.perf_counter()
+    resumed = train_mod.main(ex.train_argv(4, dev) + [
+        "--ckpt-dir", ck_d, "--resume"])
+    out["t"] = dict(resumed=resumed, wall=time.perf_counter() - t0)
+
+
+def _zero_seq_shard(torch, out, dev):
+    """(u) on the ranks: the example's ``gemma2-100m`` on ``lm_mesh({"data":
+    1, "model": 2})`` through ``make_train_step(seq_shard=True,
+    remat="full")``, 2 steps on (a)'s batches with (a)'s schedule and prox;
+    and the bytes the stack saves for backward (its periods' boundaries),
+    through ``saved_tensors_hooks``, with and without ``seq_shard``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    ex.example_config()
+    cfg = get_config("gemma2-100m")
+    mesh = mesh_mod.lm_mesh({"data": 1, "model": 2})
+    specs = model_lib.param_pspecs(cfg, mesh.shape)
+    shardings = sh.named(mesh, adamw.state_pspecs(specs))
+    init = model_lib.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+    S = 256
+    data = SyntheticLM(cfg.vocab_size, S, 8, seed=0)
+    batches = [{k: v.to(dev) for k, v in data.batch_at(i).items()}
+               for i in range(2)]
+    # the boundaries' bytes: one forward of the stack at (a)'s first batch
+    saved = {}
+    for flag in (False, True):
+        sizes = []
+
+        def pack(t):
+            sizes.append(t.numel() * t.element_size())
+            return t
+        x = model_lib.embed_tokens(init, cfg, batches[0]["tokens"],
+                                   torch.float32)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y, _, _ = model_lib.decoder_stack(
+                init, x.detach().requires_grad_(), torch.arange(
+                    S, device=dev), cfg, mesh=mesh, remat="full",
+                seq_shard=flag)
+        saved[flag] = (sum(sizes), len(sizes))
+        del y, x
+    state = adamw.init_state(train_mod.local_params(init,
+                                                    shardings.params))
+    del init
+    step = steps_mod.make_train_step(
+        cfg, mesh=mesh, remat="full", compute_dtype=torch.float32,
+        lr_kwargs=dict(base_lr=1e-3, warmup=20, total=max(LM_STEPS, 100)),
+        seq_shard=True)
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        train_mod.sgl_prox_step(state.params, cfg, 1e-3 * 3e-4, 1e-3 * 3e-4,
+                                mesh, specs)
+    out["u"] = dict(losses=losses, step_s=times, saved=saved)
+
+
+def _rank_lm_zero(rank, world, init_file, out_dir, ck_d, dev):
+    """One rank of phase 21's spawn (r), (s), (t) and (u), one after
+    another: the card shared with the other rank through ``gloo``."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        for part, fn in (
+                ("r", lambda: _zero_train(torch, out, dev)),
+                ("s", lambda: _zero_expert_layer(torch, out, dev)),
+                ("t", lambda: _zero_resume(torch, out, ck_d, dev)),
+                ("u", lambda: _zero_seq_shard(torch, out, dev))):
+            t0 = time.perf_counter()
+            fn()
+            out[part]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _close(got, want, rel=1e-5):
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return got.shape == want.shape and bool(
+        np.all(np.abs(got - want) <= rel * np.abs(want)))
+
+
+def lm_zero_phase(torch, losses_a, moe_metrics, ck_d, dev="cuda"):
+    """Parts (r)-(v): one spawn of two ``gloo`` ranks on the card runs
+    (r), (s), (t)'s rank half and (u); this process resumes the ranks'
+    step-4 checkpoint with no mesh to step 6 ((t)'s other half) and runs
+    (v)."""
+    import shutil
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import train as train_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        with timed_phase("lm-zero-ranks"):
+            ranks, wall = run_ranks(
+                _rank_lm_zero, 2, (ck_d, dev),
+                lambda d, r: json.load(open(f"{d}/rank{r}.json")),
+                "lm-zero", timeout=600.0)
+            say(f"[lm-zero] one spawn of 2 ranks for (r), (s), (t) and "
+                f"(u): {wall:.3f} s with start-up; parts by rank "
+                + json.dumps({r["rank"]: {p: round(r[p]["seconds"], 3)
+                                          for p in "rstu"} for r in ranks}))
+            lm_zero_checks(ranks, losses_a, moe_metrics)
+        with timed_phase("lm-zero-resume"):
+            ex.example_config()
+            t0 = time.perf_counter()
+            resumed = train_mod.main(ex.train_argv(6, dev) + [
+                "--ckpt-dir", ck_d, "--resume"])
+            note_wall(time.perf_counter() - t0)
+            rel = np.abs(np.asarray(resumed) / np.asarray(losses_a[4:6]) - 1)
+            say(f"[lm-zero-t] the ranks' step-4 checkpoint (mesh data 2) "
+                f"resumed here with no mesh to step 6: {resumed} against "
+                f"(a)'s {losses_a[4:6]}, max relative diff "
+                f"{float(rel.max()):.3e} (bar 1e-5)")
+            require(len(resumed) == 2 and float(rel.max()) <= 1e-5,
+                    "lm-zero-t: the resume with no mesh differs from (a)")
+    finally:
+        shutil.rmtree(ck_d, ignore_errors=True)
+    with timed_phase("lm-compression"):
+        lm_compression_phase(torch, dev)
+
+
+def lm_zero_checks(ranks, losses_a, moe_metrics):
+    """The bars of (r), (s), (t)'s rank half and (u) on each rank."""
+    e2 = moe_metrics[:ZERO_STEPS]
+    for r in ranks:
+        rk = r["rank"]
+        z = r["r"]
+        ms = z["metrics"]
+        step_ms = [1e3 * t for t in z["step_s"]]
+        say(f"[lm-zero-r] rank {rk}: granite-moe-1b-a400m on (data 2, model "
+            f"1), B 4 (2 a rank), S 256, the prox on: losses "
+            f"{z['losses']} against (e)'s {[m['loss'] for m in e2]}; ce "
+            f"{[m['ce'] for m in ms]} against {[m['ce'] for m in e2]}; aux "
+            f"{[m['aux'] for m in ms]} against {[m['aux'] for m in e2]}; "
+            f"state {z['state_bytes'] / 2**30:.3f} GiB (its blocks), peak "
+            f"device memory {z['peak'] / 2**30:.3f} GiB (this process), "
+            f"steps {[round(t, 1) for t in step_ms]} ms, collectives "
+            f"{z['collective_s']:.3f} s over {z['collective_calls']} calls "
+            f"in the run's {z['wall']:.3f} s ({json.dumps(z['counts'])}); "
+            f"exact zeros after each step {[m.get('zeros') for m in ms]} "
+            f"against (e)'s {[m.get('zeros') for m in e2]}")
+        for key in ("loss", "ce", "aux"):
+            require(_close([m[key] for m in ms], [m[key] for m in e2]),
+                    f"lm-zero-r: rank {rk}'s {key} differs from (e)'s")
+        require([m.get("zeros") for m in ms] == [m.get("zeros") for m in e2]
+                and all(v > 0 for v in ms[-1]["zeros"].values()),
+                f"lm-zero-r: rank {rk}'s prox zeros differ from (e)'s")
+        for cf in EP_FACTORS:
+            s = r["s"][str(cf)]
+            say(f"[lm-zero-s] rank {rk}: one MoE layer of granite (E 32, k "
+                f"8, d 1 024) on (data 1, model 2), 16 experts a rank, B 4, "
+                f"S 256, capacity factor {cf}: against the emulation, "
+                f"max|diff| / max|.| output {s['out']:.3e}, grad x "
+                f"{s['gx']:.3e}, grad w_in (its experts) {s['gw_in']:.3e}, "
+                f"grad router {s['router']:.3e} (bar 1e-5); |aux diff| "
+                f"{s['aux']:.3e}; pairs kept by moe_ffn_local on this "
+                f"rank's experts {s['kept']} at capacity {s['cap']} a "
+                f"window (the emulation's shard {s['kept_emulation']}), by "
+                f"the unsharded layer {s['kept_unsharded']} of "
+                f"{s['pairs']} at {s['cap_unsharded']}; "
+                f"{1e3 * s['wall']:.3f} ms forward and backward")
+            require(max(s["out"], s["gx"], s["gw_in"], s["router"]) <= 1e-5
+                    and s["aux"] <= 1e-6 and len(s["kept"]) == 1
+                    and s["kept"][0] == s["kept_emulation"]
+                    and len(s["kept_unsharded"]) == 1,
+                    f"lm-zero-s: rank {rk}'s expert-parallel layer differs "
+                    f"at capacity factor {cf}")
+        s = r["s"]
+        require(s["1.25"]["cap"] == 5120 and s["1.25"]["cap_unsharded"] == 320
+                and s["0.05"]["cap"] == 205
+                and s["0.05"]["cap_unsharded"] == 13,
+                "lm-zero-s: the windows are not the reference's")
+        t = r["t"]
+        rel = np.abs(np.asarray(t["resumed"]) / np.asarray(losses_a[2:4]) - 1)
+        say(f"[lm-zero-t] rank {rk}: part (d)'s step-2 checkpoint (no mesh) "
+            f"resumed on (data 2, model 1) to step 4, writing its step-4 "
+            f"checkpoint: {t['resumed']} against (a)'s {losses_a[2:4]}, max "
+            f"relative diff {float(rel.max()):.3e} (bar 1e-5)")
+        require(len(t["resumed"]) == 2 and float(rel.max()) <= 1e-5,
+                f"lm-zero-t: rank {rk}'s resume differs from (a)")
+        u = r["u"]
+        (full, n_full), (half, n_half) = u["saved"]["false"], \
+            u["saved"]["true"]
+        say(f"[lm-zero-u] rank {rk}: gemma2-100m on (data 1, model 2) with "
+            f"seq_shard, remat full: losses {u['losses']} against (a)'s "
+            f"{losses_a[:2]}; steps {[round(1e3 * x, 1) for x in u['step_s']]}"
+            f" ms; bytes saved for backward at the layer boundaries "
+            f"{half} ({n_half} tensors) against {full} ({n_full}) without "
+            f"seq_shard: {half / full:.3f}")
+        require(_close(u["losses"], losses_a[:2]),
+                f"lm-zero-u: rank {rk}'s losses differ from (a)'s")
+        require(2 * half == full and n_half == n_full,
+                f"lm-zero-u: rank {rk}'s boundaries did not halve")
+    for cf in EP_FACTORS:
+        one = ranks[0]["s"][str(cf)]
+        kept = sum(r["s"][str(cf)]["kept"][0] for r in ranks)
+        say(f"[lm-zero-s] capacity factor {cf}: the two ranks' windows of "
+            f"{one['cap']} keep {kept} of {one['pairs']} pairs, the "
+            f"unsharded layer's of {one['cap_unsharded']} "
+            f"{one['kept_unsharded'][0]}")
+        require(kept <= one["pairs"] and (kept < one["pairs"]) == (cf < 1),
+                f"lm-zero-s: at capacity factor {cf} the windows kept "
+                f"{kept} of {one['pairs']} pairs")
+
+
+def lm_compression_phase(torch, dev="cuda"):
+    """(v) ``compress_tree`` / ``decompress_tree`` on random normal
+    gradients shaped like granite's parameter tree (1.33 B values): every
+    element within max|block| / 127 of its input, the error feedback
+    ``x + err - decompress(q)`` to 1e-7, ``wire_bytes`` exactly the padded
+    payload plus its scales."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten, leaves, tree_map
+    descs = model_lib.param_descs(get_config("granite-moe-1b-a400m"))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    grads = tree_map(lambda d: torch.randn(d.shape, generator=gen,
+                                           device=dev), descs,
+                     is_leaf=lambda x: hasattr(x, "axes"))
+    n_values = sum(g.numel() for g in leaves(grads))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        note_wall(dt)
+        return out, 1e3 * dt
+
+    (comp, err), ms_c = timed(lambda: C.compress_tree(grads))
+    deq, ms_d = timed(lambda: C.decompress_tree(comp))
+    worst = 0.0              # max |x - deq| / (its block's max|x| / 127)
+    for x, y in zip(leaves(grads), leaves(deq)):
+        n = x.numel()
+        pad = -(-n // C.BLOCK) * C.BLOCK
+        xp = torch.nn.functional.pad(x.reshape(-1), (0, pad - n))
+        bound = xp.reshape(-1, C.BLOCK).abs().amax(1, keepdim=True) / 127
+        diff = torch.nn.functional.pad((x - y).reshape(-1), (0, pad - n))
+        worst = max(worst, float((diff.reshape(-1, C.BLOCK).abs()
+                                  / bound).max()))
+    del deq
+    # a second step with the error fed back
+    grads2 = tree_map(lambda g: torch.randn(g.shape, generator=gen,
+                                            device=dev), grads)
+    del grads
+    (comp2, err2), ms_c2 = timed(lambda: C.compress_tree(grads2, err))
+    fb = 0.0
+    for x, e, q, e2 in zip(leaves(grads2), leaves(err),
+                           flatten(comp2, is_leaf=lambda c: isinstance(
+                               c, C.Compressed))[0], leaves(err2)):
+        fb = max(fb, float((x + e - C.decompress(q) - e2).abs().max()))
+    wire = C.wire_bytes(grads2)
+    want = sum(-(-g.numel() // 256) * 256 + 4 * (-(-g.numel() // 256))
+               for g in leaves(grads2))
+    say(f"[lm-compression] {n_values} values in {len(leaves(grads2))} "
+        f"leaves (granite's tree), float32 on the card: compress_tree "
+        f"{ms_c:.3f} ms, decompress_tree {ms_d:.3f} ms, compress_tree with "
+        f"the error fed back {ms_c2:.3f} ms; worst |x - deq| over its "
+        f"block's max|.| / 127: {worst:.4f} (must be <= 1); error feedback "
+        f"max|x + err - deq - err'| {fb:.3e} (bar 1e-7); wire bytes "
+        f"{wire} = {wire / n_values:.4f} a value, against "
+        f"{4 * n_values} at 4 bytes a value")
+    require(n_values == 1334628352, "lm-compression: not granite's tree")
+    require(worst <= 1.0 and fb <= 1e-7 and wire == want,
+            "lm-compression: a bound, the error feedback or the wire "
+            "bytes failed")
+    del grads2, err, err2, comp, comp2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def lm_phase(torch, T):
     """Phase 21.  Returns (the launch counts of each pruning curve, by
-    path; each kernel's checks at the curves' shapes, by curve)."""
+    path; a function returning each kernel's checks at the curves' shapes,
+    by curve, called when the card is otherwise idle)."""
     with timed_phase("lm-example"):
         run, counts, calls = lm_example_phase(torch)
     losses = run["losses"]
@@ -3738,11 +4240,12 @@ def lm_phase(torch, T):
     with timed_phase("lm-serve"):
         lm_serve_phase(torch)
     with timed_phase("lm-resume"):
-        lm_resume_phase(torch, losses)
+        ck_d = lm_resume_phase(torch, losses)
     with timed_phase("lm-granite-moe"):
-        signal = lm_moe_train_phase(torch)
+        signal, moe_metrics = lm_moe_train_phase(torch)
     with timed_phase("lm-moe-curve"):
         counts_moe, calls_moe, res_moe = lm_moe_curve_phase(torch, signal)
+    lm_zero_phase(torch, losses, moe_metrics, ck_d)
     with timed_phase("lm-minicpm3"):
         lm_mla_serve_phase(torch)
     with timed_phase("lm-deepseek-v2"):
@@ -3758,14 +4261,17 @@ def lm_phase(torch, T):
         lm_serve_full(torch, "xlstm-350m", "lm-xlstm-serve", 25)
     counts_vlm, calls_vlm, res_vlm = lm_encdec_vision_phase(torch)
     torch.cuda.empty_cache()
-    checks = {}
-    for key, (r, c, label) in {"lm_curve": (res, calls, "lm-curve"),
-                               "lm_moe_curve": (res_moe, calls_moe,
-                                                "lm-moe-curve"),
-                               "lm_vlm_curve": (res_vlm, calls_vlm,
-                                                "lm-vlm-curve")}.items():
-        for name, row in curve_checks(torch, T, r, c, label).items():
-            checks.setdefault(name, {})[key] = row
+
+    def checks():
+        out = {}
+        for key, (r, c, label) in {"lm_curve": (res, calls, "lm-curve"),
+                                   "lm_moe_curve": (res_moe, calls_moe,
+                                                    "lm-moe-curve"),
+                                   "lm_vlm_curve": (res_vlm, calls_vlm,
+                                                    "lm-vlm-curve")}.items():
+            for name, row in curve_checks(torch, T, r, c, label).items():
+                out.setdefault(name, {})[key] = row
+        return out
     return {"lm-pruning-curve": counts,
             "lm-moe-pruning-curve": counts_moe,
             "lm-vlm-pruning-curve": counts_vlm}, checks
@@ -4177,6 +4683,173 @@ def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the processes: four groups of phases run beside the main one
+# ---------------------------------------------------------------------------
+
+WORKER_TIMEOUT = 900.0      # seconds a worker may take, start-up included
+
+
+def cv_group(torch, T):
+    """Phases 6, 7 and 12.  The CVs' launch counts, by path, and the first
+    stacked screens' shapes, which phase 22 checks the fold kernels at."""
+    paths = {}
+    with timed_phase("sgl-cv"):
+        paths["sgl-cv"], snf_shape = sgl_cv_phase(torch, T)
+    with timed_phase("nn-cv"):
+        paths["nn-cv"], dsf_shape = nn_cv_phase(torch, T)
+    with timed_phase("gapsafe-nn-cv"):
+        paths["nn-cv-gapsafe"] = gapsafe_nn_cv_phase(torch, T)
+    return dict(paths=paths, shapes=dict(snf=snf_shape, dsf=dsf_shape))
+
+
+def selection_group(torch, T):
+    """Phases 9, 10, 13 and 15."""
+    paths = {}
+    with timed_phase("weights"):
+        for label, c in weights_phase(torch, T).items():
+            paths[f"synthetic1-{label}-path"] = c
+    with timed_phase("gapsafe-nn"):
+        paths["table3-nn-gapsafe-path"] = gapsafe_nn_path_phase(torch, T)
+    with timed_phase("logistic"):
+        paths["logistic-gapsafe-path"] = logistic_phase(torch, T)
+    with timed_phase("refine"):
+        for label, c in refine_phase(torch, T).items():
+            paths[f"session-{label}"] = c
+    return dict(paths=paths)
+
+
+def serving_group(torch, T):
+    """Phases 11 and 16-18."""
+    paths = {}
+    with timed_phase("gapsafe-sgl-cv"):
+        paths["sgl-cv-gapsafe"] = gapsafe_sgl_cv_phase(torch, T)
+    with timed_phase("stability"):
+        paths["stability"] = stability_phase(torch, T)
+    with timed_phase("estimators"):
+        for label, c in estimators_phase(torch, T).items():
+            paths[f"estimator-{label}"] = c
+    with timed_phase("serving"):
+        paths["serving"] = serving_phase(torch, T)
+    return dict(paths=paths)
+
+
+def lm_group(torch, T):
+    """Phase 21.  The curves' launch counts, by path, and, as ``timed``,
+    the kernels' checks at the curves' shapes."""
+    with timed_phase("lm"):
+        paths, checks = lm_phase(torch, T)
+    return dict(paths=paths, timed=checks)
+
+
+WORKERS = {"cv": cv_group, "selection": selection_group,
+           "serving": serving_group, "lm": lm_group}
+AUDITED = ("cv", "selection", "serving")     # the groups that run sessions
+
+
+def worker_main(torch, T, name, out, *flags):
+    """``python3 chip_smoke.py --worker NAME OUT [--wait]``: the group
+    ``NAME`` in this process, its sessions audited, its results written to
+    ``OUT``.  A group's ``timed`` function (kernel timings) runs last and
+    puts its rows under ``checks``; with ``--wait`` it first writes
+    ``OUT.ready`` and waits for ``OUT.go``, which ``Workers.join`` writes
+    once the card is otherwise idle."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()                  # built by the main process: loads it
+    audit = KeyAudit(T) if name in AUDITED else None
+    with timed_phase(f"worker-{name}"):
+        result = WORKERS[name](torch, T)
+        if audit is not None:
+            audit_sessions(audit)
+    timed = result.pop("timed", None)
+    if timed is not None:
+        if "--wait" in flags:
+            Path(out + ".ready").touch()
+            t0 = time.perf_counter()
+            while not Path(out + ".go").exists():
+                require(time.perf_counter() - t0 < WORKER_TIMEOUT,
+                        f"worker {name}: no turn on the card")
+                time.sleep(0.2)
+        with timed_phase(f"worker-{name}-kernels"):
+            result["checks"] = timed()
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+class Workers:
+    """The groups of ``WORKERS``, each in a process of its own beside this
+    one (``worker_main --wait`` in a new session, its output to a log under
+    ``build/``).  The card is shared as the ranks of phases 19-21 share it.
+    ``join`` waits until every worker has ended or waits for its turn to
+    time kernels, gives the waiting ones their turns one at a time, prints
+    each log, requires exit 0 and returns the results by group.  Leaving
+    the block kills every worker still running, with the processes it
+    started, and prints their logs."""
+
+    def __enter__(self):
+        import tempfile
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.tmp = tempfile.TemporaryDirectory(prefix="workers_",
+                                               dir=ROOT / "build")
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for name in WORKERS:
+            log = open(self._file(name, "log"), "w")
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 name, str(self._file(name, "json")), "--wait"], stdout=log,
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL, cwd=ROOT,
+                start_new_session=True)
+            log.close()
+        return self
+
+    def _file(self, name, ext):
+        return Path(self.tmp.name) / f"{name}.{ext}"
+
+    def _print_log(self, name, rc):
+        say(f"[worker {name}] exit {rc}, {time.perf_counter() - self.t0:.3f}"
+            f" s after the workers started; its output:")
+        say(self._file(name, "log").read_text(errors="replace").rstrip())
+        say(f"[worker {name}] end of its output")
+
+    def join(self):
+        deadline = self.t0 + WORKER_TIMEOUT
+        while any(p.poll() is None and not
+                  self._file(name, "json.ready").exists()
+                  for name, p in self.procs.items()):
+            require(time.perf_counter() < deadline, f"workers still running "
+                    f"after {WORKER_TIMEOUT} s")
+            time.sleep(0.2)
+        results = {}
+        for name in list(self.procs):
+            p = self.procs[name]
+            if p.poll() is None:             # its turn on the card
+                self._file(name, "json.go").touch()
+                try:
+                    p.wait(timeout=max(deadline - time.perf_counter(), 0.0))
+                except subprocess.TimeoutExpired:
+                    require(False, f"worker {name} still running after "
+                            f"{WORKER_TIMEOUT} s")
+            del self.procs[name]
+            self._print_log(name, p.returncode)
+            require(p.returncode == 0, f"worker {name} exited "
+                    f"{p.returncode}")
+            results[name] = json.loads(self._file(name, "json").read_text())
+        return results
+
+    def __exit__(self, *exc):
+        import os
+        import signal
+        for name, p in self.procs.items():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            self._print_log(name, p.returncode)
+        self.tmp.cleanup()
+        return False
+
+
 def main() -> int:
     try:
         import torch
@@ -4192,72 +4865,53 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch.core as T
+    if sys.argv[1:2] == ["--worker"]:
+        return worker_main(torch, T, *sys.argv[2:])
 
     card = environment(torch)
     build_kernels()
-    audit = KeyAudit(T)          # records every session of phases 3-20
-    with timed_phase("synthetic1"):
-        sess, res, counts, shapes, res64 = main_path(torch, T)
-    with timed_phase("table2"):
-        sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
-    with timed_phase("table3-nn"):
-        counts_nn, res_nn64 = nn_path(torch, T)
-    with timed_phase("sgl-cv"):
-        counts_sgl_cv, snf_shape = sgl_cv_phase(torch, T)
-    with timed_phase("nn-cv"):
-        counts_nn_cv, dsf_shape = nn_cv_phase(torch, T)
     new_paths = {}
-    with timed_phase("gapsafe-sgl"):
-        new_paths["synthetic1-gapsafe-path"] = gapsafe_path_phase(torch, T,
-                                                                  res)
-    with timed_phase("weights"):
-        for label, c in weights_phase(torch, T).items():
-            new_paths[f"synthetic1-{label}-path"] = c
-    with timed_phase("gapsafe-nn"):
-        new_paths["table3-nn-gapsafe-path"] = gapsafe_nn_path_phase(torch, T)
-    with timed_phase("gapsafe-sgl-cv"):
-        new_paths["sgl-cv-gapsafe"] = gapsafe_sgl_cv_phase(torch, T)
-    with timed_phase("gapsafe-nn-cv"):
-        new_paths["nn-cv-gapsafe"] = gapsafe_nn_cv_phase(torch, T)
-    with timed_phase("logistic"):
-        new_paths["logistic-gapsafe-path"] = logistic_phase(torch, T)
-    with timed_phase("legacy"):
-        legacy = legacy_phase(torch, T, res64, res_nn64)
-    new_paths["synthetic1-legacy-path"] = legacy["sgl"]
-    new_paths["table3-nn-legacy-path"] = legacy["nn"]
-    with timed_phase("refine"):
-        for label, c in refine_phase(torch, T).items():
-            new_paths[f"session-{label}"] = c
-    with timed_phase("stability"):
-        new_paths["stability"] = stability_phase(torch, T)
-    with timed_phase("estimators"):
-        for label, c in estimators_phase(torch, T).items():
-            new_paths[f"estimator-{label}"] = c
-    with timed_phase("serving"):
-        new_paths["serving"] = serving_phase(torch, T)
-    with timed_phase("feature-shards"):
-        sharded, sharded_checks = feature_shard_phase(torch, T, res64)
-    new_paths.update(sharded)
-    with timed_phase("fold-mesh"):
-        new_paths.update(fold_mesh_phase(torch, T, card))
-        audit.close()
-        audit_phase(audit)
-    with timed_phase("lm"):
-        lm_paths, lm_checks = lm_phase(torch, T)
-    new_paths.update(lm_paths)
-    with timed_phase("kernels"):
+    with Workers() as workers:
+        audit = KeyAudit(T)      # records every session of this process
+        with timed_phase("synthetic1"):
+            sess, res, counts, shapes, res64 = main_path(torch, T)
+        with timed_phase("table2"):
+            sess_r, res_r, counts_r, ragged_bucket = ragged_path(torch, T)
+        with timed_phase("table3-nn"):
+            counts_nn, res_nn64 = nn_path(torch, T)
+        with timed_phase("gapsafe-sgl"):
+            new_paths["synthetic1-gapsafe-path"] = gapsafe_path_phase(
+                torch, T, res)
+        with timed_phase("legacy"):
+            legacy = legacy_phase(torch, T, res64, res_nn64)
+        new_paths["synthetic1-legacy-path"] = legacy["sgl"]
+        new_paths["table3-nn-legacy-path"] = legacy["nn"]
+        with timed_phase("feature-shards"):
+            sharded, time_sharded = feature_shard_phase(torch, T, res64)
+        new_paths.update(sharded)
+        with timed_phase("fold-mesh"):
+            new_paths.update(fold_mesh_phase(torch, T, card))
+        with timed_phase("audit"):
+            audit_sessions(audit)
+            audit_kernels()
+        with timed_phase("workers"):
+            done = workers.join()
+    for name in WORKERS:
+        new_paths.update(done[name]["paths"])
+    shapes_cv = done["cv"]["shapes"]
+    with timed_phase("kernels"):             # alone on the card
+        sharded_checks = time_sharded()
         rows = kernel_checks(torch, T, sess, shapes, sess_r, ragged_bucket,
-                             snf_shape, dsf_shape)
+                             shapes_cv["snf"], shapes_cv["dsf"])
     for name, by_input in sharded_checks.items():
         rows[name]["sharded"] = by_input     # at the sharded route's inputs
-    for name, by_curve in lm_checks.items():
+    for name, by_curve in done["lm"]["checks"].items():
         rows[name].update(by_curve)          # at the pruning curves' inputs
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
-               "table3-nn-path": counts_nn, "sgl-cv": counts_sgl_cv,
-               "nn-cv": counts_nn_cv, **new_paths}
-    own = {"screen_norms_folds": counts_sgl_cv,
-           "dpc_screen_folds": counts_nn_cv}     # else the main path's
+               "table3-nn-path": counts_nn, **new_paths}
+    own = {"screen_norms_folds": new_paths["sgl-cv"],
+           "dpc_screen_folds": new_paths["nn-cv"]}   # else the main path's
     kernels = []
     for name, row in rows.items():
         src, replaces = SOURCES[name]

@@ -12,8 +12,12 @@ A checkpoint either package writes restores in the other.
 writes it on a worker thread: the optimizer updates its tensors in place, so
 a lazily read tensor would race with the next step.
 
-``restore`` loads onto one device (the device of each leaf of ``like_tree``).
-Elastic restore onto a mesh waits for the sharding rules (ROADMAP item 41).
+Elastic resume: leaves are written whole.  On a mesh of several ranks
+``save`` (and ``AsyncCheckpointer.save``) gathers each leaf from the ranks'
+blocks (``shardings``), rank 0 writes and the others wait at a barrier;
+``restore`` with ``shardings`` reads the whole arrays and keeps each leaf's
+block for this rank.  So a checkpoint written on one mesh restores onto any
+other, onto no mesh, and into the reference's ``restore``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,38 @@ import time
 import numpy as np
 import torch
 
-from ..pytree import flatten, plain_structure, unflatten
+from ..pytree import flatten, leaves as tree_leaves, plain_structure, \
+    unflatten
+
+
+def _is_sharding(x) -> bool:
+    return hasattr(x, "local") and hasattr(x, "spec")
+
+
+def _lead(shardings) -> tuple:
+    """(this rank writes, the mesh's size) for a tree of shardings."""
+    if shardings is None:
+        return True, 1
+    mesh = tree_leaves(shardings, is_leaf=_is_sharding)[0].mesh
+    return all(c == 0 for c in mesh.coords.values()), mesh.size
+
+
+def _gathered(tree, shardings) -> tuple:
+    """(host copies of the full leaves, structure): each leaf gathered from
+    the ranks' blocks (a collective) when ``shardings`` is given."""
+    leaves, treedef = flatten(tree)
+    if shardings is None:
+        return [l if isinstance(l, np.ndarray) else _host_copy(l)
+                for l in leaves], treedef
+    shs = tree_leaves(shardings, is_leaf=_is_sharding)
+    return [_host_copy(s.gather(l.detach()) if isinstance(l, torch.Tensor)
+                       else l) for l, s in zip(leaves, shs)], treedef
+
+
+def _barrier(size: int) -> None:
+    if size > 1:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -38,11 +73,19 @@ def _host_copy(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def save(path: str, step: int, tree, metadata=None) -> str:
-    leaves, treedef = flatten(tree)
-    np_leaves = [l if isinstance(l, np.ndarray) else _host_copy(l)
-                 for l in leaves]
+def save(path: str, step: int, tree, metadata=None, shardings=None) -> str:
+    """Write ``tree`` (this rank's blocks by ``shardings``, when given:
+    gathered, written by rank 0, the others waiting at a barrier)."""
+    np_leaves, treedef = _gathered(tree, shardings)
+    lead, size = _lead(shardings)
     final = os.path.join(path, f"step_{step:08d}")
+    if lead:
+        _write(final, step, np_leaves, treedef, metadata)
+    _barrier(size)
+    return final
+
+
+def _write(final, step, np_leaves, treedef, metadata):
     tmp = final + f".tmp.{os.getpid()}.{int(time.time()*1e6)}"
     os.makedirs(tmp, exist_ok=True)
     manifest = {
@@ -78,11 +121,13 @@ def latest_step(path: str):
     return max(steps) if steps else None
 
 
-def restore(path: str, step: int, like_tree):
+def restore(path: str, step: int, like_tree, shardings=None):
     """Restore into the structure of ``like_tree``, each leaf with the
-    dtype and device of its counterpart there.  A leaf count or a shape
-    that differs raises ``ValueError``, as in the reference.  Returns
-    (tree, manifest)."""
+    dtype and device of its counterpart there.  With ``shardings`` (a tree
+    of ``distributed.sharding.NamedSharding`` matching it) each leaf is
+    this rank's block of the whole array, and ``like_tree`` holds blocks.
+    A leaf count or a shape that differs raises ``ValueError``, as in the
+    reference.  Returns (tree, manifest)."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -91,13 +136,19 @@ def restore(path: str, step: int, like_tree):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
             f"{len(leaves)} — structure changed?")
+    shs = None if shardings is None else \
+        tree_leaves(shardings, is_leaf=_is_sharding)
     out = []
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for i, ref in enumerate(leaves):
             arr = data[f"leaf_{i}"]
-            if tuple(arr.shape) != tuple(ref.shape):
-                raise ValueError(f"leaf {i}: shape {arr.shape} != "
-                                 f"{tuple(ref.shape)}")
+            want = tuple(arr.shape) if shs is None \
+                else shs[i].local_shape(arr.shape)
+            if want != tuple(ref.shape):
+                raise ValueError(f"leaf {i}: shape {arr.shape} (block "
+                                 f"{want}) != {tuple(ref.shape)}")
+            if shs is not None:
+                arr = shs[i].local(arr)
             if isinstance(ref, torch.Tensor):
                 out.append(torch.as_tensor(arr).to(device=ref.device,
                                                    dtype=ref.dtype))
@@ -120,11 +171,17 @@ def retain(path: str, keep: int = 3):
 class AsyncCheckpointer:
     """Snapshot synchronously (device -> host copy), write on a worker
     thread.  ``wait`` returns once every queued save is on disk; a save
-    that failed raises there or at the next ``save``."""
+    that failed raises there or at the next ``save``.  On a ``mesh`` of
+    several ranks every rank calls ``save`` with the state's
+    ``shardings`` (the leaves are gathered), rank 0 writes, and ``wait``
+    returns on every rank once rank 0's writes are done."""
 
-    def __init__(self, path: str, keep: int = 3):
+    def __init__(self, path: str, keep: int = 3, mesh=None):
         self.path = path
         self.keep = keep
+        self.size = 1 if mesh is None else mesh.size
+        self.lead = mesh is None or all(c == 0
+                                        for c in mesh.coords.values())
         self._q: queue.Queue = queue.Queue(maxsize=2)
         self._err = None
         self._t = threading.Thread(target=self._worker, daemon=True)
@@ -145,15 +202,17 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def save(self, step: int, tree, metadata=None):
+    def save(self, step: int, tree, metadata=None, shardings=None):
         if self._err:
             raise self._err
-        leaves, treedef = flatten(tree)
-        self._q.put((int(step), [_host_copy(l) for l in leaves],
-                     plain_structure(treedef), metadata))
+        host, treedef = _gathered(tree, shardings)
+        if self.lead:
+            self._q.put((int(step), host, plain_structure(treedef),
+                         metadata))
 
     def wait(self):
         self._q.join()
+        _barrier(self.size)
         if self._err:
             raise self._err
 

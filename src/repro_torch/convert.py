@@ -10,7 +10,8 @@ back.
   into a ``ParamTree`` and back (``lm_params``, ``lm_params_numpy``), and a
   reference ``TrainState`` into the port's and back (``lm_train_state``,
   ``lm_train_state_numpy``).  Leaf names and shapes are the same on both
-  sides.
+  sides; with ``shardings`` (``distributed.sharding.named``) each leaf is
+  this rank's block.
 """
 from __future__ import annotations
 
@@ -77,12 +78,22 @@ def _tensor(a, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
-def lm_params(tree, device=None) -> ParamTree:
+def _blocks(tree, shardings, device):
+    """Each leaf of ``tree`` (arrays) as a tensor on ``device``: this
+    rank's block by the matching leaf of ``shardings``, or whole."""
+    if shardings is None:
+        return tree_map(lambda a: _tensor(a, device), tree)
+    return tree_map(lambda a, s: _tensor(s.local(np.asarray(a)), device),
+                    tree, shardings)
+
+
+def lm_params(tree, device=None, shardings=None) -> ParamTree:
     """A ``ParamTree`` from the reference's parameter tree (nested dicts of
     arrays; each leaf is copied) on ``device`` (``None``: the card; raises
-    without CUDA)."""
+    without CUDA); with ``shardings`` (a matching tree of
+    ``NamedSharding``) each leaf is this rank's block."""
     device = resolve_device(device)
-    return ParamTree(tree_map(lambda a: _tensor(a, device), tree))
+    return ParamTree(_blocks(tree, shardings, device))
 
 
 def lm_params_numpy(params) -> dict:
@@ -91,16 +102,19 @@ def lm_params_numpy(params) -> dict:
                     as_dict(params))
 
 
-def lm_train_state(state, device=None):
+def lm_train_state(state, device=None, shardings=None):
     """The port's ``TrainState`` from the reference's (any object with
     ``step``, ``params``, ``m`` and ``v``) on ``device`` (``None``: the card;
-    raises without CUDA)."""
+    raises without CUDA); with ``shardings`` (a ``TrainState`` of
+    ``NamedSharding`` trees, ``named(mesh, state_pspecs(...))``) each leaf
+    is this rank's block."""
     from .optim.adamw import TrainState
     device = resolve_device(device)
-    moments = lambda t: tree_map(lambda a: _tensor(a, device), t)
+    sh = shardings or TrainState(None, None, None, None)
     return TrainState(_tensor(state.step, device).to(torch.int32),
-                      lm_params(state.params, device), moments(state.m),
-                      moments(state.v))
+                      lm_params(state.params, device, sh.params),
+                      _blocks(state.m, sh.m, device),
+                      _blocks(state.v, sh.v, device))
 
 
 def lm_train_state_numpy(state) -> dict:

@@ -1,3 +1,4 @@
-"""Feature-parallel execution of the port: the group-aligned column
-partition of the design and its executors (``feature_shard``), on one
-device or across ``torch.distributed`` ranks."""
+"""Parallel execution of the port across ``torch.distributed`` ranks: the
+group-aligned feature partition of the design and its executors
+(``feature_shard``), the LM zoo's sharding rules and collectives
+(``sharding``), and int8 gradient compression (``compression``)."""

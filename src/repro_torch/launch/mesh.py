@@ -20,12 +20,20 @@ the sweep outputs, so it is a ``gloo`` group whatever the default
 backend; the feature group uses the default backend, with a ``gloo`` twin
 for its host gathers when that backend is not ``gloo``.
 
-Not ported: ``make_production_mesh`` and ``make_local_mesh`` build the
-LM zoo's (data, model) meshes, and wait for its sharding rules (ROADMAP
-item 41); ``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only
+* The LM mesh (``make_local_mesh``, ``make_production_mesh``,
+  ``lm_mesh``): the LM zoo's (data, model) or (pod, data, model) ranks.
+  An ``LMMesh`` reads as the reference's ``jax.sharding.Mesh`` does and
+  carries one ``gloo`` group for each combination of its axes, which
+  ``distributed.sharding`` gathers and reduces over.
+
+Not ported: ``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only
 the XLA resource audit, which has no counterpart here (ROADMAP item 14).
 """
 from __future__ import annotations
+
+import itertools
+
+import numpy as np
 
 FOLD_TALLIES = ("sharded", "unsharded", "all_gather")
 _COUNTS = dict.fromkeys(FOLD_TALLIES, 0)
@@ -104,6 +112,144 @@ class FoldMesh:
 
     def __deepcopy__(self, memo) -> "FoldMesh":
         return self          # a handle on process groups, never copied
+
+
+class LMMesh:
+    """A mesh of ``torch.distributed`` ranks for the LM zoo.
+
+    ``axis_names`` is ``("data", "model")`` or ``("pod", "data",
+    "model")``, ``shape`` maps each axis to its size and ``size`` is their
+    product, as on a JAX mesh.  Ranks are laid out row-major: rank ``(p,
+    d, m)`` is global rank ``(p * D + d) * M + m``.  ``coords`` holds this
+    rank's coordinates.  ``group(axes)`` is the ``gloo`` group of the
+    ranks that share this rank's coordinates on every other axis (``None``
+    when it holds one rank), one for every combination of axes.
+
+    ``batch_replicated`` marks a view of the mesh under which every rank
+    holds the whole batch (a batch that the data axes do not divide, or a
+    decode step): ``replicated_batch()`` returns it, with the same groups.
+    Meshes compare and hash by ``(axis_names, shape, ranks,
+    batch_replicated)``; a deep copy is the mesh itself."""
+
+    def __init__(self, axis_names, shape, ranks, coords, groups,
+                 batch_replicated=False):
+        self.axis_names = tuple(axis_names)
+        self.shape = {a: int(shape[a]) for a in self.axis_names}
+        self.size = int(np.prod(list(self.shape.values())))
+        self.ranks = tuple(int(r) for r in ranks)
+        self.coords = dict(coords)
+        self._groups = dict(groups)
+        self.batch_replicated = bool(batch_replicated)
+
+    def _axes(self, axes) -> tuple:
+        """``axes`` (a name or names) present in the mesh, in mesh order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def axes_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in self._axes(axes)]))
+
+    def group(self, axes):
+        return self._groups.get(self._axes(axes))
+
+    def block_index(self, axes, coords=None) -> int:
+        """This rank's (or ``coords``') block along ``axes`` taken in the
+        given order, the first major (a spec entry's split)."""
+        coords = self.coords if coords is None else coords
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = 0
+        for a in axes:
+            if a in self.shape:
+                idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def coords_of(self, rank: int) -> dict:
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return out
+
+    def group_blocks(self, axes) -> list:
+        """The block index along ``axes`` of each member of ``group(axes)``,
+        in the group's rank order (ascending global rank)."""
+        mine = self.coords
+        members = [r for r in range(self.size)
+                   if all(c == mine[a] for a, c in self.coords_of(r).items()
+                          if a not in self._axes(axes))]
+        return [self.block_index(axes, self.coords_of(r)) for r in members]
+
+    def replicated_batch(self) -> "LMMesh":
+        return LMMesh(self.axis_names, self.shape, self.ranks, self.coords,
+                      self._groups, batch_replicated=True)
+
+    def _key(self) -> tuple:
+        return (self.axis_names, tuple(self.shape.items()), self.ranks,
+                self.batch_replicated)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, LMMesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        return (f"LMMesh({self.shape}, coords={self.coords}"
+                + (", batch replicated" if self.batch_replicated else "")
+                + ")")
+
+    def __deepcopy__(self, memo) -> "LMMesh":
+        return self          # a handle on process groups, never copied
+
+
+def lm_mesh(shape: dict) -> LMMesh:
+    """An ``LMMesh`` of ``shape`` (axis name -> size, in mesh order) over
+    the initialized default group, whose world size must equal the
+    product; with no group initialized, a shape of one rank gives a mesh
+    of one (no group, no collective).  Every rank must make this call, in
+    the same order as its other ``new_group`` calls."""
+    import torch.distributed as dist
+    axis_names = tuple(shape)
+    size = int(np.prod([int(shape[a]) for a in axis_names]))
+    world, rank = _world()
+    if size != world:
+        raise ValueError(f"an LM mesh of shape {dict(shape)} needs {size} "
+                         f"ranks, the world has {world}")
+    mesh = LMMesh(axis_names, shape, range(size), {}, {})
+    mesh.coords = mesh.coords_of(rank)
+    groups, made = {}, {}
+    for n in range(1, len(axis_names) + 1):
+        for axes in itertools.combinations(axis_names, n):
+            if mesh.axes_size(axes) == 1:
+                continue
+            # one group per class of the other axes' coordinates; every
+            # rank makes every group, in the same order
+            others = [a for a in axis_names if a not in axes]
+            for key in itertools.product(*(range(mesh.shape[a])
+                                           for a in others)):
+                ranks = tuple(r for r in range(size) if all(
+                    mesh.coords_of(r)[a] == c for a, c in zip(others, key)))
+                if ranks not in made:
+                    made[ranks] = _gloo_group(ranks)
+                if rank in ranks:
+                    groups[axes] = made[ranks]
+    mesh._groups = groups
+    return mesh
+
+
+def make_local_mesh() -> LMMesh:
+    """Every rank of the initialized default group as a ``(world, 1)``
+    mesh over ``("data", "model")``; a mesh of one when no group is
+    initialized (every code path is then the one without a mesh)."""
+    return lm_mesh({"data": _world()[0], "model": 1})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
+    """Single pod: (data 16, model 16) = 256 ranks.  Multi-pod: (pod 2,
+    data 16, model 16) = 512 ranks, 'pod' the data-parallel axis that
+    crosses hosts.  A world of another size raises ``ValueError``."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    return lm_mesh(shape)
 
 
 def make_fold_mesh(n_folds: int) -> FoldMesh:

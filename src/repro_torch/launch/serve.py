@@ -1,8 +1,11 @@
 """Batched decode loop with a KV cache (PyTorch port of
 ``repro.launch.serve``): teacher-forced prefill through the decode step,
-greedy decode, warm-only per-step p50 / p99 and tokens per second.  An
-enc-dec config decodes, as the reference's loop does, against the cache's
-all-zero ``enc_out``: the loop runs no encoder.
+greedy decode, warm-only per-step p50 / p99 and tokens per second, on
+``make_local_mesh()`` with the caches and tokens replicated (every rank of
+an initialized ``torch.distributed`` group decodes the whole batch, as the
+reference's loop commits them to the replicated sharding).  An enc-dec
+config decodes, as the reference's loop does, against the cache's all-zero
+``enc_out``: the loop runs no encoder.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --smoke --batch 4 --prompt-len 16 --gen 32 --device cpu
@@ -19,6 +22,7 @@ import torch
 
 from ..configs.base import get_config
 from ..models import model as model_lib
+from .mesh import make_local_mesh
 from .steps import make_serve_step, resolve_cli_device, sync_device
 
 
@@ -41,9 +45,10 @@ def main(argv=None, latencies=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    mesh = make_local_mesh()
     init_gen = torch.Generator(device=dev).manual_seed(0)
     params = model_lib.init_params(cfg, init_gen, torch.float32)
-    serve_step = make_serve_step(cfg, compute_dtype=torch.float32)
+    serve_step = make_serve_step(cfg, mesh=mesh, compute_dtype=torch.float32)
 
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(
@@ -74,6 +79,8 @@ def main(argv=None, latencies=None):
     warm = lat[1:] if len(lat) > 1 else lat
     lat_ms = np.asarray(warm) * 1e3
     warm_s = float(np.sum(warm))
+    if any(mesh.coords.values()):
+        return gen
     print(f"generated {gen.shape} tokens; total {total:.2f}s "
           f"(incl. prefill); "
           f"per-step p50={np.percentile(lat_ms, 50):.1f}ms "

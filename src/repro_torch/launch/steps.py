@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import sharding as sh
 from ..models import model as model_lib
 from ..optim import adamw
 from ..pytree import as_dict, leaves, tree_map
@@ -46,16 +47,42 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
     gradient accumulation over equal slices of the batch (the mean of their
     gradients and losses).  cast_params: cast >= 2-D float32 master weights
     to the compute dtype inside the loss.  The state is updated in place.
-    A mesh or ``seq_shard`` raises ``NotImplementedError`` (ROADMAP item
-    41)."""
-    model_lib.refuse_mesh(mesh, seq_shard)
+
+    Under a mesh of several ranks (ZeRO-3), ``state`` holds this rank's
+    blocks by ``state_pspecs(param_pspecs(cfg, mesh.shape))`` and ``batch``
+    is the global batch.  The loss gathers the blocks (after the cast, as
+    the reference gathers cast shards; expert dims stay local), the
+    gradients come back summed over the batch axes as the rank's blocks,
+    and AdamW clips by the full tree's norm.  With ``microbatch`` each
+    rank splits its own rows.  ``seq_shard``: see
+    ``models.model.decoder_stack``."""
+    model_lib.check_mesh(mesh)
     lr_kwargs = lr_kwargs or {}
+    sharded = mesh is not None and mesh.size > 1
+    specs = model_lib.param_pspecs(cfg, mesh.shape) if sharded else None
+    descs = model_lib.param_descs(cfg) if sharded else None
 
     def loss_fn(params, mb):
         if cast_params and compute_dtype != torch.float32:
             params = _cast_tree(params, compute_dtype)
-        return model_lib.forward_train(params, cfg, mb, remat=remat,
-                                       compute_dtype=compute_dtype)
+        if sharded:
+            params = sh.gather_params(params, specs, descs, mesh)
+        return model_lib.forward_train(params, cfg, mb, mesh=mesh,
+                                       remat=remat,
+                                       compute_dtype=compute_dtype,
+                                       seq_shard=seq_shard)
+
+    def split(batch, i):
+        """Microbatch ``i``: the i-th slice of each rank's rows, so its
+        global rows are rank-major (the rows ``local_rows`` hands out)."""
+        B = next(iter(batch.values())).shape[0]
+        n = 1
+        if sharded and sh.divisible(B, mesh.shape, sh.dp_axes(mesh.shape)):
+            n = mesh.axes_size(sh.dp_axes(mesh.shape))
+        return {k: v.reshape((n, microbatch, B // (n * microbatch))
+                             + v.shape[1:])[:, i].reshape(
+                                 (B // microbatch,) + v.shape[1:])
+                for k, v in batch.items()}
 
     def value_and_grad(params, mb):
         (loss, metrics) = loss_fn(params, mb)
@@ -69,10 +96,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
         else:
             grads, loss = None, 0.0
             for i in range(microbatch):
-                mb = {k: v.reshape((microbatch, v.shape[0] // microbatch)
-                                   + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, _, g = value_and_grad(state.params, mb)
+                l, _, g = value_and_grad(state.params, split(batch, i))
                 if grads is None:
                     grads = [gi.to(torch.float32) for gi in g]
                 else:
@@ -83,8 +107,12 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
             grads = [g / microbatch for g in grads]
             loss = loss / microbatch
             metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
+        if sharded:
+            sh.reduce_grads(grads, specs, mesh)
         lr = adamw.cosine_schedule(state.step, **lr_kwargs)
-        new_state = adamw.adamw_update(state, grads, lr=lr)
+        new_state = adamw.adamw_update(state, grads, lr=lr,
+                                       mesh=mesh if sharded else None,
+                                       param_specs=specs)
         del grads
         metrics = dict(metrics, loss=loss, lr=lr)
         return new_state, metrics
@@ -95,35 +123,43 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
 def make_prefill_step(cfg: ArchConfig, mesh=None,
                       compute_dtype=torch.bfloat16):
     """Full-sequence forward -> last-position logits.  batch: ``tokens``,
-    and an enc-dec config's ``frames`` or a vision config's ``patches``."""
-    model_lib.refuse_mesh(mesh, False)
+    and an enc-dec config's ``frames`` or a vision config's ``patches``.
+    Under a mesh each rank runs its rows of the global batch (full
+    parameters) and every rank returns the whole batch's logits."""
+    model_lib.check_mesh(mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        m = mesh
+        if m is not None:
+            batch, m = sh.local_rows(batch, m)
         if cfg.family == "encdec":
             y, _, _ = model_lib.encdec_forward(
                 params, cfg, batch["frames"].to(compute_dtype),
-                batch["tokens"], remat="none")
+                batch["tokens"], mesh=m, remat="none")
         else:
             x = model_lib.assemble_inputs(params, cfg, batch, compute_dtype)
             positions = torch.arange(x.shape[1], device=x.device)
             x, _, _ = model_lib.decoder_stack(params, x, positions, cfg,
-                                              remat="none")
+                                              mesh=m, remat="none")
             y = model_lib.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return model_lib.logits_fn(params, cfg, y[:, -1:, :])
+        logits = model_lib.logits_fn(params, cfg, y[:, -1:, :])
+        return logits if m is None else sh.gather_rows(logits, m)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, mesh=None, compute_dtype=torch.bfloat16):
     """``serve_step(params, caches, tokens, pos) -> (next tokens (B, 1),
-    caches)``: greedy, the caches written in place."""
-    model_lib.refuse_mesh(mesh, False)
+    caches)``: greedy, the caches written in place.  Under a mesh every
+    rank decodes the whole batch (``forward_decode``)."""
+    model_lib.check_mesh(mesh)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
         logits, new_caches = model_lib.forward_decode(
-            params, cfg, caches, tokens, pos, compute_dtype=compute_dtype)
+            params, cfg, caches, tokens, pos, mesh=mesh,
+            compute_dtype=compute_dtype)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok[:, None], new_caches
 

@@ -24,8 +24,17 @@ and ``mlstm`` / ``slstm`` (``xlstm-350m``); the enc-dec family
 ``dec_layers``, cross-attention over the encoder's output, the ``audio``
 frontend's precomputed frames; ``seamless-m4t-medium``) and the ``vision``
 prefix (precomputed patch embeddings before the tokens, masked out of the
-loss; ``llava-next-mistral-7b``).  A mesh raises ``NotImplementedError``
-naming its ROADMAP item.
+loss; ``llava-next-mistral-7b``).
+
+Under an ``LMMesh`` (``launch.mesh``) each rank computes on its rows of the
+batch (``distributed.sharding.local_rows``) with full parameters (the train
+step gathers them from the rank's blocks), and ``forward_train`` returns
+the reference's global loss: the cross-entropy is the rank's sum over the
+global token count, the MoE's auxiliary the rank's share of the global
+one, so the ranks' objectives sum to the reference's, and the value
+reported on every rank is that sum.  ``seq_shard`` keeps S / |model| rows
+of the residual stream a rank between the period's layers.  Another kind
+of mesh raises ``TypeError``.
 
 The decode cache is a nested dict, a leaf tree a layer of the period
 stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
@@ -50,8 +59,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.groups import resolve_device
+from ..distributed import sharding as sh
 from ..pytree import flatten, plain_structure, tree_map, unflatten
-from .common import ParamDesc, rms_norm, softcap, tree_init
+from .common import (ParamDesc, constrain, constraint_spec, rms_norm,
+                     softcap, tree_init, tree_specs)
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
@@ -61,11 +72,6 @@ from . import xlstm as xlstm_mod
 ATTN_KINDS = ("attn", "local", "global", "dense_ffn_attn", "moe")
 MAMBA_KINDS = ("mamba", "mamba+shared_attn")
 KINDS = ATTN_KINDS + MAMBA_KINDS + ("mlstm", "slstm")
-
-# what the port does not build yet, and the ROADMAP item that ports it
-NOT_PORTED = {
-    "mesh": "the sharding rules and ZeRO-3 training (ROADMAP item 41)",
-}
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -77,10 +83,13 @@ def check_supported(cfg: ArchConfig) -> None:
                                   f"not ported")
 
 
-def refuse_mesh(mesh, seq_shard) -> None:
-    if mesh is not None or seq_shard:
-        raise NotImplementedError(
-            f"a mesh or seq_shard: {NOT_PORTED['mesh']} is not ported yet")
+def check_mesh(mesh) -> None:
+    """``mesh`` must be None or an ``LMMesh``; anything else raises
+    ``TypeError``."""
+    from ..launch.mesh import LMMesh
+    if mesh is not None and not isinstance(mesh, LMMesh):
+        raise TypeError(f"mesh must be a launch.mesh.LMMesh or None, got "
+                        f"{type(mesh).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +153,11 @@ def init_params(cfg, generator: torch.Generator, param_dtype=torch.float32):
     return tree_init(param_descs(cfg), generator, param_dtype)
 
 
+def param_pspecs(cfg, mesh_shape):
+    """The parameters' ``P`` tree on a mesh of ``mesh_shape``."""
+    return tree_specs(param_descs(cfg), mesh_shape)
+
+
 def param_count(cfg) -> int:
     leaves, _ = flatten(param_descs(cfg))
     return int(sum(np.prod(l.shape) for l in leaves))
@@ -154,7 +168,7 @@ def param_count(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
-                    cache_pos=None, capacity_factor=1.25):
+                    cache_pos=None, mesh=None, capacity_factor=1.25):
     """Returns (x, aux); aux is the MoE's load-balancing loss, 0 for dense
     layers.  A decode ``cache`` is written in place."""
     window = cfg.window_size if kind == "local" else None
@@ -171,7 +185,7 @@ def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        f_out, aux = moe_mod.moe_forward(p["ffn"], h, cfg,
+        f_out, aux = moe_mod.moe_forward(p["ffn"], h, cfg, mesh=mesh,
                                          capacity_factor=capacity_factor)
     else:
         f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg)
@@ -187,14 +201,14 @@ def _write(cache, new):
 
 
 def _block_forward(kind, p, x, positions, cfg, *, cache=None, cache_pos=None,
-                   shared=None, capacity_factor=1.25):
+                   mesh=None, shared=None, capacity_factor=1.25):
     """One layer of ``kind``; a decode ``cache`` is written in place.
     ``shared``: the ``shared_attn`` block a ``mamba+shared_attn`` layer
     applies after its Mamba2 (the layer's cache holds its own KV cache).
     Returns (x, aux)."""
     if kind in ATTN_KINDS:
         return _attn_ffn_block(p, x, positions, cfg, kind, cache=cache,
-                               cache_pos=cache_pos,
+                               cache_pos=cache_pos, mesh=mesh,
                                capacity_factor=capacity_factor)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -216,7 +230,7 @@ def _block_forward(kind, p, x, positions, cfg, *, cache=None, cache_pos=None,
         return x, zero
     fwd = xlstm_mod.mlstm_forward if kind == "mlstm" \
         else xlstm_mod.slstm_forward
-    out, new = fwd(p[kind], h, cfg, cache=cache)
+    out, new = fwd(p[kind], h, cfg, cache=cache, mesh=mesh)
     if new is not None:
         _write(cache, new)
     return x + out, zero
@@ -282,18 +296,27 @@ def _unbind(stacked, n):
 def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
                   cache_pos=None, mesh=None, remat="full",
                   capacity_factor=1.25, seq_shard=False):
-    """x: (B, S, d).  caches: None (train/prefill) or the tree of
-    ``init_cache``, written in place.  ``capacity_factor``: the MoE's
-    (None: lossless).  Returns (x, caches, aux)."""
+    """x: (B, S, d), this rank's rows under a mesh.  caches: None
+    (train/prefill) or the tree of ``init_cache``, written in place.
+    ``capacity_factor``: the MoE's (None: lossless).  ``seq_shard``: where
+    |model| divides S, each 'model' rank keeps S / |model| rows of the
+    residual stream between periods; each period gathers them first, under
+    its checkpoint, so the tensor a checkpoint keeps is the rank's rows.
+    Returns (x, caches, aux)."""
     check_supported(cfg)
-    refuse_mesh(mesh, seq_shard)
+    check_mesh(mesh)
+    act_seq = "model" if seq_shard else None
+    x = constrain(x, mesh, ("pod", "data"), act_seq, None)
+    split = (mesh is not None and caches is None and seq_shard
+             and constraint_spec(x.shape, mesh.shape, None, "model")[1]
+             == "model")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     # the prologue, unrolled
     for i, kind in enumerate(cfg.prologue):
         c = _layer_cache(caches["prologue"][i] if caches is not None
                          else None)
         x, a = _block_forward(kind, params[f"pro{i}"], x, positions, cfg,
-                              cache=c, cache_pos=cache_pos,
+                              cache=c, cache_pos=cache_pos, mesh=mesh,
                               capacity_factor=capacity_factor)
         aux_total = aux_total + a
     block_caches = caches["blocks"] if caches is not None else None
@@ -302,21 +325,28 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
         if "shared_attn" in params else None
 
     def period_body(x, r):
+        if split:
+            x = sh.gather_seq(x, mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.block_pattern):
             c = _layer_cache(block_caches[f"l{i}"], r) \
                 if block_caches is not None else None
             x, a = _block_forward(kind, per_r[r][f"l{i}"], x, positions, cfg,
-                                  cache=c, cache_pos=cache_pos,
+                                  cache=c, cache_pos=cache_pos, mesh=mesh,
                                   shared=shared[r % 2] if shared else None,
                                   capacity_factor=capacity_factor)
+            x = constrain(x, mesh, ("pod", "data"), act_seq, None)
             aux = aux + a
-        return x, aux
+        return (sh.split_seq(x, mesh) if split else x), aux
 
     body = _remat_wrap(period_body, remat)
+    if split:
+        x = sh.split_seq(x, mesh)
     for r in range(cfg.repeats):
         x, aux = body(x, r)
         aux_total = aux_total + aux
+    if split:
+        x = sh.gather_seq(x, mesh)
     return x, caches, aux_total
 
 
@@ -353,6 +383,13 @@ def chunked_ce_loss(params, cfg, x, labels, mask=None):
     pass: a loop over sequence chunks, each chunk's logits recomputed in the
     backward pass (a non-reentrant checkpoint).  The mean is over the
     mask."""
+    tot, n = chunked_ce_sums(params, cfg, x, labels, mask)
+    return tot / torch.clamp(n, min=1.0)
+
+
+def chunked_ce_sums(params, cfg, x, labels, mask=None):
+    """``chunked_ce_loss``'s (sum of the masked token losses, mask
+    count)."""
     B, S, d = x.shape
     C = min(LOSS_CHUNK, S)
     if S % C:
@@ -379,7 +416,7 @@ def chunked_ce_loss(params, cfg, x, labels, mask=None):
         else:
             l, m = chunk_loss(*args)
         tot, n = tot + l, n + m
-    return tot / torch.clamp(n, min=1.0)
+    return tot, n
 
 
 # ---------------------------------------------------------------------------
@@ -397,9 +434,10 @@ def encdec_forward(params, cfg, frames, tokens, *, mesh=None, remat="full",
     so its output at t reads no frame after t.  Each decoder layer is
     causal self-attention (``dec_caches``' ``self`` KV cache written in
     place when decoding), then cross-attention over ``enc_out``, then the
-    MLP.  ``remat`` checkpoints each layer body.  Returns (y, enc_out,
-    dec_caches or None)."""
-    refuse_mesh(mesh, False)
+    MLP.  ``remat`` checkpoints each layer body.  Under a mesh the rows are
+    this rank's, as in ``decoder_stack``.  Returns (y, enc_out, dec_caches
+    or None)."""
+    check_mesh(mesh)
     if compute_dtype is not None:
         dt = compute_dtype
     elif frames is not None:
@@ -558,17 +596,33 @@ def forward_train(params, cfg: ArchConfig, batch, *, mesh=None, remat="full",
     """Returns (loss, metrics).  batch: tokens/labels, int64 (B, S); an
     enc-dec config's ``frames`` (B, S_enc, d) (metrics ``ce`` alone), a
     vision config's ``patches`` (B, num_patches, d), whose positions the
-    loss masks out."""
-    refuse_mesh(mesh, seq_shard)
+    loss masks out.
+
+    Under a mesh, ``batch`` is the global batch and ``params`` are full;
+    each rank computes its rows (``sharding.local_rows``).  The value of
+    ``loss`` and the metrics are the reference's global ones on every
+    rank; the gradient of ``loss`` is the rank's objective's (its sum of
+    token losses over the global count, plus its share of the MoE's
+    auxiliary), which the ranks' gradients sum to the reference's."""
+    check_mesh(mesh)
+    dp_group = None
+    if mesh is not None:
+        batch, mesh = sh.local_rows(batch, mesh)
+        dp_group = mesh.group(sh.dp_axes(mesh.shape))
     if cfg.family == "encdec":
         y, _, _ = encdec_forward(params, cfg,
                                  batch["frames"].to(compute_dtype),
-                                 batch["tokens"], remat=remat)
-        loss = chunked_ce_loss(params, cfg, y, batch["labels"])
-        return loss, {"ce": loss}
+                                 batch["tokens"], mesh=mesh, remat=remat)
+        if dp_group is None:
+            loss = chunked_ce_loss(params, cfg, y, batch["labels"])
+            return loss, {"ce": loss}
+        ce, _ = _global_loss(mesh, *chunked_ce_sums(params, cfg, y,
+                                                    batch["labels"]))
+        return ce, {"ce": ce.detach()}
     x = assemble_inputs(params, cfg, batch, compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _, aux = decoder_stack(params, x, positions, cfg, remat=remat)
+    x, _, aux = decoder_stack(params, x, positions, cfg, mesh=mesh,
+                              remat=remat, seq_shard=seq_shard)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     labels, mask = batch["labels"], None
     if cfg.frontend == "vision" and "patches" in batch:
@@ -579,9 +633,33 @@ def forward_train(params, cfg: ArchConfig, batch, *, mesh=None, remat="full",
                           torch.ones(labels.shape, dtype=torch.float32,
                                      device=x.device)], dim=1)
         labels = torch.cat([pad, labels], dim=1)
-    ce = chunked_ce_loss(params, cfg, x, labels, mask)
-    loss = ce + 0.01 * aux
+    if dp_group is None:
+        ce = chunked_ce_loss(params, cfg, x, labels, mask)
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux}
+    loss, (ce, aux) = _global_loss(
+        mesh, *chunked_ce_sums(params, cfg, x, labels, mask), aux)
     return loss, {"ce": ce, "aux": aux}
+
+
+def _global_loss(mesh, tot, n, aux=None):
+    """The rank's objective ``tot / n_global + 0.01 aux`` carrying the
+    global value: the ranks' objectives are summed over the batch axes
+    (where every rank holds the whole batch, n_global counts it once a
+    rank and each rank's aux is divided by their number, so the sums are
+    the means again).  Returns (loss, (ce, aux)) with
+    the global ce and aux, detached."""
+    dp = sh.dp_axes(mesh.shape)
+    n_global = sh.all_reduce_sum(n.detach(), mesh, dp)
+    ce_r = tot / torch.clamp(n_global, min=1.0)
+    if aux is not None and mesh.batch_replicated:
+        aux = aux / mesh.axes_size(dp)   # each rank's aux is the whole
+    local = ce_r if aux is None else ce_r + 0.01 * aux
+    parts = torch.stack([ce_r.detach(),
+                         (aux if aux is not None else ce_r).detach()])
+    ce, aux_g = sh.all_reduce_sum(parts, mesh, dp)
+    total = ce if aux is None else ce + 0.01 * aux_g
+    return local + (total - local).detach(), (ce, aux_g)
 
 
 def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
@@ -589,8 +667,11 @@ def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
     """One decode step.  tokens: (B, 1) int64; pos: the absolute position
     (an int).  Returns (logits (B, 1, V) float32, caches), the caches
     written in place (an enc-dec cache's ``enc_out`` is read, never
-    written)."""
-    refuse_mesh(mesh, False)
+    written).  Under a mesh every rank decodes the whole batch (caches and
+    tokens replicated, as the reference's loop commits them)."""
+    check_mesh(mesh)
+    if mesh is not None:
+        mesh = mesh.replicated_batch()
     if cfg.family == "encdec":
         y, _, _ = encdec_forward(
             params, cfg, None, tokens, dec_caches=caches["decoder"],
@@ -600,7 +681,7 @@ def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
     x = embed_tokens(params, cfg, tokens, compute_dtype)
     positions = torch.full((1,), int(pos), device=x.device)
     x, caches, _ = decoder_stack(params, x, positions, cfg, caches=caches,
-                                 cache_pos=pos, remat="none",
+                                 cache_pos=pos, mesh=mesh, remat="none",
                                  capacity_factor=None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x), caches

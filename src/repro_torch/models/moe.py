@@ -1,4 +1,4 @@
-"""Token-choice top-k MoE (PyTorch port of the single-shard path of
+"""Token-choice top-k MoE with expert parallelism (PyTorch port of
 ``repro.models.moe``).
 
 Dispatch is the reference's: token-expert pairs are sorted by expert
@@ -13,14 +13,34 @@ expert order, the order in which the reference's expert loop scatter-adds
 them, in the input's dtype.  A gather instead of a scatter-add keeps the
 sum free of atomics: two calls on the card give the same bits.
 
-The expert-parallel ``shard_map`` path waits for the sharding rules
-(ROADMAP item 41); a mesh raises ``NotImplementedError``.
+Under an ``LMMesh`` (each rank holding its rows of the batch) three paths
+keep the reference's values:
+
+* expert parallelism, when |model| > 1 divides E (the reference's
+  ``shard_map``): each 'model' rank holds E / |model| experts, dispatches
+  its data block's tokens at the reference's per-shard capacity
+  ``max(min(ceil(T_local k / |model| cf), T_local k), 8)`` and the partial
+  outputs are summed over 'model' (backward: the identity; the tokens and
+  gate weights enter through a sum of their gradients over 'model');
+* otherwise, with the rows split over the data axes, the reference's
+  dispatch of the global batch: a pair is kept when its place among its
+  expert's pairs in global order is below the global capacity, each rank
+  learning the pairs before its own from one all-reduce of the per-expert
+  counts;
+* the batch held whole on every rank: the path without a mesh.
+
+The load-balancing auxiliary uses the global token count and expert
+fractions (one all-reduce), so the ranks' values sum to the reference's.
+``log_kept`` records the pairs each dispatch keeps.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
+from ..distributed import sharding as sh
 from .common import ParamDesc, activation, is_glu
 
 
@@ -42,10 +62,13 @@ def moe_descs(cfg):
     return descs
 
 
-def router_topk(p, x, cfg):
+def router_topk(p, x, cfg, mesh=None):
     """Returns (expert_idx (B, S, k) int64, gate_w (B, S, k) float32, aux
     scalar).  Ties in the top k go to the lower expert index, as in
-    ``jax.lax.top_k``: a stable descending sort, cut to k."""
+    ``jax.lax.top_k``: a stable descending sort, cut to k.  With ``mesh``
+    (rows split over its batch axes) aux is this rank's share: ``E
+    sum_e (sum of its probs_e) ce_e / T`` with the global token count T
+    and expert fractions ce."""
     logits = (x @ p["router"].to(x.dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
@@ -59,6 +82,14 @@ def router_topk(p, x, cfg):
     # F.one_hot checks its input on the host; a comparison does not
     one_hot = (expert_idx[..., None] == torch.arange(
         E, device=x.device)).to(torch.float32)
+    if mesh is not None:
+        counts = torch.sum(one_hot, dim=-2).reshape(-1, E)
+        glob = sh.all_reduce_sum(torch.cat([
+            counts.sum(0), counts.new_full((1,), counts.shape[0])]),
+            mesh, sh.dp_axes(mesh.shape))
+        ce = glob[:E] / glob[E] / k
+        aux = E * torch.sum(probs.reshape(-1, E).sum(0) * ce) / glob[E]
+        return expert_idx, gate_w, aux
     ce = torch.mean(torch.sum(one_hot, dim=-2).reshape(-1, E), dim=0) / k
     aux = E * torch.sum(me * ce)
     return expert_idx, gate_w, aux
@@ -80,12 +111,30 @@ def _expert_ffn(tokens, w_in, w_gate, w_out, act):
     return _matmul(h, w_out)
 
 
+_KEPT = []          # the lists ``log_kept`` fills
+
+
+@contextlib.contextmanager
+def log_kept():
+    """Yields a list that receives, for each ``moe_ffn_local`` call inside
+    the block, the number of pairs it kept (a 0-dim tensor on its device;
+    one sum a call, nothing read on the host)."""
+    out = []
+    _KEPT.append(out)
+    try:
+        yield out
+    finally:
+        _KEPT.remove(out)
+
+
 def moe_ffn_local(x_flat, expert_idx, gate_w, w_in, w_gate, w_out, *,
-                  e_lo, n_local, capacity, act):
+                  e_lo, n_local, capacity, act, limit=None):
     """MoE contribution of experts [e_lo, e_lo + n_local) to local tokens.
 
     x_flat: (T, d); expert_idx / gate_w: (T, k).  Returns (T, d) in
-    x_flat's dtype; pairs routed to other experts contribute nothing."""
+    x_flat's dtype; pairs routed to other experts contribute nothing.
+    ``limit`` (n_local,): keep only each expert's first ``limit[e]`` pairs
+    as well (at most ``capacity``)."""
     T, d = x_flat.shape
     k = expert_idx.shape[1]
     dev = x_flat.device
@@ -114,6 +163,10 @@ def moe_ffn_local(x_flat, expert_idx, gate_w, w_in, w_gate, w_out, *,
     e_safe = torch.clamp(pair_exp, 0, n_local - 1)
     rank = rank - starts[e_safe]
     kept = local & (rank < capacity)
+    if limit is not None:
+        kept = kept & (rank < limit[e_safe])
+    for log in _KEPT:
+        log.append(kept.sum())
     flat = e_safe * capacity + torch.clamp(rank, max=capacity - 1)
     wts = torch.where(kept, pair_w, torch.zeros_like(pair_w))
     contrib = out.reshape(n_local * capacity, -1)[flat]      # (T*k, d)
@@ -138,21 +191,36 @@ def capacity_of(T: int, k: int, E: int, capacity_factor) -> int:
 
 
 def moe_forward(p, x, cfg, *, mesh=None, capacity_factor: float = 1.25):
-    """x: (B, S, d) -> ((B, S, d), aux loss).  ``capacity_factor=None`` is
-    lossless dispatch (decode)."""
-    if mesh is not None:
-        from .model import refuse_mesh
-        refuse_mesh(mesh, False)
+    """x: (B, S, d), this rank's rows under a mesh -> ((B, S, d), aux
+    loss).  ``capacity_factor=None`` is lossless dispatch (decode).  Under
+    expert parallelism ``w_in`` / ``w_gate`` / ``w_out`` may hold every
+    expert (the rank's are taken) or the rank's E / |model|."""
+    from .model import check_mesh
+    check_mesh(mesh)
     B, S, d = x.shape
-    expert_idx, gate_w, aux = router_topk(p, x, cfg)
     E, k = cfg.num_experts, cfg.experts_per_token
     act = cfg.mlp_act
     Tl = B * S
-    out = moe_ffn_local(
-        x.reshape(Tl, d), expert_idx.reshape(Tl, k), gate_w.reshape(Tl, k),
-        p["w_in"], p["w_gate"] if "w_gate" in p else None, p["w_out"],
-        e_lo=0, n_local=E, capacity=capacity_of(Tl, k, E, capacity_factor),
-        act=act).reshape(B, S, d)
+    n_model = mesh.shape.get("model", 1) if mesh is not None else 1
+    dp = sh.dp_axes(mesh.shape) if mesh is not None else ()
+    split_rows = (mesh is not None and not mesh.batch_replicated
+                  and mesh.group(dp) is not None)
+    expert_idx, gate_w, aux = router_topk(p, x, cfg,
+                                          mesh if split_rows else None)
+    w_gate = p["w_gate"] if "w_gate" in p else None
+
+    if n_model > 1 and E % n_model == 0:
+        out = _expert_parallel(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
+                               capacity_factor)
+    elif split_rows:
+        out = _global_dispatch(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
+                               capacity_factor)
+    else:
+        out = moe_ffn_local(
+            x.reshape(Tl, d), expert_idx.reshape(Tl, k),
+            gate_w.reshape(Tl, k), p["w_in"], w_gate, p["w_out"], e_lo=0,
+            n_local=E, capacity=capacity_of(Tl, k, E, capacity_factor),
+            act=act).reshape(B, S, d)
 
     if cfg.num_shared_experts:
         h = x @ p["shared_in"].to(x.dtype)
@@ -162,3 +230,62 @@ def moe_forward(p, x, cfg, *, mesh=None, capacity_factor: float = 1.25):
             h = activation(act, h)
         out = out + h @ p["shared_out"].to(x.dtype)
     return out.to(x.dtype), aux
+
+
+def _expert_parallel(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
+                     capacity_factor):
+    """The 'model' rank's experts over its data block's tokens, the partial
+    outputs summed over 'model' (the reference's ``shard_map`` body)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    n_model = mesh.shape["model"]
+    n_local = E // n_model
+    dp = sh.dp_axes(mesh.shape)
+    if (mesh.batch_replicated and mesh.group(dp) is not None
+            and capacity_factor is not None):
+        raise ValueError(
+            f"expert parallelism splits the batch over {dp}: a batch they "
+            f"do not divide has no per-shard capacity (the reference's "
+            f"shard_map refuses it too)")
+    mi = mesh.coords["model"]
+    experts = lambda w: w if w is None or w.shape[0] == n_local \
+        else w[mi * n_local:(mi + 1) * n_local]
+    Tl = B * S
+    if capacity_factor is None:
+        cap = Tl * k
+    else:
+        cap = max(min(int(np.ceil(Tl * k / n_model * capacity_factor)),
+                      Tl * k), 8)
+    xe = sh.copy_to_group(x, mesh, ("model",))
+    we = sh.copy_to_group(gate_w, mesh, ("model",))
+    out = moe_ffn_local(
+        xe.reshape(Tl, d), expert_idx.reshape(Tl, k), we.reshape(Tl, k),
+        experts(p["w_in"]), experts(w_gate), experts(p["w_out"]),
+        e_lo=mi * n_local, n_local=n_local, capacity=cap, act=cfg.mlp_act)
+    return sh.reduce_from_group(out.to(x.dtype), mesh,
+                                ("model",)).reshape(B, S, d)
+
+
+def _global_dispatch(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
+                     capacity_factor):
+    """The single-shard path over the global batch, run on this rank's
+    rows: the pairs of the ranks before it come first in each expert's
+    window, so this rank keeps its first ``capacity - before`` pairs of
+    each expert."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    dp = sh.dp_axes(mesh.shape)
+    n_dp, r = mesh.axes_size(dp), mesh.block_index(dp)
+    Tl = B * S
+    cap = capacity_of(Tl * n_dp, k, E, capacity_factor)
+    counts = torch.zeros((n_dp, E), dtype=torch.int64, device=x.device)
+    counts[r] = (expert_idx.reshape(-1, 1) == torch.arange(
+        E, device=x.device)).sum(0)
+    counts = sh.all_reduce_sum(counts, mesh, dp)
+    before = counts[:r].sum(0)
+    limit = torch.clamp(cap - before, min=0)
+    return moe_ffn_local(
+        x.reshape(Tl, d), expert_idx.reshape(Tl, k), gate_w.reshape(Tl, k),
+        p["w_in"], w_gate, p["w_out"], e_lo=0, n_local=E,
+        capacity=min(cap, Tl * k), act=cfg.mlp_act,
+        limit=limit).reshape(B, S, d)

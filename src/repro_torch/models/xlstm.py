@@ -22,8 +22,10 @@ backward pass (a non-reentrant checkpoint), so the backward holds one
 chunk's residuals and the chunk boundaries' carries, not S steps'.
 
 Decode returns new caches; ``models.model`` writes them into the stacked
-cache in place.  The reference's ``constrain`` calls wait for the sharding
-rules: a mesh raises ``NotImplementedError`` (ROADMAP item 41).
+cache in place.  Under a mesh, q, k and v are constrained to their heads
+over 'model' and the sLSTM's ``gates_x`` to its last dim over 'model', as in
+the reference (``common.constrain``: the values are unchanged, since
+compute is replicated along 'model').
 """
 from __future__ import annotations
 
@@ -33,17 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import ParamDesc, causal_conv, rms_norm
+from .common import ParamDesc, causal_conv, constrain, rms_norm
 
 NEG = -1e30
 TC = 128          # the sLSTM's time chunk
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "xLSTM under a mesh: the sharding rules (ROADMAP item 41) are "
-            "not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +127,8 @@ def mlstm_forward(p, x, cfg, *, cache: Optional[MLSTMCache] = None,
                   chunk: int = 256, mesh=None):
     """x: (B, S, d).  Train / prefill when ``cache`` is None; otherwise one
     decode step (S = 1).  Returns (out, new cache or None)."""
-    _refuse_mesh(mesh)
+    from .model import check_mesh
+    check_mesh(mesh)
     B, S, d = x.shape
     H = cfg.num_heads
     d_in = 2 * d
@@ -154,6 +150,9 @@ def mlstm_forward(p, x, cfg, *, cache: Optional[MLSTMCache] = None,
     proj = lambda a, name: torch.einsum(
         "bsd,dhk->bshk", a, p[name].to(x.dtype)).to(torch.float32)
     q, k, v = proj(conv, "wq"), proj(conv, "wk"), proj(u, "wv")
+    q = constrain(q, mesh, ("pod", "data"), None, "model", None)
+    k = constrain(k, mesh, ("pod", "data"), None, "model", None)
+    v = constrain(v, mesh, ("pod", "data"), None, "model", None)
     gates = (u @ p["w_if"].to(x.dtype)
              + p["if_bias"].to(x.dtype)).to(torch.float32)
     li, lf = gates[..., :H], F.logsigmoid(gates[..., H:])
@@ -257,12 +256,14 @@ def slstm_forward(p, x, cfg, *, cache: Optional[SLSTMCache] = None,
                   mesh=None):
     """x: (B, S, d).  Train / prefill when ``cache`` is None; otherwise one
     decode step (S = 1).  Returns (out, new cache or None)."""
-    _refuse_mesh(mesh)
+    from .model import check_mesh
+    check_mesh(mesh)
     B, S, d = x.shape
     H = cfg.num_heads
     dh = d // H
     gates_x = (x @ p["w_gates"].to(x.dtype)
                + p["gate_bias"].to(x.dtype)).to(torch.float32)
+    gates_x = constrain(gates_x, mesh, ("pod", "data"), None, "model")
     r_w = p["r_gates"].to(torch.float32)
 
     if cache is None:

@@ -7,6 +7,11 @@ leaves).  ``adamw_update`` updates the parameters and moments in place, one
 leaf at a time, so a full-width model needs no second copy of its state;
 its arithmetic is the reference's: a global-norm clip, bias corrections at
 ``step + 1`` and decoupled weight decay on every leaf.
+
+Under ZeRO-3 (``state_pspecs``: the state sharded as the parameters) each
+rank's state holds its blocks; the update is elementwise on them, and the
+clip's norm counts every element of the full tree once
+(``distributed.sharding.global_sq_norm``).
 """
 from __future__ import annotations
 
@@ -34,6 +39,13 @@ def init_state(params, moment_dtype=torch.float32) -> TrainState:
                       zeros(), zeros())
 
 
+def state_pspecs(param_specs) -> TrainState:
+    """The ``TrainState`` of specs: ``step`` replicated, the parameters
+    and both moments by ``param_specs``."""
+    from ..models.common import P
+    return TrainState(P(), param_specs, param_specs, param_specs)
+
+
 def cosine_schedule(step, *, base_lr=3e-4, warmup=100, total=10000,
                     min_ratio=0.1):
     """float32 learning rate at ``step`` (a tensor): a linear warmup from 0,
@@ -47,16 +59,23 @@ def cosine_schedule(step, *, base_lr=3e-4, warmup=100, total=10000,
 
 @torch.no_grad()
 def adamw_update(state: TrainState, grads, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, grad_clip=1.0) -> TrainState:
+                 weight_decay=0.1, grad_clip=1.0, mesh=None,
+                 param_specs=None) -> TrainState:
     """One step.  ``grads``: a tree with the parameters' leaves (or a list
     in their order).  Parameters and moments change in place; the returned
-    state holds the same tensors and ``step + 1``."""
+    state holds the same tensors and ``step + 1``.  With ``mesh`` the
+    leaves are this rank's blocks by ``param_specs``."""
     flat_p = leaves(state.params)
     flat_g = grads if isinstance(grads, list) else leaves(grads)
     flat_m, flat_v = leaves(state.m), leaves(state.v)
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("state and gradients differ in structure")
-    gsq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in flat_g)
+    if mesh is not None and mesh.size > 1:
+        from ..distributed.sharding import global_sq_norm
+        gsq = global_sq_norm(flat_g, param_specs, mesh)
+    else:
+        gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                  for g in flat_g)
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 

@@ -81,11 +81,15 @@ class TreeDef:
         return f"{name}({inner})"
 
 
-def flatten(tree) -> tuple[list, TreeDef]:
-    """(leaves in the reference's order, structure)."""
+def flatten(tree, is_leaf=None) -> tuple[list, TreeDef]:
+    """(leaves in the reference's order, structure).  ``is_leaf(node)``
+    true makes a node a leaf, as in ``jax.tree.flatten``."""
     leaves: list = []
 
     def walk(node) -> TreeDef:
+        if is_leaf is not None and node is not None and is_leaf(node):
+            leaves.append(node)
+            return TreeDef("leaf")
         if node is None:
             return TreeDef("none")
         if isinstance(node, (ParamTree, Mapping)):
@@ -131,16 +135,17 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
-def leaves(tree) -> list:
-    return flatten(tree)[0]
+def leaves(tree, is_leaf=None) -> list:
+    return flatten(tree, is_leaf)[0]
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest, is_leaf=None) -> Any:
     """``fn`` over the leaves of ``tree`` (and the matching leaves of each
     tree of ``rest``: equal leaf counts); a 'params' node comes back as a
-    plain dict, so a map over a ``ParamTree`` never makes parameters."""
-    flat, td = flatten(tree)
-    others = [flatten(r)[0] for r in rest]
+    plain dict, so a map over a ``ParamTree`` never makes parameters.
+    ``is_leaf`` as in ``flatten``, for every tree."""
+    flat, td = flatten(tree, is_leaf)
+    others = [flatten(r, is_leaf)[0] for r in rest]
     for o in others:
         if len(o) != len(flat):
             raise ValueError(f"trees differ: {len(flat)} and {len(o)} leaves")

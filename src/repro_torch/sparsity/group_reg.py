@@ -61,13 +61,18 @@ def sgl_weight_penalty(w: torch.Tensor, axis: int, lam1, lam2) -> torch.Tensor:
         + lam2 * torch.sum(torch.abs(w))
 
 
-def sgl_weight_prox(w: torch.Tensor, axis: int, t_lam1,
-                    t_lam2) -> torch.Tensor:
+def sgl_weight_prox(w: torch.Tensor, axis: int, t_lam1, t_lam2, *,
+                    n_per=None, sum_partial=None) -> torch.Tensor:
     """Exact SGL prox applied group-wise along ``axis`` (soft-threshold then
-    group soft-threshold) — the closed form of ``core.prox.sgl_prox``."""
-    n_per = w.numel() // w.shape[axis]
+    group soft-threshold) — the closed form of ``core.prox.sgl_prox``.
+    On a block of a sharded leaf, ``n_per`` is the full leaf's size of a
+    group and ``sum_partial`` sums the groups' partial squares over the
+    ranks that hold the rest of each group."""
+    if n_per is None:
+        n_per = w.numel() // w.shape[axis]
     u = shrink(w.to(torch.float32), t_lam2)
-    gn = torch.sqrt(torch.sum(u * u, dim=_other_axes(w, axis), keepdim=True))
+    sq = torch.sum(u * u, dim=_other_axes(w, axis), keepdim=True)
+    gn = torch.sqrt(sq if sum_partial is None else sum_partial(sq))
     tg = t_lam1 * float(n_per) ** 0.5
     scale = torch.where(gn > tg, 1.0 - tg / torch.where(gn > 0, gn, 1.0), 0.0)
     return (u * scale).to(w.dtype)

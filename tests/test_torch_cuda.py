@@ -1331,3 +1331,92 @@ def test_vision_loss_on_the_card_masks_the_patches(dev):
         err = torch.linalg.vector_norm(b.cpu() - a) / torch.clamp(
             torch.linalg.vector_norm(a), min=1e-30)
         assert float(err) < 1e-4
+
+
+def _ep_rank(rank, world, init_file, out_path):
+    """One rank of the expert-parallel card test: reduced granite's MoE
+    layer on (data 1, model 2), its output and gradients to ``out_path``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = mesh_mod.lm_mesh({"data": 1, "model": 2})
+        out = _ep_layer("cuda", mesh)
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _ep_layer(dev, mesh):
+    """Reduced granite's first MoE layer (E 8, k 2) on a seeded (4, 64, d)
+    input at capacity factor 1.25: the output and the gradients of ``sum(y
+    * R) + aux`` w.r.t. x, ``w_in`` and the router; with no mesh, the
+    emulation of the (1, 2) expert-parallel layer (``moe_ffn_local`` over
+    each shard's expert slice at the per-shard capacity, summed)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    full = M.init_params(cfg, torch.Generator().manual_seed(5))
+    p = {k: v.detach()[0].to(dev).requires_grad_()
+         for k, v in full["blocks"]["l0"]["ffn"].items()}
+    gen = torch.Generator().manual_seed(6)
+    B, S, d = 4, 64, cfg.d_model
+    x = torch.randn((B, S, d), generator=gen).to(dev).requires_grad_()
+    R = torch.randn((B, S, d), generator=gen).to(dev)
+    E, k, n_local = cfg.num_experts, cfg.experts_per_token, \
+        cfg.num_experts // 2
+    if mesh is not None:
+        y, aux = moe.moe_forward(p, x, cfg, mesh=mesh, capacity_factor=1.25)
+    else:
+        idx, gw, aux = moe.router_topk(p, x, cfg)
+        cap = max(min(int(np.ceil(B * S * k / 2 * 1.25)), B * S * k), 8)
+        y = sum(moe.moe_ffn_local(
+            x.reshape(-1, d), idx.reshape(-1, k), gw.reshape(-1, k),
+            p["w_in"][m * n_local:(m + 1) * n_local],
+            p["w_gate"][m * n_local:(m + 1) * n_local],
+            p["w_out"][m * n_local:(m + 1) * n_local], e_lo=m * n_local,
+            n_local=n_local, capacity=cap, act=cfg.mlp_act)
+            for m in range(2)).reshape(B, S, d)
+    gx, gw_in, gr = torch.autograd.grad((y * R).sum() + aux,
+                                        [x, p["w_in"], p["router"]])
+    return {"y": y.detach(), "aux": aux.detach(), "gx": gx, "gw_in": gw_in,
+            "grouter": gr}
+
+
+def test_expert_parallel_moe_on_two_ranks_on_the_card(dev, tmp_path):
+    """Two ``gloo`` ranks sharing the card run reduced granite's MoE layer
+    expert-parallel on (data 1, model 2), 4 experts a rank: each rank's
+    output and its gradients w.r.t. x and the router, and its experts'
+    ``w_in`` gradient, within 1e-5 x max|.| of the emulation on the card
+    in this process."""
+    import torch.multiprocessing as mp
+    want = _ep_layer(dev, None)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_ep_rank, args=(
+        r, 2, str(tmp_path / "rendezvous"), str(tmp_path / "out")))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and [p.exitcode for p in procs] == [0, 0]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    for r in range(2):
+        got = torch.load(tmp_path / f"out.{r}")
+        es = slice(r * 4, (r + 1) * 4)
+        assert rel(got["y"], want["y"].cpu()) <= 1e-5
+        assert rel(got["gx"], want["gx"].cpu()) <= 1e-5
+        assert rel(got["grouter"], want["grouter"].cpu()) <= 1e-5
+        assert rel(got["gw_in"][es], want["gw_in"][es].cpu()) <= 1e-5
+        assert float(got["gw_in"][4 - es.start:8 - es.start].abs().max()) \
+            == 0.0
+        assert abs(float(got["aux"]) - float(want["aux"])) <= 1e-6

@@ -389,9 +389,25 @@ def test_converters_and_checkpoint_carry_the_trees(arch, tmp_path):
 
 
 def test_mesh_still_refuses():
-    jc, tc, jp, tp = _pair(SEAMLESS)
-    _, tb = _batch(tc, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 41"):
+    """Under a mesh of one, ``forward_train`` and ``encdec_forward`` on
+    seamless (and ``forward_train`` on llava's masked loss) equal
+    ``mesh=None`` bit for bit; an object that is not an ``LMMesh`` raises
+    ``TypeError``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh()
+    for arch in (SEAMLESS, LLAVA):
+        _, tc, _, tp = _pair(arch)
+        _, tb = _batch(tc, 2, 8)
+        got = [TM.forward_train(tp, tc, tb, mesh=m,
+                                compute_dtype=torch.float32)[0]
+               for m in (None, mesh)]
+        assert torch.equal(*got), arch
+    _, tc, _, tp = _pair(SEAMLESS)
+    _, tb = _batch(tc, 2, 8)
+    got = [TM.encdec_forward(tp, tc, tb["frames"], tb["tokens"], mesh=m)[0]
+           for m in (None, mesh)]
+    assert torch.equal(*got)
+    with pytest.raises(TypeError, match="LMMesh"):
         TM.forward_train(tp, tc, tb, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 41"):
+    with pytest.raises(TypeError, match="LMMesh"):
         TM.encdec_forward(tp, tc, tb["frames"], tb["tokens"], mesh=object())

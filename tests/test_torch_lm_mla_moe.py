@@ -215,6 +215,34 @@ def test_moe_ffn_local_takes_its_share_of_the_experts():
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("capacity,e_lo,n_local", [
+    (None, 0, 8), (8, 0, 8), (20, 0, 8), (20, 2, 4)])
+def test_log_kept_counts_each_calls_kept_pairs(capacity, e_lo, n_local):
+    """``log_kept`` receives one count a ``moe_ffn_local`` call: the pairs
+    of the call's experts up to each one's capacity; nothing is logged
+    outside the block."""
+    jc, tc = _cfgs("granite-moe-1b-a400m")
+    jp, tp, jx, tx, idx, gw = _moe_inputs(jc, seed=3)
+    T, k = idx.shape
+    cap = T * k if capacity is None else capacity
+    sl = slice(e_lo, e_lo + n_local)
+    call = lambda: TMoE.moe_ffn_local(
+        tx, torch.as_tensor(np.asarray(idx)),
+        torch.as_tensor(np.asarray(gw)), tp["w_in"][sl], tp["w_gate"][sl],
+        tp["w_out"][sl], e_lo=e_lo, n_local=n_local, capacity=cap,
+        act=tc.mlp_act)
+    with torch.no_grad():
+        with TMoE.log_kept() as kept:
+            call()
+            call()
+        call()
+    load = np.bincount(np.asarray(idx).reshape(-1),
+                       minlength=jc.num_experts)[sl]
+    want = int(np.minimum(load, cap).sum())
+    assert [int(c) for c in kept] == [want, want]
+    assert (want < load.sum()) == (capacity is not None)
+
+
 @pytest.mark.parametrize("arch,cf", [("deepseek-v2-236b", 1.25),
                                      ("deepseek-v2-236b", None),
                                      ("granite-moe-1b-a400m", 1.25)])
@@ -257,10 +285,26 @@ def test_moe_bf16_compute_keeps_the_references_dtypes():
 
 
 def test_moe_under_a_mesh_refuses():
+    """``moe_forward`` under a mesh of one equals ``mesh=None`` bit for
+    bit (output, aux and gradients, at capacity 1.25 and lossless); an
+    object that is not an ``LMMesh`` raises ``TypeError``."""
+    from repro_torch.launch.mesh import make_local_mesh
     _, tc = _cfgs("granite-moe-1b-a400m")
     _, tp = _layer(jget("granite-moe-1b-a400m").reduced(), "ffn")
-    _, tx = _x((1, 4, tc.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 41"):
+    _, tx = _x((2, 8, tc.d_model))
+    params = {k: v.requires_grad_() for k, v in tp.items()}
+    mesh = make_local_mesh()
+    for cf in (1.25, None):
+        got = []
+        for m in (None, mesh):
+            out, aux = TMoE.moe_forward(params, tx, tc, mesh=m,
+                                        capacity_factor=cf)
+            grads = torch.autograd.grad((out ** 2).sum() + aux,
+                                        list(params.values()))
+            got.append([out, aux, *grads])
+        for a, b in zip(*got):
+            assert torch.equal(a, b), cf
+    with pytest.raises(TypeError, match="LMMesh"):
         TMoE.moe_forward(tp, tx, tc, mesh=object())
 
 

@@ -373,13 +373,31 @@ def test_encdec_and_vision_families_build_the_references_tree(arch):
 
 
 def test_mesh_seq_shard_and_unknown_remat_refuse():
+    """Under a mesh of one (``make_local_mesh()`` with no process group),
+    ``forward_train`` with and without ``seq_shard`` equals ``mesh=None``
+    bit for bit, loss and gradients; an object that is not an ``LMMesh``
+    raises ``TypeError``; an unknown remat policy ``ValueError``."""
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_train_step
     _, tc, _, tp = _pair("gemma2-2b")
-    _, tb = _tokens(tc, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 41"):
+    _, tb = _tokens(tc, 2, 8)
+    mesh = make_local_mesh()
+    assert mesh.size == 1
+
+    def run(**kw):
+        loss, m = TM.forward_train(tp, tc, tb, compute_dtype=torch.float32,
+                                   **kw)
+        return [loss, m["ce"], m["aux"]] + list(
+            torch.autograd.grad(loss, leaves(tp)))
+
+    want = run()
+    for kw in ({"mesh": mesh}, {"mesh": mesh, "seq_shard": True}):
+        for a, b in zip(run(**kw), want):
+            assert torch.equal(a, b), kw
+    with pytest.raises(TypeError, match="LMMesh"):
         TM.forward_train(tp, tc, tb, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 41"):
-        make_train_step(tc, seq_shard=True)
+    with pytest.raises(TypeError, match="LMMesh"):
+        make_train_step(tc, mesh=object(), seq_shard=True)
     with pytest.raises(ValueError, match="remat"):
         TM.forward_train(tp, tc, tb, remat="offload")
 

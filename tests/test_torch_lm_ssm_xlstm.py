@@ -295,15 +295,27 @@ def test_slstm_decode_matches_forward_and_reference():
 
 
 def test_xlstm_under_a_mesh_refuses():
+    """``mlstm_forward`` and ``slstm_forward`` under a mesh of one equal
+    ``mesh=None`` bit for bit, and their ``constrain`` calls reach the
+    tally (three for q, k, v; one for the gates); an object that is not an
+    ``LMMesh`` raises ``TypeError``."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh
     _, tc = _cfgs("xlstm-350m")
     jc = jget("xlstm-350m").reduced()
     _, tm = _layer(jc, "l0", "mlstm")
     _, ts = _layer(jc, "l7", "slstm")
-    _, tx = _x((1, 4, tc.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 41"):
-        TX.mlstm_forward(tm, tx, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 41"):
-        TX.slstm_forward(ts, tx, tc, mesh=object())
+    _, tx = _x((2, 8, tc.d_model))
+    mesh = make_local_mesh()
+    for fwd, p, calls in ((TX.mlstm_forward, tm, 3),
+                          (TX.slstm_forward, ts, 1)):
+        want, _ = fwd(p, tx, tc)
+        sh.reset_constrain_counts()
+        got, _ = fwd(p, tx, tc, mesh=mesh)
+        assert torch.equal(got, want)
+        assert sum(sh.constrain_counts().values()) == calls
+        with pytest.raises(TypeError, match="LMMesh"):
+            fwd(p, tx, tc, mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -340,6 +340,26 @@ def test_synthetic_lm_tokens_equal_reference():
                                               np.asarray(want[k]))
 
 
+@pytest.mark.parametrize("shifted", [False, True])
+def test_synthetic_lm_threaded_draws_equal_reference(monkeypatch, shifted):
+    """From ``PARALLEL_MIN`` Gumbel draws a position, threads draw them
+    from advanced copies of the generator; the tokens stay the
+    reference's, also where a position's draws shifted the stream (the
+    rest are then drawn in order)."""
+    from repro_torch.data import lm_data
+    V, S, B = 4096, 24, 16
+    assert B * V >= lm_data.PARALLEL_MIN
+    if shifted:
+        real = lm_data._draw_row
+        monkeypatch.setattr(lm_data, "_draw_row", lambda base, i, shape: (
+            real(base, i, shape)[0], i != 7))
+    jd, td = JData(V, S, B, seed=1), TData(V, S, B, seed=1)
+    for step in (0, 5):
+        want, got = jd.batch_at(step), td.batch_at(step)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(_np(got[k]), np.asarray(want[k]))
+
+
 def _ref_state(arch="gemma2-2b", seed=5):
     cfg = jget(arch).reduced()
     jp = JM.init_params(cfg, jax.random.PRNGKey(seed), F32)
