@@ -7,12 +7,12 @@ Phases (each fails loudly, with a non-zero exit).  After phase 2 four
 worker processes (``Workers``; ``python3 chip_smoke.py --worker NAME
 OUT``, one group of ``WORKERS`` each) run beside this one on the same
 card: ``cv`` phases 6, 7 and 12, ``selection`` 9, 10, 13 and 15,
-``serving`` 11 and 16-18, ``lm`` 21, while this process runs 3-5, 8, 14,
-19 and 20 with the audits.  Each worker's output is printed when it ends.
-Every kernel timing runs alone on the card: the ``lm`` worker's curve
-checks once the other processes are idle, then phase 19's sharded checks
-and phase 22 here after every worker has ended.  Other times printed by
-phases 3-21 are taken with the other processes running.
+``serving`` 11 and 16-18, ``lm`` 21 and 22, while this process runs 3-5,
+8, 14, 19 and 20 with the audits.  Each worker's output is printed when it
+ends.  Every kernel timing runs alone on the card: the ``lm`` worker's
+curve checks once the other processes are idle, then phase 19's sharded
+checks and phase 23 here after every worker has ended.  Other times
+printed by phases 3-22 are taken with the other processes running.
 
 1. Environment: the card's name and power limit (as ``nvidia-smi`` gives
    them), torch and CUDA versions, TF32 flags (turned off and checked).
@@ -146,7 +146,7 @@ phases 3-21 are taken with the other processes running.
     each: both ranks' betas equal each other's and the stacked run's bit
     for bit.  Each pair prints the card's peak allocation above what was
     allocated before the call.  Each kernel is then held against its plain
-    version at the sharded route's own inputs (phase 22's tolerances):
+    version at the sharded route's own inputs (phase 23's tolerances):
     ``xtv`` on a Synthetic-1 block and Table 2's widest block,
     ``screen_norms`` at the recorded screen shapes on a Synthetic-1 local
     spec and on the Table-2 block with the most pad columns (no group owns
@@ -277,7 +277,34 @@ phases 3-21 are taken with the other processes running.
     versions at each curve's shapes (X G x G, C (32, G) with n_max 1, the
     busiest prox bucket).  Every phase and part prints its seconds beside
     the summed walls of the calls it timed.
-22. Each kernel against its plain PyTorch version on the card, at the
+22. The port's audits (``repro_torch.analysis``; in the ``lm`` worker
+    after phase 21): (a) ``run_layers`` on all five layers on the card
+    (the trace lint's 23 entries on CUDA tensors, the AST rules, the
+    compile-key audit, the kernels under 1e30 poison, the resource cards on
+    fake CUDA tensors with their collective plans on fake process groups)
+    against the committed ``baseline.json`` and ``budgets.json``: no new
+    finding.  (b) Phase 3's float32 Synthetic-1 path and phase 6's 5-fold
+    SGL CV on one session, the allocator's peak above what was allocated
+    before against ``resource_audit.session_envelope`` for the keys and
+    graphs the calls paid (each verified against the compile audit's
+    universes): measured <= predicted, the ratio printed.  (c) In a child
+    process (``python3 chip_smoke.py --capacity OUT``):
+    ``capacity_max_p`` for the SGL path (N 250, groups of 10, 8 lambdas
+    on the default grid, solve buckets screened to 16 384 features) at 4
+    GB and at the card's memory; the path then runs at 0.95 of the 4 GB
+    answer with ``set_per_process_memory_fraction`` at 4 GB: it completes
+    with its peak within the budget and within the audit's envelope of
+    the keys and graphs it paid (verified against the compile audit's
+    universes); the planner's screened price at that p is printed beside
+    with whether the run stayed in the screened regime.  (d) The dry run
+    (``repro_torch.launch.dryrun.run_cell``, fake tensors, a process of
+    its own) of the example's train step against phase 21 (a)'s measured
+    peak: predicted >= measured, with the measured less the state, the
+    step and the previous step's metrics printed beside the workspace
+    bound.  (e) The dry run of (r)'s granite ZeRO-3
+    cell on a fake (data 2, model 1) world, printed beside (r)'s measured
+    peaks (no gate).
+23. Each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it, ragged shapes with 1e30 poisoned into every
    masked slot (``screen_norms``: 1e30 and NaN in two extra columns of C
    that the masked slots point at, ``cinf`` exact; ``sgl_prox``: into an
@@ -294,7 +321,7 @@ phases 3-21 are taken with the other processes running.
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
    ``screen_norms`` on the legacy screen's (1, p) row.
-23. One JSON line ``{"kernels": [...]}``, then the last line
+24. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -2319,7 +2346,7 @@ def peak_run(torch, label, fn):
 def sharded_kernel_checks(torch, X1, spec1, sn1, X2, spec2, sn2, snf, dsf,
                           floor):
     """Each kernel on the card at the sharded route's own inputs, against
-    its plain version at phase 22's tolerances: ``xtv`` on Synthetic 1's
+    its plain version at phase 23's tolerances: ``xtv`` on Synthetic 1's
     first block and on Table 2's widest; ``screen_norms`` at the recorded
     first screen shapes on a Synthetic-1 local spec and on the Table-2
     block with the most pad columns (past the last group of the block's
@@ -2981,6 +3008,7 @@ def lm_example_phase(torch, dev="cuda"):
             f"{json.dumps(heads)}")
     require_curve(torch, run["curve"], run["surviving"], run["signal"],
                   counts, calls, "lm-curve", dev)
+    run["peak"] = peak
     return run, counts, calls
 
 
@@ -4072,6 +4100,7 @@ def lm_zero_phase(torch, losses_a, moe_metrics, ck_d, dev="cuda"):
         shutil.rmtree(ck_d, ignore_errors=True)
     with timed_phase("lm-compression"):
         lm_compression_phase(torch, dev)
+    return [r["r"]["peak"] for r in ranks]
 
 
 def lm_zero_checks(ranks, losses_a, moe_metrics):
@@ -4229,9 +4258,11 @@ def lm_compression_phase(torch, dev="cuda"):
 def lm_phase(torch, T):
     """Phase 21.  Returns (the launch counts of each pruning curve, by
     path; a function returning each kernel's checks at the curves' shapes,
-    by curve, called when the card is otherwise idle)."""
+    by curve, called when the card is otherwise idle; the peaks of (a)'s
+    run and of (r)'s ranks, for phase 22)."""
     with timed_phase("lm-example"):
         run, counts, calls = lm_example_phase(torch)
+    example_peak = run["peak"]
     losses = run["losses"]
     res = run["curve"]
     del run
@@ -4245,7 +4276,7 @@ def lm_phase(torch, T):
         signal, moe_metrics = lm_moe_train_phase(torch)
     with timed_phase("lm-moe-curve"):
         counts_moe, calls_moe, res_moe = lm_moe_curve_phase(torch, signal)
-    lm_zero_phase(torch, losses, moe_metrics, ck_d)
+    zero_peaks = lm_zero_phase(torch, losses, moe_metrics, ck_d)
     with timed_phase("lm-minicpm3"):
         lm_mla_serve_phase(torch)
     with timed_phase("lm-deepseek-v2"):
@@ -4274,7 +4305,8 @@ def lm_phase(torch, T):
         return out
     return {"lm-pruning-curve": counts,
             "lm-moe-pruning-curve": counts_moe,
-            "lm-vlm-pruning-curve": counts_vlm}, checks
+            "lm-vlm-pruning-curve": counts_vlm}, checks, dict(
+                example=example_peak, zero=zero_peaks)
 
 
 def lm_encdec_vision_phase(torch, dev="cuda"):
@@ -4293,7 +4325,267 @@ def lm_encdec_vision_phase(torch, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 22: each kernel against its plain version, and its time
+# phase 22: the port's audits on the card, the predicted memory envelope
+# against the allocator, the capacity planner's answer run, the dry run
+# against phase 21's measured peaks
+# ---------------------------------------------------------------------------
+
+CAPACITY_BUDGET = int(4e9)    # (c)'s budget, bytes
+CAPACITY_SURVIVORS = 16384    # the planner's screened solve bucket
+# (c)'s plan: the default grid (down to 0.01 of lambda_max), whose last
+# rows keep more than the screened bucket on random data
+CAPACITY_PLAN = dict(alpha=1.0, n_lambdas=8, tol=1e-6, safety=1e-6,
+                     max_iter=6000, check_every=50)
+
+
+def audit_layers(torch):
+    """(a) ``run_layers`` on every layer on the card, against the committed
+    baseline and budgets: no new finding."""
+    from repro_torch import analysis
+    root = SRC / "repro_torch" / "analysis"
+    t0 = time.perf_counter()
+    found = analysis.run_layers(analysis.LAYERS, device="cuda",
+                                budgets=str(root / "budgets.json"))
+    wall = time.perf_counter() - t0
+    new, matched, stale = analysis.diff_against_baseline(
+        found, analysis.load_baseline(str(root / "baseline.json")))
+    say(f"[audits-a] layers {','.join(analysis.LAYERS)} on the card in "
+        f"{wall:.3f} s: {len(found)} findings, {len(matched)} baselined, "
+        f"{len(new)} new, {len(stale)} stale baseline entries")
+    for f in new:
+        say(f"[audits-a] NEW {f.rule} @ {f.location}: {f.detail}")
+    require(new == [], f"audits-a: {len(new)} new findings")
+
+
+def audit_envelope(torch, T, N=250, G=1000, n=10):
+    """(b) phase 3's float32 Synthetic-1 path and phase 6's 5-fold SGL CV on
+    one session in this process: the allocator's peak above what was
+    allocated before, against the resource audit's envelope of the keys
+    and graphs the calls paid."""
+    from repro_torch.analysis import compile_audit as cka
+    from repro_torch.analysis import resource_audit as ra
+    from repro_torch.data_synth import synthetic_sgl
+    X, y, _ = synthetic_sgl(1, N=N, G=G, n=n, gamma1=0.1, gamma2=0.1, seed=1)
+    path_plan = T.Plan(alpha=1.0, n_lambdas=100, tol=1e-6, safety=1e-6,
+                       max_iter=6000, check_every=50)
+    cv_plan = T.Plan(**CV_PLAN)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sess = T.SGLSession(T.Problem.sgl(X, y, [n] * G))       # cuda, float32
+    res = sess.path(path_plan)
+    cv = sess.cv(cv_plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    note_wall(wall)
+    peak = torch.cuda.max_memory_allocated() - base
+    shape = cka.ProblemShape.of(sess.problem)
+    keys = cka.predict_keys(shape, path_plan, ("path",)) | \
+        cka.predict_keys(shape, cv_plan, ("cv",))
+    graphs = cka.predict_graph_keys(shape, path_plan, ("path",)) | \
+        cka.predict_graph_keys(shape, cv_plan, ("cv",))
+    paid, captured = set(sess.compile_keys), set(sess.fista_graphs)
+    found = cka.verify_paid_keys(paid, keys, "audits-b") + \
+        cka.verify_paid_graphs(captured, graphs, "audits-b")
+    require(found == [], f"audits-b: {[str(f) for f in found]}")
+    t1 = time.perf_counter()
+    env = ra.session_envelope(shape, paid, captured, device="cuda",
+                              grid_len=100, n_folds=5)
+    no_ws = env["total"] - env["workspace"]
+    say(f"[audits-b] Synthetic-1 path (100 lambdas, {int(res.iters.sum())} "
+        f"FISTA iterations) + 5-fold CV on one session in {wall:.3f} s: "
+        f"{len(paid)} keys, {len(captured)} graphs paid; allocator peak "
+        f"{peak} bytes above the {base} before; envelope {env['total']} "
+        f"(residents {env['residents']}, {env['n_graphs']} graphs "
+        f"{env['graphs']}, largest transient {env['transient']}, cuBLAS "
+        f"workspaces {env['workspace']}; priced in "
+        f"{time.perf_counter() - t1:.3f} s): measured / predicted "
+        f"{peak / env['total']:.4f}, without the workspaces "
+        f"{peak / no_ws:.4f}")
+    require(cv.best_index >= 0, "audits-b: the CV selected nothing")
+    require(peak <= env["total"], "audits-b: the allocator's peak is above "
+            "the audit's envelope")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(peak=peak, envelope=env)
+
+
+def capacity_run(torch, T, out):
+    """(c), in a process of its own (``python3 chip_smoke.py --capacity
+    OUT``): the planner's largest p for the SGL path (N 250, groups of 10,
+    8 lambdas) at ``CAPACITY_BUDGET`` bytes and at the card's memory; then
+    that path at 0.95 of the first answer, with the process's share of
+    the card set to the budget; then the audit's envelope of the keys and
+    graphs the run paid, and the planner's screened card at that p."""
+    from repro_torch.analysis import compile_audit as cka
+    from repro_torch.analysis import resource_audit as ra
+    from repro_torch.launch import cost_analysis as ca
+    plan = T.Plan(**CAPACITY_PLAN)
+    kw = dict(plan=plan, N=250, group_size=10, survivors=CAPACITY_SURVIVORS,
+              device="cuda")
+    t0 = time.perf_counter()
+    p_cap = ra.capacity_max_p("sgl", "float32", "path",
+                              hbm_bytes=CAPACITY_BUDGET, **kw)
+    t_plan = time.perf_counter() - t0
+    hbm = ca.device_hbm_bytes()
+    p_card = ra.capacity_max_p("sgl", "float32", "path", hbm_bytes=hbm, **kw)
+    p = 10 * int(0.95 * p_cap / 10)
+    G = p // 10
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(CAPACITY_BUDGET / total)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.randn((250, p), generator=gen, device="cuda")
+    beta = torch.zeros(p, device="cuda")
+    beta[:50] = torch.randn(50, generator=gen, device="cuda")
+    y = X @ beta + 0.1 * torch.randn(250, generator=gen, device="cuda")
+    del beta
+    t1 = time.perf_counter()
+    sess = T.SGLSession(T.Problem.sgl(X, y, [10] * G))
+    del X, y
+    res = sess.path(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    buckets = [b[0] for b in res.stats.buckets]
+    shape = cka.ProblemShape.of(sess.problem)
+    paid, captured = set(sess.compile_keys), set(sess.fista_graphs)
+    unpredicted = [str(f) for f in cka.verify_paid_keys(
+        paid, cka.predict_keys(shape, plan, ("path",)), "audits-c")
+        + cka.verify_paid_graphs(
+            captured, cka.predict_graph_keys(shape, plan, ("path",)),
+            "audits-c")]
+    env = ra.session_envelope(shape, paid, captured, device="cuda",
+                              grid_len=plan.n_lambdas)
+    screened = ra._peak_at(p, "sgl", "float32", "path", **kw)
+    Path(out).write_text(json.dumps(dict(
+        p_cap=p_cap, p_card=p_card, hbm=hbm, p=p, peak=peak, base=base,
+        wall=wall, t_plan=t_plan, rows=int((res.iters > 0).sum()),
+        iters=int(res.iters.sum()), max_bucket=max(buckets, default=0),
+        kept=[int(k) for k in res.kept_features], n_keys=len(paid),
+        n_graphs=len(captured), unpredicted=unpredicted, envelope=env,
+        screened_peak=screened, total=total)))
+    return 0
+
+
+def audit_capacity(torch):
+    """(c) from this process: the child's run, its gates and its numbers.
+    The run's peak is held to the budget and to the audit's envelope of
+    the keys and graphs it paid; the planner's screened card at p holds
+    only while every bucket stays within ``CAPACITY_SURVIVORS`` features,
+    and is printed beside (no gate)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out = f"{d}/capacity.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--capacity",
+             out], cwd=ROOT, stdin=subprocess.DEVNULL, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            say(proc.stdout[-4000:] + proc.stderr[-4000:])
+        require(proc.returncode == 0, f"audits-c: the capacity run exited "
+                f"{proc.returncode}")
+        r = json.loads(Path(out).read_text())
+    env = r["envelope"]
+    regime = ("within" if r["max_bucket"] <= CAPACITY_SURVIVORS
+              else "past")
+    say(f"[audits-c] capacity_max_p (SGL path, N 250, groups of 10, 8 "
+        f"lambdas, float32 on the card's route, screened bucket "
+        f"{CAPACITY_SURVIVORS}): {r['p_cap']} features at "
+        f"{CAPACITY_BUDGET} bytes (planned in {r['t_plan']:.3f} s), "
+        f"{r['p_card']} at the card's {r['hbm']} bytes; the path at p = "
+        f"{r['p']} (0.95 of the first) under a memory fraction of "
+        f"{CAPACITY_BUDGET} bytes: {r['rows']} rows, {r['iters']} FISTA "
+        f"iterations, kept features {r['kept']}, largest bucket "
+        f"{r['max_bucket']} ({regime} the screened regime), "
+        f"{r['wall']:.3f} s; allocator peak {r['peak']} bytes "
+        f"({r['peak'] / CAPACITY_BUDGET:.4f} of the budget); envelope of "
+        f"the {r['n_keys']} keys and {r['n_graphs']} graphs paid "
+        f"{env['total']} (residents {env['residents']}, graphs "
+        f"{env['graphs']}, largest transient {env['transient']}, cuBLAS "
+        f"workspaces {env['workspace']}): measured / predicted "
+        f"{r['peak'] / env['total']:.4f}; the planner's screened card at p "
+        f"{r['screened_peak']}: measured / screened "
+        f"{r['peak'] / r['screened_peak']:.4f}; the child's wall "
+        f"{wall:.3f} s")
+    require(r["unpredicted"] == [], f"audits-c: {r['unpredicted']}")
+    require(r["peak"] <= CAPACITY_BUDGET, "audits-c: the capacity run's "
+            "peak is above its budget")
+    require(r["peak"] <= env["total"], "audits-c: the capacity run's peak "
+            "is above the audit's envelope of the keys it paid")
+    return r
+
+
+def audit_dryrun(torch, peaks):
+    """(d) the dry run of the example's train step (``gemma2-100m``, B 8,
+    S 256, no mesh, float32, remat none, as ``launch.train`` runs it)
+    against phase 21 (a)'s measured peak, which the fresh ``lm`` worker
+    reads with every workspace taken inside it; (e) the dry run of (r)'s
+    granite ZeRO-3 cell on a fake (data 2, model 1) world beside (r)'s
+    measured peaks (no gate)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import sgl_pruned_lm as ex
+    from repro_torch.launch import dryrun
+    kw = dict(shape_name="train_4k", seq=256, remat="none",
+              compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    d = dryrun.run_cell(arch="gemma2-100m", cfg=ex.example_config(),
+                        mesh_shape={}, batch=8, **kw)
+    require(d["status"] == "ok", f"audits-d: {d.get('error')}")
+    m = d["memory"]
+    pred, measured = m["peak_bytes"], peaks["example"]
+    taken = measured - m["resident_bytes"] - m["step_peak_bytes"] - \
+        m["carried_bytes"]
+    say(f"[audits-d] dry run of gemma2-100m's train step (B 8, S 256, no "
+        f"mesh, float32) on fake {d['trace_device']} tensors in "
+        f"{time.perf_counter() - t0:.3f} s: peak {pred} bytes (state and "
+        f"batch {m['resident_bytes']} + step {m['step_peak_bytes']} + the "
+        f"previous step's metrics {m['carried_bytes']} + cuBLAS workspaces "
+        f"at most {m['workspace_bytes']}), FLOPs "
+        f"{d['roofline']['flops']:.4e}, useful {d['useful_flops_ratio']:.4f}"
+        f"; phase 21 (a) measured {measured} bytes: predicted / measured "
+        f"{pred / max(measured, 1):.4f}; the measured less state, step and "
+        f"metrics {taken} bytes = {taken / 2**20:.4f} MiB of workspaces "
+        f"against at most {m['workspace_bytes'] / 2**20:.4f}")
+    require(pred >= measured, "audits-d: the dry run's peak is below the "
+            "measured step's")
+    t0 = time.perf_counter()
+    e = dryrun.run_cell(arch="granite-moe-1b-a400m",
+                        cfg=get_config("granite-moe-1b-a400m"),
+                        mesh_shape={"data": 2, "model": 1}, batch=4, **kw)
+    require(e["status"] == "ok", f"audits-e: {e.get('error')}")
+    say(f"[audits-e] dry run of (r)'s cell (granite-moe-1b-a400m, ZeRO-3 on "
+        f"a fake (data 2, model 1) world, B 4, S 256, float32) in "
+        f"{time.perf_counter() - t0:.3f} s: a rank's peak "
+        f"{e['memory']['peak_gb'] * 1e9 / 2**30:.3f} GiB (state "
+        f"{e['memory']['resident_gb'] * 1e9 / 2**30:.3f}), collectives "
+        f"{json.dumps(e['collectives']['counts'])} (equal to the port's "
+        f"tallies: {e['collectives']['match_tallies']}); (r) measured "
+        f"{[round(v / 2**30, 3) for v in peaks['zero']]} GiB a rank")
+    return dict(d=d, e=e)
+
+
+def audits_phase(torch, T, peaks):
+    """Phase 22 (parts (a)-(e)), in the ``lm`` worker after phase 21."""
+    with timed_phase("audits-a"):
+        audit_layers(torch)
+    with timed_phase("audits-b"):
+        audit_envelope(torch, T)
+    with timed_phase("audits-c"):
+        audit_capacity(torch)
+    with timed_phase("audits-de"):
+        audit_dryrun(torch, peaks)
+
+
+# ---------------------------------------------------------------------------
+# phase 23: each kernel against its plain version, and its time
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=10, inner=20):
@@ -4692,7 +4984,7 @@ WORKER_TIMEOUT = 900.0      # seconds a worker may take, start-up included
 
 def cv_group(torch, T):
     """Phases 6, 7 and 12.  The CVs' launch counts, by path, and the first
-    stacked screens' shapes, which phase 22 checks the fold kernels at."""
+    stacked screens' shapes, which phase 23 checks the fold kernels at."""
     paths = {}
     with timed_phase("sgl-cv"):
         paths["sgl-cv"], snf_shape = sgl_cv_phase(torch, T)
@@ -4735,10 +5027,12 @@ def serving_group(torch, T):
 
 
 def lm_group(torch, T):
-    """Phase 21.  The curves' launch counts, by path, and, as ``timed``,
-    the kernels' checks at the curves' shapes."""
+    """Phases 21 and 22.  The curves' launch counts, by path, and, as
+    ``timed``, the kernels' checks at the curves' shapes."""
     with timed_phase("lm"):
-        paths, checks = lm_phase(torch, T)
+        paths, checks, peaks = lm_phase(torch, T)
+    with timed_phase("audits"):
+        audits_phase(torch, T, peaks)
     return dict(paths=paths, timed=checks)
 
 
@@ -4867,6 +5161,8 @@ def main() -> int:
     import repro_torch.core as T
     if sys.argv[1:2] == ["--worker"]:
         return worker_main(torch, T, *sys.argv[2:])
+    if sys.argv[1:2] == ["--capacity"]:
+        return capacity_run(torch, T, sys.argv[2])
 
     card = environment(torch)
     build_kernels()

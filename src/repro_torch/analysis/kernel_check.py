@@ -15,12 +15,17 @@
   kernels on the card (``mask_coverage("cuda")``).
 * ``kernels/f64-gate``: the grid screens must refuse ``use_kernels=True``
   on float64 with ``TypeError``, not round it through float32.
+* ``kernels/no-kernel`` (warning): a wrapper that mask coverage called
+  reached no kernel: on the card it launched nothing
+  (``ops.launch_counts``), on the CPU it did not dispatch its
+  ``repro_torch`` operator under a counter.  Registry drift.
 
-Left out: the reference's structural rules (``pallas/block-divisibility``,
-``pallas/lane-misaligned``, ``pallas/f64-aval``) read the ``BlockSpec``s
-of a traced ``pallas_call``.  A CUDA kernel has no ``BlockSpec``: it
-bounds-checks its own threads, which mask coverage exercises, and its
-wrapper refuses a float64 operand.
+The reference's ``pallas/lane-misaligned`` becomes mask coverage's ragged
+shapes (a multiple of no tile: each kernel masks its own tail) and
+``pallas/f64-aval`` the trace lint's ``trace/kernel-on-f64``.
+``pallas/block-divisibility`` has no counterpart: it reads the
+``BlockSpec``s of a traced ``pallas_call``, and a CUDA kernel has none (it
+computes its offsets from its block index and bounds-checks its threads).
 """
 from __future__ import annotations
 
@@ -181,5 +186,26 @@ def f64_gate() -> list:
 
 
 def run(device=None) -> list:
-    """Both checks; ``device=None`` is the card."""
-    return mask_coverage(device) + f64_gate()
+    """The three checks (``device=None`` is the card).  On the card the
+    wrappers run as the engines call them and each must have launched its
+    kernel; on the CPU they run under a counter and each must have
+    dispatched its operator."""
+    from ..core.groups import resolve_device
+    from ..kernels import ops
+    from ..launch.cost_analysis import CostCounter
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        before = ops.launch_counts()
+        found = mask_coverage(dev)
+        reached = {n: k - before[n] for n, k in ops.launch_counts().items()}
+        how = "launched nothing"
+    else:
+        with CostCounter(memory=False) as c:
+            found = mask_coverage(dev)
+        reached = c.kernel_calls
+        how = "did not dispatch its operator"
+    found += [Finding(
+        "kernels/no-kernel", "warning", f"kernels.{name}",
+        f"the {name} wrapper {how} under mask coverage on {dev} (registry "
+        f"drift)") for name in ops.KERNELS if not reached.get(name)]
+    return found + f64_gate()

@@ -313,27 +313,45 @@ def sweep_sgl_core(X, X_sub, y, spec: GroupSpec, sub_spec: GroupSpec, alpha,
     solve, kw = _fista_route(X_sub, sub_spec, use_kernels, graphs)
     kw.update(max_iter=max_iter, check_every=check_every, tol=tol, loss=loss)
     if certify is None:
-        def certify(rho):
-            c = _xtv(X, rho, use_kernels).to(beta0.dtype)    # full-X GEMV
-            if mu is not None:
-                c = c - (mu * torch.sum(rho)).to(beta0.dtype)
-            return c, dual_scaling_sgl(spec, c, alpha)
+        certify = _sgl_certifier(X, spec, alpha, mu, use_kernels,
+                                 beta0.dtype)
 
     def solve_row(lam, b):
         res = solve(X_sub, y, sub_spec, lam, alpha, lipschitz, b, **kw)
-        fit = X_sub @ res.beta
-        resid = loss.residual(y, fit)
-        rho = resid / lam
-        c, s = certify(rho)
-        theta = (s * rho).to(b.dtype)
-        pen = sgl_penalty(sub_spec, res.beta, alpha)
-        pval = loss.primal_value(y, fit, resid) + lam * pen
-        dval = loss.dual_value(y, theta, lam)
-        return (res.beta, theta, (s * c).to(b.dtype),
-                float(pval - dval), res.iters)            # one host read
+        theta, ctheta, gap = certify_sgl_row(X_sub, y, sub_spec, alpha, lam,
+                                             res.beta, certify, loss)
+        return res.beta, theta, ctheta, float(gap), res.iters  # host read
 
     return _certified_rows(lams, valid, beta0, tol, gap_scale, max_iter,
                            solve_row)
+
+
+def _sgl_certifier(X, spec: GroupSpec, alpha, mu, use_kernels: bool, dtype):
+    """The default ``certify(rho) -> (c, s)`` of ``sweep_sgl_core``: the
+    full-X GEMV (centered by ``mu``) and ``dual_scaling_sgl`` on
+    ``spec``."""
+    def certify(rho):
+        c = _xtv(X, rho, use_kernels).to(dtype)             # full-X GEMV
+        if mu is not None:
+            c = c - (mu * torch.sum(rho)).to(dtype)
+        return c, dual_scaling_sgl(spec, c, alpha)
+    return certify
+
+
+def certify_sgl_row(X_sub, y, sub_spec: GroupSpec, alpha, lam, beta,
+                    certify, loss=SQUARED):
+    """One solved row's certificate against the full problem, on the
+    device: (theta, s * c, duality gap).  The sweep reads the gap on the
+    host; the resource audit prices the row from this."""
+    fit = X_sub @ beta
+    resid = loss.residual(y, fit)
+    rho = resid / lam
+    c, s = certify(rho)
+    theta = (s * rho).to(beta.dtype)
+    pen = sgl_penalty(sub_spec, beta, alpha)
+    pval = loss.primal_value(y, fit, resid) + lam * pen
+    dval = loss.dual_value(y, theta, lam)
+    return theta, (s * c).to(beta.dtype), pval - dval
 
 
 def sweep_nn_core(X, X_sub, y, lipschitz, lams, valid, beta0, tol,
@@ -344,25 +362,37 @@ def sweep_nn_core(X, X_sub, y, lipschitz, lams, valid, beta0, tol,
     GEMV on ``X`` and ``dual_scaling_nn``."""
     tol = SQUARED.effective_tol(tol, y.dtype)
     if certify is None:
-        def certify(rho):
-            c = _xtv(X, rho, use_kernels).to(beta0.dtype)    # full-X GEMV
-            return c, dual_scaling_nn(c)
+        certify = _nn_certifier(X, use_kernels, beta0.dtype)
 
     def solve_row(lam, b):
         res = fista_nn_lasso(X_sub, y, lam, lipschitz, b, max_iter=max_iter,
                              check_every=check_every, tol=tol)
-        resid = y - X_sub @ res.beta
-        rho = resid / lam
-        c, s = certify(rho)
-        theta = (s * rho).to(b.dtype)
-        pval = 0.5 * torch.dot(resid, resid) + lam * torch.sum(res.beta)
-        d = y - lam * theta
-        dval = 0.5 * torch.dot(y, y) - 0.5 * torch.dot(d, d)
-        return (res.beta, theta, (s * c).to(b.dtype),
-                float(pval - dval), res.iters)            # one host read
+        theta, ctheta, gap = certify_nn_row(X_sub, y, lam, res.beta, certify)
+        return res.beta, theta, ctheta, float(gap), res.iters  # host read
 
     return _certified_rows(lams, valid, beta0, tol, gap_scale, max_iter,
                            solve_row)
+
+
+def _nn_certifier(X, use_kernels: bool, dtype):
+    """The default ``certify(rho) -> (c, s)`` of ``sweep_nn_core``: the
+    full-X GEMV and ``dual_scaling_nn``."""
+    def certify(rho):
+        c = _xtv(X, rho, use_kernels).to(dtype)             # full-X GEMV
+        return c, dual_scaling_nn(c)
+    return certify
+
+
+def certify_nn_row(X_sub, y, lam, beta, certify):
+    """``certify_sgl_row`` for the nonnegative Lasso."""
+    resid = y - X_sub @ beta
+    rho = resid / lam
+    c, s = certify(rho)
+    theta = (s * rho).to(beta.dtype)
+    pval = 0.5 * torch.dot(resid, resid) + lam * torch.sum(beta)
+    d = y - lam * theta
+    dval = 0.5 * torch.dot(y, y) - 0.5 * torch.dot(d, d)
+    return theta, (s * c).to(beta.dtype), pval - dval
 
 
 # The feature-sharded sweeps: the solve bucket stays on one device, and each

@@ -299,6 +299,20 @@ def _nn_gap(X, y, lam, beta):
     return p, d, theta
 
 
+def _nn_block(X, y, t_step, t_lam, beta, z, tk, n: int):
+    """``n`` FISTA iterations of problem (80) from the carries (beta, z,
+    tk), with ``_sgl_block``'s restart rule; returns the new carries."""
+    for _ in range(n):
+        g = X.T @ (X @ z - y)
+        beta_new = nn_lasso_prox(z - t_step * g, t_lam)
+        restart = torch.dot(z - beta_new, beta_new - beta) > 0
+        tk = torch.where(restart, 1.0, tk)
+        tk1 = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
+        z = beta_new + ((tk - 1.0) / tk1) * (beta_new - beta)
+        beta, tk = beta_new, tk1
+    return beta, z, tk
+
+
 def fista_nn_lasso(X, y, lam, lipschitz, beta0, *, max_iter: int = 20000,
                    check_every: int = 10, tol: float = 1e-9) -> SolveResult:
     """FISTA with adaptive restart for problem (80), prox (v - t*lam)_+.
@@ -320,14 +334,8 @@ def fista_nn_lasso(X, y, lam, lipschitz, beta0, *, max_iter: int = 20000,
     gap = torch.full((), float("inf"), dtype=dtype, device=dev)
     theta = None
     while it < max_iter and bool(gap > threshold):
-        for _ in range(check_every):
-            g = X.T @ (X @ z - y)
-            beta_new = nn_lasso_prox(z - t_step * g, t_lam)
-            restart = torch.dot(z - beta_new, beta_new - beta) > 0
-            tk = torch.where(restart, 1.0, tk)
-            tk1 = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
-            z = beta_new + ((tk - 1.0) / tk1) * (beta_new - beta)
-            beta, tk = beta_new, tk1
+        beta, z, tk = _nn_block(X, y, t_step, t_lam, beta, z, tk,
+                                check_every)
         pval, dval, theta = _nn_gap(X, y, lam, beta)
         it += check_every
         gap = (pval - dval).to(dtype)

@@ -7,10 +7,20 @@ does not take.  There is no fallback between the two.
 Every kernel is float32-only: the path engine engages them only for
 float32 problems (``path_engine._kernels_active``), and the screening entry
 point raises ``TypeError`` on float64 with kernels requested.
-"""
-from __future__ import annotations
 
+Each kernel is also an operator of the ``repro_torch`` namespace
+(``torch.library.custom_op``) whose fake implementation returns empty
+outputs of the kernel's shapes and dtypes.  A wrapper calls that operator
+only where the dispatcher is watched: on a fake tensor, or under a
+``TorchDispatchMode`` (``FakeTensorMode``, ``launch.cost_analysis``'s
+counter), which then sees the kernel as one operator with its inputs and
+outputs and never hands a fake tensor to the compiled library.  Elsewhere
+the wrapper calls its kernel directly, without the operator's Python
+dispatch.
+"""
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from . import dpc_screen_folds as _dpc_screen_folds
 from . import ref
@@ -57,11 +67,83 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def _traced(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` goes through the registered operator."""
+    return isinstance(t, FakeTensor) or \
+        _get_current_dispatch_mode() is not None
+
+
+# -- each kernel called directly, and as an operator -----------------------
+
+def _op(name: str, direct, fake):
+    """``direct`` registered as the operator ``repro_torch::<name>``, with
+    ``fake`` as its fake implementation."""
+    op = torch.library.custom_op(f"repro_torch::{name}", direct,
+                                 mutates_args=())
+    op.register_fake(fake)
+    return op
+
+
+def _run_xtv(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return ref.xtv_ref(X, v) if _on_cpu(X) else _xtv.xtv_cuda(X, v)
+
+
+def _run_screen_norms(C: torch.Tensor, pad_index: torch.Tensor,
+                  pad_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cpu(C):
+        return ref.screen_norms_gather_ref(C, pad_index, pad_mask)
+    return _screen_norms.screen_norms_cuda(C, pad_index, pad_mask)
+
+
+def _run_screen_norms_folds(c_pad: torch.Tensor, mask: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cpu(c_pad):
+        return ref.screen_norms_folds_ref(c_pad, mask)
+    return _screen_norms_folds.screen_norms_folds_cuda(c_pad, mask)
+
+
+def _run_dpc_screen_folds(C: torch.Tensor, radii: torch.Tensor,
+                      col_norms_f: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(C):
+        return ref.dpc_screen_folds_ref(C, radii, col_norms_f)
+    return _dpc_screen_folds.dpc_screen_folds_cuda(C, radii, col_norms_f)
+
+
+def _run_sgl_prox(v: torch.Tensor, pad_index: torch.Tensor,
+              pad_mask: torch.Tensor, uncovered: torch.Tensor,
+              t_l1: torch.Tensor, t_group: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(v):
+        return ref.sgl_prox_flat_ref(v, pad_index, pad_mask, t_l1, t_group)
+    return _sgl_prox.sgl_prox_cuda(v, pad_index, pad_mask, uncovered, t_l1,
+                                   t_group)
+
+
+def _two_f32(t, shape):
+    return (t.new_empty(shape, dtype=torch.float32),
+            t.new_empty(shape, dtype=torch.float32))
+
+
+OPS = {
+    "xtv": _op("xtv", _run_xtv, lambda X, v: X.new_empty(
+        X.shape[1], dtype=torch.float32)),
+    "screen_norms": _op("screen_norms", _run_screen_norms,
+                        lambda C, idx, mask: _two_f32(
+                            C, (C.shape[0], idx.shape[0]))),
+    "screen_norms_folds": _op("screen_norms_folds", _run_screen_norms_folds,
+                              lambda c, mask: _two_f32(c, c.shape[:2])),
+    "dpc_screen_folds": _op("dpc_screen_folds", _run_dpc_screen_folds,
+                            lambda C, r, cn: C.new_empty(
+                                C.shape, dtype=torch.bool)),
+    "sgl_prox": _op("sgl_prox", _run_sgl_prox,
+                    lambda v, *rest: v.new_empty(v.shape)),
+}
+
+
+# -- the wrappers ------------------------------------------------------------
+
 def xtv(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """out = X^T v, float32.  The certification GEMV."""
-    if _on_cpu(X):
-        return ref.xtv_ref(X, v)
-    return _xtv.xtv_cuda(X, v)
+    return (OPS["xtv"] if _traced(X) else _run_xtv)(X, v)
 
 
 def screen_norms_gather(C: torch.Tensor, pad_index: torch.Tensor,
@@ -70,9 +152,8 @@ def screen_norms_gather(C: torch.Tensor, pad_index: torch.Tensor,
     (G, n_max) -> (||S_1(c)||^2 (R, G), ||c||_inf (R, G)) float32, masked
     slots as 0.  The grid screen's group statistics: the lambda rows of the
     screen GEMM's output, never copied into the padded layout."""
-    if _on_cpu(C):
-        return ref.screen_norms_gather_ref(C, pad_index, pad_mask)
-    return _screen_norms.screen_norms_cuda(C, pad_index, pad_mask)
+    return (OPS["screen_norms"] if _traced(C) else _run_screen_norms)(
+        C, pad_index, pad_mask)
 
 
 def screen_norms_folds(c_pad_folds: torch.Tensor, mask: torch.Tensor):
@@ -81,10 +162,8 @@ def screen_norms_folds(c_pad_folds: torch.Tensor, mask: torch.Tensor):
     lambda row of the stacked CV screen in one pass."""
     K, L, G, n_max = c_pad_folds.shape
     flat = c_pad_folds.reshape(K * L, G, n_max)
-    if _on_cpu(flat):
-        snorm2, cinf = ref.screen_norms_folds_ref(flat, mask)
-    else:
-        snorm2, cinf = _screen_norms_folds.screen_norms_folds_cuda(flat, mask)
+    snorm2, cinf = (OPS["screen_norms_folds"] if _traced(flat)
+                    else _run_screen_norms_folds)(flat, mask)
     return snorm2.reshape(K, L, G), cinf.reshape(K, L, G)
 
 
@@ -92,9 +171,8 @@ def dpc_screen_folds(C: torch.Tensor, radii: torch.Tensor,
                      col_norms_f: torch.Tensor) -> torch.Tensor:
     """Fused fold-stacked DPC rule: C (K, L, p), radii (K, L), col_norms_f
     (K, p) -> feat_keep (K, L, p) bool, float32 compute."""
-    if _on_cpu(C):
-        return ref.dpc_screen_folds_ref(C, radii, col_norms_f)
-    return _dpc_screen_folds.dpc_screen_folds_cuda(C, radii, col_norms_f)
+    return (OPS["dpc_screen_folds"] if _traced(C)
+            else _run_dpc_screen_folds)(C, radii, col_norms_f)
 
 
 def sgl_prox(v: torch.Tensor, pad_index: torch.Tensor,
@@ -105,7 +183,5 @@ def sgl_prox(v: torch.Tensor, pad_index: torch.Tensor,
     columns that no valid slot covers, which come out 0.  ``t_l1`` is a
     1-element tensor on the operands' device.  float32 on the card; the
     plain version keeps v's dtype at its boundary."""
-    if _on_cpu(v):
-        return ref.sgl_prox_flat_ref(v, pad_index, pad_mask, t_l1, t_group)
-    return _sgl_prox.sgl_prox_cuda(v, pad_index, pad_mask, uncovered, t_l1,
-                                   t_group)
+    return (OPS["sgl_prox"] if _traced(v) else _run_sgl_prox)(
+        v, pad_index, pad_mask, uncovered, t_l1, t_group)

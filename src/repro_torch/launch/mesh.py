@@ -26,8 +26,13 @@ for its host gathers when that backend is not ``gloo``.
   carries one ``gloo`` group for each combination of its axes, which
   ``distributed.sharding`` gathers and reduces over.
 
-Not ported: ``abstract_fold_mesh`` and ``abstract_feature_mesh`` feed only
-the XLA resource audit, which has no counterpart here (ROADMAP item 14).
+* Fake worlds (``fake_world``, ``abstract_fold_mesh``,
+  ``abstract_feature_mesh``): rank 0's view of a ``torch.distributed``
+  process group of n ranks on the ``fake`` backend, which runs every
+  collective without moving a byte.  They are for tracing only (the
+  resource audit's collective plans, the dry run's 256- and 512-rank
+  meshes, on fake tensors); a fake world initializes the default group,
+  so it runs in a process of its own.
 """
 from __future__ import annotations
 
@@ -63,12 +68,60 @@ def _world() -> tuple:
 
 def _gloo_group(ranks):
     """A ``gloo`` group of ``ranks``: the default group itself when it is
-    that group, else a new one (every rank must make this call)."""
+    that group, else a new one (every rank must make this call).  In a
+    fake world every group is fake."""
     import torch.distributed as dist
-    if (len(ranks) == dist.get_world_size()
-            and dist.get_backend() == "gloo"):
+    backend = dist.get_backend()
+    if len(ranks) == dist.get_world_size() and backend in ("gloo", "fake"):
         return dist.group.WORLD
-    return dist.new_group(list(ranks), backend="gloo")
+    return dist.new_group(list(ranks),
+                          backend=None if backend == "fake" else "gloo")
+
+
+class fake_world:
+    """``with fake_world(n):`` rank 0 of a world of ``n`` ranks on the
+    ``fake`` backend (every collective returns at once, moving nothing),
+    destroyed on exit.  It initializes the default group: run it in a
+    process of its own, never beside a real group."""
+
+    def __init__(self, n: int, rank: int = 0):
+        self.n, self.rank = int(n), int(rank)
+
+    def __enter__(self):
+        import torch.distributed as dist
+        # importing it registers the ``fake`` backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=self.rank,
+                                world_size=self.n)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return False
+
+
+def abstract_fold_mesh(n_shards: int) -> "FoldMesh":
+    """Rank 0's view of a 1-D 'fold' mesh of ``n_shards`` ranks, for tracing
+    only: inside ``fake_world(n_shards)``, ``make_fold_mesh`` over the fake
+    group (``shard_over_folds`` then splits a cohort as it would across
+    real ranks, and its collectives move nothing)."""
+    world, _ = _world()
+    if world != int(n_shards):
+        raise ValueError(f"abstract_fold_mesh({n_shards}) needs a fake "
+                         f"world of {n_shards} ranks, not {world}")
+    return make_fold_mesh(int(n_shards))
+
+
+def abstract_feature_mesh(n_shards: int):
+    """Rank 0's view of the feature group of ``n_shards`` ranks, for tracing
+    only (inside ``fake_world(n_shards)``): the group
+    ``make_feature_mesh`` gives, one column block a rank."""
+    world, _ = _world()
+    if world != int(n_shards):
+        raise ValueError(f"abstract_feature_mesh({n_shards}) needs a fake "
+                         f"world of {n_shards} ranks, not {world}")
+    return make_feature_mesh(int(n_shards))
 
 
 class FoldMesh:
@@ -331,7 +384,7 @@ def make_fold_feature_mesh(n_folds: int, n_shards: int):
         g = _gloo_group([f2 * S + s2 for f2 in range(d)])
         if s2 == s:
             fold_group = g
-    gloo = dist.get_backend() == "gloo"
+    gloo = dist.get_backend() in ("gloo", "fake")
     for f2 in range(d):
         ranks = [f2 * S + s2 for s2 in range(S)]
         g = dist.new_group(ranks)

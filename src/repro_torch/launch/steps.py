@@ -1,11 +1,14 @@
-"""Step builders: train / prefill / decode (PyTorch port of the builders of
+"""Step builders: train / prefill / decode, and the input specs of every
+(architecture x assigned shape) cell (PyTorch port of
 ``repro.launch.steps``).
 
-The reference's ``SHAPES``, ``shape_supported`` and ``input_specs`` serve
-its 512-device dry run, which the port leaves out (ROADMAP, out of scope).
+``input_specs(cfg, shape_name)`` returns (step kind, fake inputs, ``P``
+tree): fake tensors (``torch._subclasses.FakeTensorMode``) in place of the
+reference's ``ShapeDtypeStruct``s, for ``launch.dryrun``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
@@ -13,6 +16,82 @@ from ..distributed import sharding as sh
 from ..models import model as model_lib
 from ..optim import adamw
 from ..pytree import as_dict, leaves, tree_map
+
+
+SHAPES = {
+    # name: (seq_len, global_batch, step kind)
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def shape_supported(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
+    if shape_name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: 500k decode skipped "
+                       "(DESIGN.md)")
+    if shape_name.startswith("decode") and not cfg.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, mesh_shape=None,
+                cache_dtype=torch.bfloat16, *, mode=None, device=None,
+                batch: int = None, seq: int = None) -> dict:
+    """``{kind, args, arg_pspecs, seq, batch}`` of one cell: ``args`` are
+    fake tensors made in ``mode`` (a ``FakeTensorMode``; a new one by
+    default) on ``device`` (the fake trace's, ``cost_analysis.
+    trace_device``), excluding the parameters or state.  train / prefill:
+    ``args = (batch,)``; decode: ``(caches, tokens, pos)``, ``pos`` the
+    last position (an int, as ``forward_decode`` takes it).  Tokens are
+    int64, the port's index dtype.  ``batch`` / ``seq`` override the
+    shape's."""
+    from .cost_analysis import fake_mode, trace_device
+    from ..models.common import P
+    mode = mode or fake_mode()
+    dev = trace_device(device)
+    mesh_shape = mesh_shape or {}
+    S, B, kind = SHAPES[shape_name]
+    S, B = seq or S, batch or B
+    dp = sh.dp_axes(mesh_shape)
+    dp_total = int(np.prod([mesh_shape.get(a, 1) for a in dp])) if dp else 1
+    bdim = dp if (dp and B % dp_total == 0 and B >= dp_total) else None
+
+    with mode:
+        def tok(shape):
+            return torch.empty(shape, dtype=torch.int64, device=dev)
+
+        def act(shape):
+            return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+        if kind in ("train", "prefill"):
+            args, specs = {}, {}
+            if cfg.family == "encdec":
+                args["frames"] = act((B, S, cfg.d_model))
+                specs["frames"] = P(bdim, None, None)
+                n_tok = S
+            elif cfg.frontend == "vision":
+                args["patches"] = act((B, cfg.num_patches, cfg.d_model))
+                specs["patches"] = P(bdim, None, None)
+                n_tok = S - cfg.num_patches
+            else:
+                n_tok = S
+            args["tokens"] = tok((B, n_tok))
+            specs["tokens"] = P(bdim, None)
+            if kind == "train":
+                args["labels"] = tok((B, n_tok))
+                specs["labels"] = P(bdim, None)
+            return {"kind": kind, "args": (args,), "arg_pspecs": (specs,),
+                    "seq": S, "batch": B}
+        caches = tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+            model_lib.cache_shapes(cfg, B, S, cache_dtype))
+        tokens = tok((B, 1))
+    return {"kind": "decode", "args": (caches, tokens, S - 1),
+            "arg_pspecs": (sh.cache_pspecs(cfg, B, S, mesh_shape),
+                           P(bdim, None), P()),
+            "seq": S, "batch": B}
 
 
 def resolve_cli_device(name: str) -> torch.device:

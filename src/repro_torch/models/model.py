@@ -148,6 +148,22 @@ def param_descs(cfg: ArchConfig):
     return tree
 
 
+def abstract_params(cfg, param_dtype=torch.float32, *, mode=None,
+                    device=None):
+    """The ``ParamTree`` as fake tensors (``torch._subclasses.
+    FakeTensorMode``: shapes and dtypes, no memory) made in ``mode`` (a new
+    one by default) on ``device`` (the fake trace's)."""
+    from ..launch.cost_analysis import fake_mode, trace_device
+    from .common import _desc_flatten
+    mode = mode or fake_mode()
+    dev = trace_device(device)
+    descs, td = _desc_flatten(param_descs(cfg))
+    with mode:
+        out = [torch.empty(d.shape, dtype=d.dtype or param_dtype, device=dev)
+               for d in descs]
+    return unflatten(td, out)
+
+
 def init_params(cfg, generator: torch.Generator, param_dtype=torch.float32):
     """A ``ParamTree`` on the device of ``generator``."""
     return tree_init(param_descs(cfg), generator, param_dtype)

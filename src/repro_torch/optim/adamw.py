@@ -39,6 +39,21 @@ def init_state(params, moment_dtype=torch.float32) -> TrainState:
                       zeros(), zeros())
 
 
+def abstract_state(abstract_params, moment_dtype=torch.float32) -> TrainState:
+    """The ``TrainState`` of fake parameters (``models.model.
+    abstract_params``), as fake tensors in their mode: float32 masters (a
+    ``ParamTree``, so they take gradients), moments in ``moment_dtype``, an
+    int32 step."""
+    from ..pytree import flatten, unflatten
+    flat, td = flatten(abstract_params)
+    f32 = unflatten(td, [p.new_empty(p.shape, dtype=torch.float32).detach()
+                         for p in flat])
+    mom = lambda: tree_map(lambda p: p.new_empty(p.shape, dtype=moment_dtype),
+                           as_dict(abstract_params))
+    return TrainState(flat[0].new_empty((), dtype=torch.int32), f32, mom(),
+                      mom())
+
+
 def state_pspecs(param_specs) -> TrainState:
     """The ``TrainState`` of specs: ``step`` replicated, the parameters
     and both moments by ``param_specs``."""
