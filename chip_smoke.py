@@ -6,12 +6,13 @@
 Phases (each fails loudly, with a non-zero exit).  After phase 2 four
 worker processes (``Workers``; ``python3 chip_smoke.py --worker NAME
 OUT``, one group of ``WORKERS`` each) run beside this one on the same
-card: ``cv`` phases 6, 7 and 12, ``selection`` 9, 10, 13 and 15,
+card: ``cv`` phases 6, 7, 12 and 24, ``selection`` 9, 10, 13 and 15,
 ``serving`` 11 and 16-18, ``lm`` 21 and 22, while this process runs 3-5,
 8, 14, 19 and 20 with the audits.  Each worker's output is printed when it
-ends.  Every kernel timing runs alone on the card: the ``lm`` worker's
-curve checks once the other processes are idle, then phase 19's sharded
-checks and phase 23 here after every worker has ended.  Other times
+ends.  Every kernel timing runs alone on the card: the ``cv`` worker's
+checks at the examples' inputs and the ``lm`` worker's curve checks, one
+after the other, once the other processes are idle, then phase 19's
+sharded checks and phase 23 here after every worker has ended.  Other times
 printed by phases 3-22 are taken with the other processes running.
 
 1. Environment: the card's name and power limit (as ``nvidia-smi`` gives
@@ -320,8 +321,28 @@ printed by phases 3-22 are taken with the other processes running.
    (``_grid_group_stats(spec, C, True)``) beside the gather and mask that
    the unfused screen ran, and ``screen_norms`` at the SGL CV's first
    stacked screen shape beside that screen's own step, and
-   ``screen_norms`` on the legacy screen's (1, p) row.
-24. One JSON line ``{"kernels": [...]}``, then the last line
+   ``screen_norms`` on the legacy screen's (1, p) row.  Then the
+   reference's padded entry points (``ops.screen_norms``,
+   ``screen_norms_batched``, ``sgl_prox_padded``) on Synthetic 1's and
+   Table 2's padded layouts, 1e30 and NaN in the masked slots, against
+   their plain versions, each call one launch of its kernel.
+24. The six root examples (``python -m repro_torch.examples.<name>``'s
+   ``main`` with ``--device cuda``, at the reference scripts' sizes):
+   ``quickstart``, ``nonneg_lasso_dpc``, ``cv_model_selection``,
+   ``session_refinement``, ``sgl_logistic`` and ``serve_batched``.  Each
+   returns (its exit), prints its walls, and launches each kernel its
+   float32 route reaches (``EXAMPLE_KERNELS``; counted by path as
+   ``example-<name>``); each SGL or NN example's ``run`` again in float64
+   on the card, launching no kernel, holds the float32 results: every
+   path's, CV's, estimator's and served job's betas within 1e-2 *
+   max|beta|, every selection within one step.  Then, alone on the card,
+   each kernel that an example launched against its plain version (phase
+   23's checks and tolerances) at the inputs that example gave it:
+   ``xtv`` on its largest X, ``screen_norms`` at its first screen's C and
+   layout, ``screen_norms_folds`` at its first stacked screen,
+   ``sgl_prox`` on its largest prox vector's layout and on the problem's
+   whole layout (rows ``example_<name>`` of the kernels line).
+25. One JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the repository around it, it exits non-zero
@@ -1080,6 +1101,32 @@ class LaunchShapes:
 
         def recorded(*args):
             self.shapes.append(tuple(tuple(a.shape) for a in args))
+            return self.orig(*args)
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class LaunchArgs:
+    """Keeps the arguments of one call of a kernel's CUDA function inside
+    the block, by reference (no copy, so nothing is added to a graph being
+    captured): the first call, or with ``largest`` the call whose first
+    argument has the most elements."""
+
+    def __init__(self, module, name, largest=False):
+        self.module, self.name, self.largest = module, name, largest
+        self.args = None
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def recorded(*args):
+            if self.args is None or (self.largest and args[0].numel()
+                                     > self.args[0].numel()):
+                self.args = args
             return self.orig(*args)
 
         setattr(self.module, self.name, recorded)
@@ -4929,6 +4976,56 @@ def check_dpc_screen_folds(torch, K, L, p, label, borderline=False):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
+def check_padded_entry_points(torch, L, spec, label):
+    """The reference's padded entry points (``ops.screen_norms``,
+    ``ops.screen_norms_batched``, ``ops.sgl_prox_padded``) on the spec's
+    padded layout, 1e30 and NaN in the masked slots (alternately), against
+    their plain versions on clean data: ``snorm2`` and the prox within
+    rtol = atol = 1e-5, ``cinf`` and the prox's masked slots exactly; the
+    three calls launch ``screen_norms`` twice and ``sgl_prox`` once, and
+    nothing else."""
+    from repro_torch.kernels import ops, ref
+    mask = spec.pad_mask
+    G, n_max = mask.shape
+    dev = mask.device
+    vals = torch.randn(L, G, n_max, device=dev) * 2
+    alt = torch.arange(G * n_max, device=dev).reshape(G, n_max) % 2 == 1
+    dirty = torch.where(mask, vals, torch.where(alt, float("nan"), 1e30))
+    clean = torch.where(mask, vals, 0.0)
+    t_group = torch.rand(G, device=dev) + 0.1
+    before = ops.launch_counts()
+    got_row = ops.screen_norms(dirty[0], mask)
+    got_grid = ops.screen_norms_batched(dirty, mask)
+    got_prox = ops.sgl_prox_padded(dirty[0], mask, 0.3, t_group)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    require(rose == {"screen_norms": 2, "sgl_prox": 1},
+            f"padded entry points {label}: launches {rose}")
+    want = ref.screen_norms_folds_ref(clean, mask)
+    want_prox = ref.sgl_prox_ref(clean[0], mask, 0.3, t_group)
+    errs = []
+    for name, got, w in (("screen_norms", got_row, (want[0][0], want[1][0])),
+                         ("screen_norms_batched", got_grid, want)):
+        require(all(bool(torch.isfinite(g).all()) for g in got),
+                f"{name} {label}: non-finite (poison leaked)")
+        require(bool(torch.allclose(got[0], w[0], **KERNEL_TOL)),
+                f"{name} {label}: snorm2 outside rtol=atol=1e-5")
+        require(torch.equal(got[1], w[1]),
+                f"{name} {label}: cinf differs from the plain max")
+        errs.append(float((got[0] - w[0]).abs().max()))
+    require(bool(torch.isfinite(got_prox).all())
+            and bool((got_prox[~mask] == 0).all())
+            and bool(torch.allclose(got_prox, want_prox, **KERNEL_TOL)),
+            f"sgl_prox_padded {label}: differs from the plain prox")
+    errs.append(float((got_prox - want_prox).abs().max()))
+    say(f"[kernel padded entry points {label}] L {L} G {G} n_max {n_max}: "
+        f"screen_norms / screen_norms_batched / sgl_prox_padded max_abs_err "
+        f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol rtol=atol=1e-5, "
+        f"cinf and masked slots exact), launches {rose}")
+    return max(errs)
+
+
 def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
                   snf_shape, dsf_shape):
     spec = sess_main.problem.spec
@@ -4972,7 +5069,196 @@ def kernel_checks(torch, T, sess_main, shapes, sess_ragged, ragged_bucket,
                                                       "nn-cv")
     check_dpc_screen_folds(torch, K, L, p + 7, "ragged-p")
     check_dpc_screen_folds(torch, K, L, p + 7, "borderline", borderline=True)
+    # the reference's padded entry points, through the same two kernels
+    check_padded_entry_points(torch, shapes["L"], spec, "synthetic1")
+    check_padded_entry_points(torch, 8, rspec, "table2")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the six root examples at the reference's sizes
+# ---------------------------------------------------------------------------
+
+#: the kernels each example's float32 run must launch (none for the LM)
+EXAMPLE_KERNELS = {
+    "quickstart": ("xtv", "screen_norms", "sgl_prox"),
+    "nonneg_lasso_dpc": ("xtv",),
+    "cv_model_selection": ("xtv", "screen_norms", "screen_norms_folds",
+                           "sgl_prox"),
+    "session_refinement": ("xtv", "screen_norms_folds", "sgl_prox"),
+    "sgl_logistic": ("xtv", "screen_norms", "sgl_prox"),
+    "serve_batched": (),
+}
+
+
+def _example_results(name, out):
+    """(label, betas, scale) of each solution an example's ``run``
+    returns, and (label, index) of each selection it makes.  ``scale``:
+    the largest |beta| its bar is relative to (a served job's against the
+    queue's largest coef)."""
+    pick = {
+        "quickstart": lambda o: [(k, o[k].betas) for k in
+                                 ("res", "legacy", "base")],
+        "nonneg_lasso_dpc": lambda o: [(k, o[k].betas) for k in
+                                       ("res", "base")],
+        "cv_model_selection": lambda o: [
+            ("cv", o["cv"].fold_betas), ("sequential", np.stack(
+                o["seq_betas"])), ("SGLCV", o["est"].coef_)],
+        "session_refinement": lambda o: [
+            ("coarse", o["coarse"].fold_betas),
+            ("refined", o["refined"].fine.fold_betas),
+            ("cold", o["cold"].fold_betas),
+            ("served", np.stack([o["results"][j].coef
+                                 for j in sorted(o["results"])]))],
+        "sgl_logistic": lambda o: [
+            (k, o[k].betas) for k in ("res", "base", "wres")] + [
+            ("SGLClassifier", o["clf"].coef_)],
+    }[name](out)
+    index = {
+        "cv_model_selection": lambda o: [("cv", o["cv"].best_index)],
+        "session_refinement": lambda o: [
+            ("coarse", o["coarse"].best_index),
+            ("refined", o["refined"].index), ("cold", o["cold"].best_index)],
+    }.get(name, lambda o: [])(out)
+    return [(k, np.asarray(b, dtype=np.float64)) for k, b in pick], index
+
+
+def _recorders():
+    """{kernel: LaunchArgs of its CUDA function}: ``xtv``'s largest X, the
+    first screen of each screen kernel, ``sgl_prox``'s largest vector."""
+    from repro_torch.kernels import screen_norms as sn
+    from repro_torch.kernels import screen_norms_folds as snf
+    from repro_torch.kernels import sgl_prox as prox
+    from repro_torch.kernels import xtv
+    return {"xtv": LaunchArgs(xtv, "xtv_cuda", largest=True),
+            "screen_norms": LaunchArgs(sn, "screen_norms_cuda"),
+            "screen_norms_folds": LaunchArgs(snf, "screen_norms_folds_cuda"),
+            "sgl_prox": LaunchArgs(prox, "sgl_prox_cuda", largest=True)}
+
+
+def example_kernel_checks(torch, T, inputs):
+    """Phase 23's checks at the inputs that each example's float32 run
+    gave each kernel it called (``inputs``: {example: {kernel: the arguments
+    ``_recorders`` kept}}): ``xtv`` on the largest X, ``screen_norms`` at
+    the first screen's C rows and padded layout, ``screen_norms_folds`` at
+    the first stacked screen's rows and mask, ``sgl_prox`` on the largest
+    prox vector's layout and on the problem's whole layout (the spec of
+    the screens' mask).  Each against its plain version at phase 23's
+    tolerances.  Returns {kernel: {``example_<name>[_full]``: row}}."""
+    from types import SimpleNamespace
+    out = {}
+    for name, args in inputs.items():
+        key, label = f"example_{name}", f"example-{name}"
+        rows = {}
+        if "xtv" in args:
+            rows["xtv"] = check_xtv(torch, args["xtv"][0], label)
+        if "screen_norms" in args:
+            C, idx, mask = args["screen_norms"]
+            layout = SimpleNamespace(pad_index=idx, pad_mask=mask,
+                                     num_features=C.shape[1],
+                                     sizes=mask.sum(dim=1), device=C.device)
+            rows["screen_norms"] = check_screen_norms(torch, C.shape[0],
+                                                      layout, label)
+            whole = mask
+        if "screen_norms_folds" in args:
+            c_pad, mask = args["screen_norms_folds"]
+            rows["screen_norms_folds"] = check_screen_norms_folds(
+                torch, c_pad.shape[0], mask, label)
+            whole = mask
+        if "sgl_prox" in args:
+            v, idx, mask, unc = args["sgl_prox"][:4]
+            layout = SimpleNamespace(pad_index=idx, pad_mask=mask,
+                                     pad_uncovered=unc,
+                                     num_features=v.shape[0], device=v.device)
+            rows["sgl_prox"] = check_sgl_prox(torch, layout,
+                                              f"{label}-largest")
+            spec = T.GroupSpec.from_sizes(whole.sum(dim=1).tolist(),
+                                          device="cuda")
+            require(torch.equal(spec.pad_mask, whole),
+                    f"{label}: the screens' mask is not a spec's layout")
+            out.setdefault("sgl_prox", {})[f"{key}_full"] = check_sgl_prox(
+                torch, spec, f"{label}-full")
+        for kernel, row in rows.items():
+            out.setdefault(kernel, {})[key] = row
+    return out
+
+
+def examples_phase(torch, T):
+    """Phase 24: each root example's ``main`` on the card (float32, the
+    reference's sizes), its kernels' launches counted and their inputs
+    kept; then the same ``run`` in float64 on the card, which launches no
+    kernel, as the reference for the float32 results at PERF.md section
+    2's bars (betas within 1e-2 * max|beta|, a CV's selection within one
+    step).  Returns the launch counts by path, and a function that holds
+    each kernel against its plain version at those inputs
+    (``example_kernel_checks``), called when the card is otherwise
+    idle."""
+    import importlib
+    from repro_torch.kernels import ops
+    paths, inputs = {}, {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        label = f"example-{name}"
+        say(f"[{label}] python -m repro_torch.examples.{name} --device cuda")
+        argv = ["--device", "cuda"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "serve_batched":
+            lat = []
+            gen = mod.main(argv, latencies=lat)
+            wall = time.perf_counter() - t0
+            require(gen.shape == (8, 24) and len(lat) == 24,
+                    f"{label}: generated {gen.shape}, {len(lat)} steps")
+            out32 = dict(walls=dict(main=wall, decode_steps=float(sum(lat))))
+        else:
+            with contextlib.ExitStack() as stack:
+                rec = {k: stack.enter_context(r) for k, r in
+                       _recorders().items()}
+                out32 = mod.main(argv)
+            wall = time.perf_counter() - t0
+            inputs[name] = {k: r.args for k, r in rec.items()
+                            if r.args is not None}
+            require(set(kernels) <= set(inputs[name]),
+                    f"{label}: the CUDA function of a kernel in "
+                    f"{kernels} was never called")
+        note_wall(wall)
+        counts = ops.launch_counts()
+        paths[label] = counts
+        missing = [k for k in kernels if not counts[k]]
+        require(not missing, f"{label}: no launch of {missing} ({counts})")
+        say(f"[{label}] exit 0 in {wall:.3f} s; walls "
+            f"{json.dumps({k: round(v, 6) for k, v in out32['walls'].items()})}"
+            f"; launches {json.dumps(counts)}")
+        if name == "serve_batched":
+            continue
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out64 = mod.run(device="cuda", dtype=torch.float64)
+        wall64 = time.perf_counter() - t0
+        note_wall(wall64)
+        require(not any(ops.launch_counts().values()),
+                f"{label}: float64 launched {ops.launch_counts()}")
+        got, idx32 = _example_results(name, out32)
+        want, idx64 = _example_results(name, out64)
+        rel = {}
+        for (k, b32), (_, b64) in zip(got, want):
+            scale = float(np.max(np.abs(b64)))
+            err = float(np.max(np.abs(b32 - b64)))
+            require(b32.shape == b64.shape and err <= 1e-2 * scale,
+                    f"{label} {k}: float32 against float64 max|diff| "
+                    f"{err:.3e} > 1e-2 * max|beta| {scale:.3e}")
+            rel[k] = err / scale if scale > 0 else 0.0
+        for (k, i32), (_, i64) in zip(idx32, idx64):
+            require(abs(i32 - i64) <= 1, f"{label} {k}: float32 selects "
+                    f"index {i32}, float64 {i64}")
+        say(f"[{label}] float64 twin on the card in {wall64:.3f} s, no "
+            f"kernel; walls "
+            f"{json.dumps({k: round(v, 6) for k, v in out64['walls'].items()})}"
+            f"; float32 against float64 max|diff| / max|beta| "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}"
+            f" (bar 1e-2); selections f32 / f64 "
+            f"{[(k, a, b) for (k, a), (_, b) in zip(idx32, idx64)]}")
+    return paths, lambda: example_kernel_checks(torch, T, inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -4983,8 +5269,10 @@ WORKER_TIMEOUT = 900.0      # seconds a worker may take, start-up included
 
 
 def cv_group(torch, T):
-    """Phases 6, 7 and 12.  The CVs' launch counts, by path, and the first
-    stacked screens' shapes, which phase 23 checks the fold kernels at."""
+    """Phases 6, 7, 12 and 24 (the group that ended first without phase
+    24).  The launch counts by path, the first stacked screens' shapes,
+    which phase 23 checks the fold kernels at, and, as ``timed``, the
+    kernels' checks at the examples' inputs."""
     paths = {}
     with timed_phase("sgl-cv"):
         paths["sgl-cv"], snf_shape = sgl_cv_phase(torch, T)
@@ -4992,7 +5280,11 @@ def cv_group(torch, T):
         paths["nn-cv"], dsf_shape = nn_cv_phase(torch, T)
     with timed_phase("gapsafe-nn-cv"):
         paths["nn-cv-gapsafe"] = gapsafe_nn_cv_phase(torch, T)
-    return dict(paths=paths, shapes=dict(snf=snf_shape, dsf=dsf_shape))
+    with timed_phase("examples"):
+        ex_paths, ex_checks = examples_phase(torch, T)
+    paths.update(ex_paths)
+    return dict(paths=paths, shapes=dict(snf=snf_shape, dsf=dsf_shape),
+                timed=ex_checks)
 
 
 def selection_group(torch, T):
@@ -5201,8 +5493,9 @@ def main() -> int:
                              shapes_cv["snf"], shapes_cv["dsf"])
     for name, by_input in sharded_checks.items():
         rows[name]["sharded"] = by_input     # at the sharded route's inputs
-    for name, by_curve in done["lm"]["checks"].items():
-        rows[name].update(by_curve)          # at the pruning curves' inputs
+    for group in ("lm", "cv"):    # at the pruning curves', examples' inputs
+        for name, by_input in done[group]["checks"].items():
+            rows[name].update(by_input)
 
     by_path = {"synthetic1-path": counts, "table2-path": counts_r,
                "table3-nn-path": counts_nn, **new_paths}

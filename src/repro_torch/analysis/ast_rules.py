@@ -50,13 +50,15 @@ from .findings import Finding
 # ---------------------------------------------------------------------------
 
 #: functions captured into CUDA graphs, and what they call on the way
-#: (top-level name or method name)
+#: (top-level name or method name); also the reference's padded kernel
+#: entry points, held to the same rules as the wrapper a graph captures
 CAPTURED_FUNCTIONS = {
     "core/solver.py": {"_sgl_block", "_block", "_sgl_gap", "_nn_block"},
     "core/prox.py": {"sgl_prox", "nn_lasso_prox"},
     "core/fenchel.py": {"sgl_penalty", "shrink"},
     "core/lambda_max.py": {"dual_scaling_sgl"},
-    "kernels/ops.py": {"sgl_prox"},
+    "kernels/ops.py": {"sgl_prox", "screen_norms", "screen_norms_batched",
+                       "sgl_prox_padded"},
 }
 
 #: host driver paths where a per-iteration wait is the hazard

@@ -1,6 +1,8 @@
 """Kernel audit of the port: the semantic checks of
-``repro.analysis.pallas_check``, held against the five wrappers of
-``kernels/ops.py``.
+``repro.analysis.pallas_check``, held against the wrappers of
+``kernels/ops.py``: the five flat ones and the reference's three padded
+entry points (``screen_norms``, ``screen_norms_batched``,
+``sgl_prox_padded``), each under its kernel's name.
 
 * ``kernels/mask-coverage``: 1e30 is written into every slot a kernel
   must not read (the masked-out slots of the padded group view, and the
@@ -63,7 +65,8 @@ def mask_coverage(device=None, errors: dict = None) -> list:
     def rand(*shape, scale=2.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    def compare(name, got, want, *, exact=False, tol=None):
+    def compare(name, got, want, *, exact=False, tol=None, entry=None):
+        """``entry``: the wrapper's name where it is not the kernel's."""
         finite = bool(torch.isfinite(got.float()).all())
         diff = (got.float() - want.float()).abs()
         err = float(diff.max()) if finite else float("inf")
@@ -77,8 +80,9 @@ def mask_coverage(device=None, errors: dict = None) -> list:
             ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
         if not (finite and ok):
             findings.append(Finding(
-                "kernels/mask-coverage", "error", f"kernels.{name}",
-                f"on {dev}, {name} under 1e30 in its masked slots differs "
+                "kernels/mask-coverage", "error", f"kernels.{entry or name}",
+                f"on {dev}, {entry or name} under 1e30 in its masked slots "
+                f"differs "
                 f"from its plain version on clean data (max|diff| = "
                 f"{err:.3g}): a masked slot or a tail is read"))
 
@@ -92,6 +96,20 @@ def mask_coverage(device=None, errors: dict = None) -> list:
                                        spec.pad_index, mask)
     compare("screen_norms", got[0], want[0])
     compare("screen_norms", got[1], want[1], exact=True)
+
+    # the reference's padded entry points: the (G, n_max) layout and the
+    # (L, G, n_max) grid, poison in every masked slot
+    vals = rand(5, G, n_max)
+    poisoned = torch.where(mask, vals, POISON)
+    clean = torch.where(mask, vals, 0.0)
+    want = ref.screen_norms_folds_ref(clean, mask)
+    got = ops.screen_norms(poisoned[0], mask)
+    compare("screen_norms", got[0], want[0][0])
+    compare("screen_norms", got[1], want[1][0], exact=True)
+    got = ops.screen_norms_batched(poisoned, mask)
+    compare("screen_norms", got[0], want[0], entry="screen_norms_batched")
+    compare("screen_norms", got[1], want[1], exact=True,
+            entry="screen_norms_batched")
 
     # screen_norms_folds: (K, L, G, n_max), poison in every masked slot
     vals = rand(3, 5, G, n_max)
@@ -125,6 +143,16 @@ def mask_coverage(device=None, errors: dict = None) -> list:
                       torch.zeros(1, device=dev)])
     compare("sgl_prox", got, want)
     compare("sgl_prox", got[unc], torch.zeros_like(got[unc]), exact=True)
+
+    # sgl_prox_padded: the (G, n_max) layout, poison in every masked slot
+    vals = rand(G, n_max)
+    got = ops.sgl_prox_padded(torch.where(mask, vals, POISON), mask, 0.3,
+                              t_group)
+    want = ref.sgl_prox_ref(torch.where(mask, vals, 0.0), mask, t_l1,
+                            t_group)
+    compare("sgl_prox", got, want, entry="sgl_prox_padded")
+    compare("sgl_prox", got[~mask], torch.zeros_like(got[~mask]),
+            exact=True, entry="sgl_prox_padded")
 
     # xtv pads (N, p) itself; ragged (137, 37) runs the tail path
     X = rand(137, p, scale=1.0)

@@ -4,6 +4,12 @@ A tensor on the CPU takes the kernel's plain PyTorch version (``ref``); a
 tensor on a CUDA device launches the kernel, which raises on anything it
 does not take.  There is no fallback between the two.
 
+The engines call the flat wrappers, which read the group spec's padded
+view through ``pad_index``.  The reference's padded-layout entry points
+(``screen_norms``, ``screen_norms_batched``, ``sgl_prox_padded``) take the
+(G, n_max) layout itself and reach the same two kernels through an identity
+``pad_index``; they count as launches of those kernels.
+
 Every kernel is float32-only: the path engine engages them only for
 float32 problems (``path_engine._kernels_active``), and the screening entry
 point raises ``TypeError`` on float64 with kernels requested.
@@ -156,6 +162,35 @@ def screen_norms_gather(C: torch.Tensor, pad_index: torch.Tensor,
         C, pad_index, pad_mask)
 
 
+def _identity_index(mask: torch.Tensor) -> torch.Tensor:
+    """The padded layout read as itself: slot (g, k) is column g*n_max+k."""
+    return torch.arange(mask.numel(), device=mask.device).reshape(mask.shape)
+
+
+def screen_norms(c_pad: torch.Tensor, mask: torch.Tensor):
+    """The reference's padded entry point: c_pad (G, n_max) with its mask
+    -> (||S_1(c_g)||^2 (G,), ||c_g||_inf (G,)) float32, masked slots as 0.
+    The ``screen_norms`` kernel reads c_pad as one row through an identity
+    ``pad_index``."""
+    snorm2, cinf = screen_norms_batched(c_pad[None], mask)
+    return snorm2[0], cinf[0]
+
+
+def screen_norms_batched(c_pad_grid: torch.Tensor, mask: torch.Tensor):
+    """The reference's grid entry point: c_pad_grid (L, G, n_max) with a
+    shared (G, n_max) mask -> ((L, G), (L, G)) float32, masked slots as 0.
+    The ``screen_norms`` kernel reads the L rows of the padded grid through
+    an identity ``pad_index``."""
+    if c_pad_grid.ndim != 3 or c_pad_grid.shape[1:] != mask.shape:
+        raise ValueError(f"c_pad_grid {tuple(c_pad_grid.shape)} is not "
+                         f"(L, *mask.shape) for mask {tuple(mask.shape)}")
+    L, G, n_max = c_pad_grid.shape
+    C = c_pad_grid.reshape(L, G * n_max).contiguous()
+    mask = mask.contiguous()
+    return (OPS["screen_norms"] if _traced(C) else _run_screen_norms)(
+        C, _identity_index(mask), mask)
+
+
 def screen_norms_folds(c_pad_folds: torch.Tensor, mask: torch.Tensor):
     """c_pad_folds (K, L, G, n_max) with a shared (G, n_max) mask ->
     (||S_1(c)||^2 (K, L, G), ||c||_inf (K, L, G)) float32: every fold x
@@ -185,3 +220,23 @@ def sgl_prox(v: torch.Tensor, pad_index: torch.Tensor,
     plain version keeps v's dtype at its boundary."""
     return (OPS["sgl_prox"] if _traced(v) else _run_sgl_prox)(
         v, pad_index, pad_mask, uncovered, t_l1, t_group)
+
+
+def sgl_prox_padded(v_pad: torch.Tensor, mask: torch.Tensor, t_l1,
+                    t_group) -> torch.Tensor:
+    """The reference's padded entry point: the fused SGL prox on v_pad
+    (G, n_max) with its mask, ``t_l1`` a scalar, ``t_group`` (G,) -> the
+    padded prox output (G, n_max) float32, masked slots 0.  The ``sgl_prox``
+    kernel reads v_pad as a flat vector through an identity ``pad_index``,
+    every masked slot an uncovered column."""
+    if v_pad.shape != mask.shape:
+        raise ValueError(f"v_pad {tuple(v_pad.shape)} is not mask's shape "
+                         f"{tuple(mask.shape)}")
+    v = v_pad.reshape(-1).contiguous()
+    mask = mask.contiguous()
+    dev = v.device
+    t_l1 = torch.as_tensor(t_l1, dtype=torch.float32, device=dev).reshape(1)
+    t_group = torch.as_tensor(t_group, dtype=torch.float32, device=dev)
+    out = (OPS["sgl_prox"] if _traced(v) else _run_sgl_prox)(
+        v, _identity_index(mask), mask, ~mask.reshape(-1), t_l1, t_group)
+    return out.reshape(mask.shape).to(torch.float32)

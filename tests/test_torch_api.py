@@ -16,6 +16,7 @@ import torch
 from repro import api as japi
 from repro_torch import api as tapi
 import repro_torch.core as T
+from repro_torch.examples import sgl_logistic
 
 
 def regression_data(shift=0.0):
@@ -302,22 +303,13 @@ def test_estimators_survive_sklearn_clone(name):
 
 
 def _grid_by_hand(module, X, y, sizes, lams, **extra):
-    """A two-fold grid over ``lam``: clone, fit on one half, score on the
-    other, mean over both splits; the best ``lam`` and its score."""
-    from sklearn.base import clone
+    """The example's two-fold grid over ``lam``
+    (``repro_torch.examples.sgl_logistic.grid_by_hand``) on ``module``'s
+    classifier: the best ``lam`` and the mean held-out scores."""
     base = module.SGLClassifier(alpha=1.0, groups=sizes, tol=1e-10,
                                 max_iter=20_000, **extra)
-    halves = np.array_split(np.arange(len(y)), 2)
-    scores = []
-    for lam in lams:
-        s = []
-        for k in range(2):
-            train, test = halves[1 - k], halves[k]
-            est = clone(base).set_params(lam=lam).fit(X[train], y[train])
-            s.append(est.score(X[test], y[test]))
-        scores.append(np.mean(s))
-    best = int(np.argmax(scores))
-    return lams[best], scores
+    best, _, scores = sgl_logistic.grid_by_hand(base, X, y, lams)
+    return best, scores
 
 
 def test_classifier_grid_by_hand_picks_the_reference_lambda():

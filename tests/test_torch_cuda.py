@@ -196,6 +196,69 @@ def test_sgl_prox_kernel_matches_plain(dev, sizes, keep, p_b, g_b, t_l1):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("L,G,n_max", [(1, 1, 1), (5, 37, 9),
+                                       (128, 1000, 10), (3, 50, 70)])
+def test_padded_entry_points_launch_the_kernels(dev, L, G, n_max):
+    """The reference's padded entry points (``ops.screen_norms``,
+    ``screen_norms_batched``, ``sgl_prox_padded``) on the card, 1e30 and
+    NaN in every masked slot, against their plain versions on clean data
+    (``cinf`` and the masked prox slots exactly); each call is one launch
+    of the existing kernel, counted under its name."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(L + G + n_max)
+    mask = _mask(gen, G, n_max)
+    vals = torch.randn(L, G, n_max, generator=gen) * 2
+    nan_slot = torch.arange(G * n_max).reshape(G, n_max) % 2 == 1
+    poison = torch.where(nan_slot, float("nan"), 1e30)
+    dirty = torch.where(mask, vals, poison).to(dev)
+    clean = torch.where(mask, vals, 0.0).to(dev)
+    mask = mask.to(dev)
+    t_group = (torch.rand(G, generator=gen) * 2).to(dev)
+
+    def launched(fn):
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after if
+                     after[k] != before[k]}
+
+    (s, i), n = launched(lambda: ops.screen_norms(dirty[0], mask))
+    ws, wi = ref.screen_norms_ref(clean[0], mask)
+    assert n == {"screen_norms": 1} and s.shape == (G,)
+    torch.testing.assert_close(s, ws, **TOL)
+    assert torch.equal(i, wi)
+    (s, i), n = launched(lambda: ops.screen_norms_batched(dirty, mask))
+    ws, wi = ref.screen_norms_folds_ref(clean, mask)
+    assert n == {"screen_norms": 1} and s.shape == (L, G)
+    torch.testing.assert_close(s, ws, **TOL)
+    assert torch.equal(i, wi)
+    out, n = launched(lambda: ops.sgl_prox_padded(dirty[0], mask, 0.3,
+                                                  t_group))
+    want = ref.sgl_prox_ref(clean[0], mask, 0.3, t_group)
+    assert n == {"sgl_prox": 1} and out.shape == (G, n_max)
+    assert bool((out[~mask] == 0).all()) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, want, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(37, 10), (36, 9), (38, 9)])
+def test_padded_entry_points_refuse_a_mask_of_another_shape(dev, shape):
+    """On the card too, a padded input whose (G, n_max) is not the mask's
+    raises before any launch: the kernels would read past it or cover only
+    part of it."""
+    from repro_torch.kernels import ops
+    mask = torch.ones(37, 9, dtype=torch.bool, device=dev)
+    c = torch.randn(*shape, device=dev)
+    before = ops.launch_counts()
+    for call in (lambda: ops.screen_norms(c, mask),
+                 lambda: ops.screen_norms_batched(c[None], mask),
+                 lambda: ops.sgl_prox_padded(c, mask, 0.1,
+                                             torch.ones(37, device=dev))):
+        with pytest.raises(ValueError, match="mask"):
+            call()
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.parametrize("KL,G,n_max", [(1, 1, 1), (24, 313, 9),
                                          (640, 1000, 10), (6, 37, 32),
                                          (70, 5, 33), (3, 20, 130)])

@@ -356,3 +356,130 @@ def test_path_f32_kernel_route_matches_reference_pallas_route(N, G, n):
         T.Plan(**kw, use_kernels=True))
     np.testing.assert_allclose(rt.betas, rj.betas, atol=1e-5)
     assert rt.stats.n_pallas_screens == rt.stats.n_screens > 0
+
+
+# ---------------------------------------------------------------------------
+# the reference's padded-layout entry points: ops.screen_norms,
+# ops.screen_norms_batched, ops.sgl_prox_padded
+# ---------------------------------------------------------------------------
+
+def _nan_poisoned(c, mask):
+    """``c`` (1e30 in its masked slots) with NaN in every other masked
+    slot, so both poisons reach the entry point."""
+    out = c.copy()
+    alt = (np.arange(c.size).reshape(c.shape) % 2 == 1)
+    out[~mask & alt] = np.nan
+    return out
+
+
+@pytest.mark.parametrize("G,n_max", [(1, 1), (5, 17), (37, 9), (100, 64)])
+def test_padded_screen_norms_matches_reference_ops(G, n_max):
+    """``ops.screen_norms(c_pad, mask)`` against the reference's
+    ``ops.screen_norms`` in interpret mode, 1e30 and NaN in the masked
+    slots: (G,) float32, ``cinf`` exactly."""
+    rng = np.random.default_rng(11 * G + n_max)
+    c, mask = _padded(rng, G, n_max)
+    c = _nan_poisoned(c, mask)
+    s, i = ops.screen_norms(torch.from_numpy(c), torch.from_numpy(mask))
+    sj, ij = jops.screen_norms(jnp.asarray(c), jnp.asarray(mask),
+                               interpret=True)
+    assert s.shape == i.shape == (G,)
+    assert s.dtype == i.dtype == torch.float32
+    assert bool(torch.isfinite(s).all() and torch.isfinite(i).all())
+    np.testing.assert_allclose(s.numpy(), np.asarray(sj), **F32_TOL)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+
+
+@pytest.mark.parametrize("sizes", [(3, 7, 1, 5, 4, 9, 2, 6), (1,) * 9,
+                                   (12, 1, 33, 2)])
+def test_padded_screen_norms_batched_grid_layout(sizes):
+    """The (L, G, n_max) grid layout of ``tests/test_kernels.py:162``: a
+    ragged spec's padded view scaled by L factors, garbage in the padded
+    lanes, against the reference's ``ops.screen_norms_batched`` in
+    interpret mode and against its oracle on the clean rows."""
+    rng = np.random.default_rng(sum(sizes))
+    mask = T.GroupSpec.from_sizes(list(sizes), device="cpu").pad_mask.numpy()
+    G, n_max = mask.shape
+    clean = np.where(mask, rng.standard_normal((G, n_max)) * 2,
+                     0.0).astype(np.float32)
+    dirty = _nan_poisoned(np.where(mask, clean, POISON).astype(np.float32),
+                          mask)
+    L = 5
+    scales = rng.uniform(0.2, 3.0, L).astype(np.float32)
+    grid = scales[:, None, None] * dirty[None]
+    s, i = ops.screen_norms_batched(torch.from_numpy(grid),
+                                    torch.from_numpy(mask))
+    assert s.shape == i.shape == (L, G)
+    assert s.dtype == i.dtype == torch.float32
+    sj, ij = jops.screen_norms_batched(jnp.asarray(grid), jnp.asarray(mask),
+                                       interpret=True)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sj), **F32_TOL)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    for r in range(L):
+        sr, ir = jref.screen_norms_ref(jnp.asarray(scales[r] * clean),
+                                       jnp.asarray(mask))
+        np.testing.assert_allclose(s[r].numpy(), np.asarray(sr), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(i[r].numpy(), np.asarray(ir), rtol=1e-5)
+
+
+@pytest.mark.parametrize("G,n_max,t_l1", [(1, 1, 0.0), (5, 17, 0.3),
+                                          (37, 9, 1.1), (64, 130, 0.05)])
+def test_padded_sgl_prox_matches_reference_ops(G, n_max, t_l1):
+    """``ops.sgl_prox_padded`` against the reference's
+    ``ops.sgl_prox_padded`` in interpret mode, 1e30 and NaN in the masked
+    slots, which come out exactly 0."""
+    rng = np.random.default_rng(13 * G + n_max)
+    v, mask = _padded(rng, G, n_max)
+    v = _nan_poisoned(v, mask)
+    t_group = (rng.random(G) * 3).astype(np.float32)
+    got = ops.sgl_prox_padded(torch.from_numpy(v), torch.from_numpy(mask),
+                              t_l1, torch.from_numpy(t_group))
+    assert got.shape == (G, n_max) and got.dtype == torch.float32
+    assert np.all(got.numpy()[~mask] == 0.0)
+    want = jops.sgl_prox_padded(jnp.asarray(v), jnp.asarray(mask),
+                                jnp.float32(t_l1), jnp.asarray(t_group),
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_padded_entry_points_count_under_their_kernels():
+    """On the CPU the padded entry points take the plain versions and
+    launch nothing; under a dispatch mode each is one call of its kernel's
+    operator, under the kernel's name."""
+    from repro_torch.launch.cost_analysis import CostCounter
+    mask = torch.ones(3, 4, dtype=torch.bool)
+    mask[1, 2:] = False
+    calls = (lambda: ops.screen_norms(torch.randn(3, 4), mask),
+             lambda: ops.screen_norms_batched(torch.randn(2, 3, 4), mask),
+             lambda: ops.sgl_prox_padded(torch.randn(3, 4), mask, 0.1,
+                                         torch.rand(3)))
+    ops.reset_launch_counts()
+    for call in calls:
+        call()
+    assert set(ops.launch_counts().values()) == {0}
+    with CostCounter(memory=False) as c:
+        for call in calls:
+            call()
+    assert dict(c.kernel_calls) == {"screen_norms": 2, "sgl_prox": 1}
+
+
+MISMATCHED = {   # each entry point on an input whose (G, n_max) is not mask's
+    "screen_norms": lambda m, c: ops.screen_norms(c, m),
+    "screen_norms_batched": lambda m, c: ops.screen_norms_batched(c[None], m),
+    "sgl_prox_padded": lambda m, c: ops.sgl_prox_padded(
+        c, m, 0.1, torch.ones(c.shape[0])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MISMATCHED))
+@pytest.mark.parametrize("shape", [(3, 5), (4, 4), (2, 4)])
+def test_padded_entry_points_refuse_a_mask_of_another_shape(name, shape):
+    """A mask larger or smaller than the padded input raises before any
+    kernel or plain version runs (the kernel trusts every valid slot to
+    lie inside the input)."""
+    mask = torch.ones(3, 4, dtype=torch.bool)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="mask"):
+        MISMATCHED[name](mask, torch.randn(*shape))
+    assert set(ops.launch_counts().values()) == {0}
