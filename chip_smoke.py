@@ -274,6 +274,24 @@ printed by phases 3-22 are taken with the other processes running.
     of granite's tree (1.33 B values): every element within its block's
     max|.| / 127, the error feedback to 1e-7, ``wire_bytes`` the padded
     payload plus its scales exactly; the calls' ms printed.
+    Part (w), after (v): tensor-parallel serving over 'model'.  In this
+    process, one after the other, the twins: (w1) ``gemma2-2b`` at full
+    width with float32 parameters and (w2) ``gemma3-12b`` at full width
+    with bf16 parameters, float32 compute, serving batch 4, prompt 16
+    teacher-forced then 32 greedy tokens through ``forward_decode`` into a
+    float32 cache of 128, and ``make_prefill_step`` at B 4, S 16.  Then one
+    spawn of two ``gloo`` ranks on ``lm_mesh({"data": 1, "model": 2})``
+    runs both parts: each rank draws its blocks by ``sharding.
+    serving_pspecs`` (``init_params(shardings=...)``: each leaf whole in
+    the twin's order, then cut), decodes the twin's tokens and prefills
+    under ``tp=True``; every step's logits and the prefill's within 1e-4 x
+    max|logits| of the twin's; each rank's parameter bytes (its storages
+    at the allocator's grain) equal to the dry run's ``tp_decode_bf16``
+    cell at (data 1, model 2), B 4, cache 128 (run in a thread here
+    meanwhile); the draw's peak within one leaf of the blocks; 2
+    all-reduces a layer, one for the embedding and one all-gather of the
+    logits a step; each rank's peaks beside the dry run's predicted peak
+    and its p50 beside the twin's, with the card's name and power limit.
     Then ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
     versions at each curve's shapes (X G x G, C (32, G) with n_max 1, the
     busiest prox bucket).  Every phase and part prints its seconds beside
@@ -4302,6 +4320,270 @@ def lm_compression_phase(torch, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 21 (w): tensor-parallel serving over 'model'
+# ---------------------------------------------------------------------------
+
+TP_SHAPE = {"data": 1, "model": 2}
+#: (part, config, parameter dtype, init seed); compute is float32
+TP_PARTS = (("w1", "gemma2-2b", "float32", 27),
+            ("w2", "gemma3-12b", "bfloat16", 28))
+TP_B, TP_PROMPT, TP_GEN, TP_CACHE = 4, 16, 32, 128
+TP_STEPS = TP_PROMPT + TP_GEN - 1       # the prompt's, then the greedy ones
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _tp_steps(torch, cfg, params, toks, dev, mesh=None, greedy=False):
+    """``TP_STEPS`` decode steps of ``toks`` (B, TP_STEPS) into a fresh
+    float32 cache, one ``forward_decode`` a step (under ``mesh``, the
+    serving layout).  ``greedy``: the tokens after the prompt are
+    overwritten by each step's argmax.  Returns (each step's logits on the
+    host, each step's seconds, each step's collectives)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as model_lib
+    tp = mesh is not None
+    caches = model_lib.init_cache(
+        cfg, TP_B, TP_CACHE, torch.float32, dev,
+        tp_mesh_shape=mesh.shape if tp else None)
+    logits, times, counts = [], [], []
+    with torch.no_grad():
+        for t in range(TP_STEPS):
+            torch.cuda.synchronize()
+            sh.reset_collective_counts()
+            t0 = time.perf_counter()
+            lg, caches = model_lib.forward_decode(
+                params, cfg, caches, toks[:, t:t + 1], t, mesh=mesh,
+                compute_dtype=torch.float32, tp=tp)
+            if greedy and TP_PROMPT <= t + 1 < TP_STEPS:
+                toks[:, t + 1] = torch.argmax(lg[:, 0], dim=-1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(sh.collective_counts())
+            logits.append(lg[:, 0].cpu())
+    return logits, times, counts
+
+
+def _tp_prefill(torch, cfg, params, toks, mesh=None):
+    """The prefill step's last logits over the prompt (B 4, S 16) and its
+    collectives."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    sh.reset_collective_counts()
+    last = steps_mod.make_prefill_step(
+        cfg, mesh=mesh, compute_dtype=torch.float32, tp=mesh is not None)(
+            params, {"tokens": toks[:, :TP_PROMPT]})
+    return last[:, 0].cpu(), sh.collective_counts()
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev):
+    """One rank of (w): each part's config at full width on
+    ``lm_mesh(TP_SHAPE)``, its blocks drawn by ``init_params(shardings=)``,
+    the twin's tokens decoded and prefilled under the serving layout; each
+    step's logits against the twin's, the bytes and peaks."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.cost_analysis import alloc_bytes
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        mesh = mesh_mod.lm_mesh(TP_SHAPE)
+        for part, arch, dtype, seed in TP_PARTS:
+            t_part = time.perf_counter()
+            cfg = get_config(arch)
+            shardings = sh.named(mesh, sh.serving_pspecs(cfg, mesh.shape))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params = model_lib.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(seed),
+                getattr(torch, dtype), shardings=shardings)
+            torch.cuda.synchronize()
+            param_bytes = sum(alloc_bytes(t.untyped_storage().nbytes())
+                              for t in leaves(params))
+            allocated = torch.cuda.memory_allocated() - base
+            init_peak = torch.cuda.max_memory_allocated() - base
+            twin = torch.load(f"{twin_dir}/{part}.pt")
+            toks = twin["toks"].to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            logits, times, counts = _tp_steps(torch, cfg, params, toks, dev,
+                                              mesh=mesh)
+            decode_peak = torch.cuda.max_memory_allocated() - base
+            pre, pre_counts = _tp_prefill(torch, cfg, params, toks, mesh)
+            out[part] = dict(
+                param_bytes=param_bytes, allocated=allocated,
+                init_peak=init_peak,
+                decode_peak=decode_peak,
+                peak=torch.cuda.max_memory_allocated() - base,
+                errs=[_rel(g, w) for g, w in zip(logits, twin["logits"])],
+                prefill_err=_rel(pre, twin["prefill"]),
+                counts=counts, prefill_counts=pre_counts,
+                step_s=times, seconds=time.perf_counter() - t_part)
+            del params, logits, twin, toks
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_twin(torch, part, arch, dtype, seed, twin_dir, dev):
+    """The twin of a part in this process: the full parameters (the same
+    draws), the prompt teacher-forced then ``TP_GEN`` greedy tokens, and
+    the prefill; its tokens and logits saved for the ranks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.cost_analysis import alloc_bytes
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import leaves
+    cfg = get_config(arch)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed),
+        getattr(torch, dtype))
+    toks = torch.zeros((TP_B, TP_STEPS), dtype=torch.int64, device=dev)
+    toks[:, :TP_PROMPT] = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TP_B, TP_PROMPT)), device=dev)
+    logits, times, _ = _tp_steps(torch, cfg, params, toks, dev, greedy=True)
+    pre, _ = _tp_prefill(torch, cfg, params, toks)
+    torch.save({"toks": toks.cpu(), "logits": logits, "prefill": pre},
+               f"{twin_dir}/{part}.pt")
+    peak = torch.cuda.max_memory_allocated()
+    max_leaf = max(alloc_bytes(t.numel() * t.element_size())
+                   for t in leaves(params))
+    del params, logits
+    _free(torch)
+    return dict(step_s=times, peak=peak, param_count=model_lib.param_count(
+        cfg), layers=cfg.num_layers, max_leaf_bytes=max_leaf)
+
+
+def _tp_dry(torch, parts):
+    """The dry run of each part's rank: ``tp_decode_bf16`` on a fake
+    (data 1, model 2) world at B 4, cache 128, float32 compute and cache,
+    the parameters in the part's dtype."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for part, arch, dtype, _ in parts:
+        out[part] = dryrun.run_cell(
+            arch=arch, shape_name="decode_32k", variant="tp_decode_bf16",
+            extra_opts={"param_dtype": dtype}, mesh_shape=dict(TP_SHAPE),
+            batch=TP_B, seq=TP_CACHE, compute_dtype=torch.float32,
+            cache_dtype=torch.float32)
+    return out
+
+
+def lm_tp_phase(torch, dev="cuda"):
+    """Part (w): each part's twin here, one after the other; then one spawn
+    of two ``gloo`` ranks on (data 1, model 2) runs (w1) and (w2), while
+    their dry runs run in a thread here."""
+    import concurrent.futures
+    import tempfile
+    card = card_line()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as twin_dir:
+        twins = {}
+        for part, arch, dtype, seed in TP_PARTS:
+            t0 = time.perf_counter()
+            twins[part] = _tp_twin(torch, part, arch, dtype, seed, twin_dir,
+                                   dev)
+            note_wall(time.perf_counter() - t0)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            dry = pool.submit(_tp_dry, torch, TP_PARTS)
+            ranks, wall = run_ranks(
+                _rank_lm_tp, 2, (twin_dir, dev),
+                lambda d, r: json.load(open(f"{d}/rank{r}.json")),
+                "lm-tp", timeout=600.0)
+            dry = dry.result()
+    say(f"[lm-tp] one spawn of 2 ranks for (w1) and (w2): {wall:.3f} s "
+        f"with start-up; parts by rank " + json.dumps(
+            {r["rank"]: {p: round(r[p]["seconds"], 3) for p, *_ in TP_PARTS}
+             for r in ranks}) + f" ({card})")
+    lm_tp_checks(ranks, twins, dry, card)
+
+
+def lm_tp_checks(ranks, twins, dry, card):
+    """(w)'s bars on each rank: every step's logits and the prefill's
+    within 1e-4 x max|logits| of the twin's, the parameter bytes equal to
+    the dry run's, the blocks drawn within one leaf above them, the
+    collectives of every step 2 all-reduces a layer plus the embedding's
+    and one all-gather of the logits."""
+    for part, arch, dtype, _ in TP_PARTS:
+        tw, d = twins[part], dry[part]
+        require(d["status"] == "ok", f"lm-tp-{part}: the dry run: "
+                f"{d.get('error') or d.get('reason')}")
+        m = d["memory"]
+        want = {"all_gather": 1, "reduce_scatter": 0,
+                "all_reduce": 2 * tw["layers"] + 1}
+        twin_ms = np.asarray(tw["step_s"][TP_PROMPT:]) * 1e3
+        say(f"[lm-tp-{part}] twin: {arch} at full width, {tw['param_count']}"
+            f" parameters in {dtype}, float32 compute, one process: B "
+            f"{TP_B}, prompt {TP_PROMPT}, gen {TP_GEN}, cache {TP_CACHE}: "
+            f"p50 {np.percentile(twin_ms, 50):.3f} ms a step (first "
+            f"{1e3 * tw['step_s'][0]:.3f}), peak device memory "
+            f"{tw['peak']} bytes ({card})")
+        for r in ranks:
+            w = r[part]
+            ms = np.asarray(w["step_s"][TP_PROMPT:]) * 1e3
+            err = max(w["errs"])
+            say(f"[lm-tp-{part}] rank {r['rank']} on (data 1, model 2): "
+                f"parameter bytes {w['param_bytes']} (its blocks' storages "
+                f"at the allocator's 512-byte grain; the dry run's "
+                f"{m['param_bytes']}; the allocator's count after the draw "
+                f"{w['allocated']}), the draw's peak {w['init_peak']} "
+                f"(blocks plus one leaf: at most "
+                f"{w['allocated'] + tw['max_leaf_bytes']}); decode peak "
+                f"{w['decode_peak']}, "
+                f"whole part {w['peak']} bytes beside the dry run's "
+                f"predicted peak {m['peak_bytes']} (resident "
+                f"{m['resident_bytes']}, step {m['step_peak_bytes']}, "
+                f"workspaces {m['workspace_bytes']}); every step's logits "
+                f"within {err:.3e} x max|logits| of the twin's, the "
+                f"prefill's within {w['prefill_err']:.3e} (bar 1e-4); "
+                f"collectives a step {json.dumps(w['counts'][0])} "
+                f"(prefill {json.dumps(w['prefill_counts'])}; the dry "
+                f"run's {json.dumps(d['collectives']['counts'])}); p50 "
+                f"{np.percentile(ms, 50):.3f} ms a step (first "
+                f"{1e3 * w['step_s'][0]:.3f}) beside the twin's "
+                f"{np.percentile(twin_ms, 50):.3f} ({card})")
+            require(err <= 1e-4 and w["prefill_err"] <= 1e-4,
+                    f"lm-tp-{part}: rank {r['rank']}'s logits differ from "
+                    f"the twin's")
+            require(w["param_bytes"] == m["param_bytes"],
+                    f"lm-tp-{part}: rank {r['rank']}'s parameter bytes are "
+                    f"not the dry run's")
+            require(all(c == want for c in w["counts"])
+                    and w["prefill_counts"] == want,
+                    f"lm-tp-{part}: rank {r['rank']}'s collectives are not "
+                    f"{want} a step")
+            require(w["init_peak"] <= w["allocated"] + tw["max_leaf_bytes"],
+                    f"lm-tp-{part}: rank {r['rank']}'s draw held more than "
+                    f"its blocks and one leaf")
+
+
 def lm_phase(torch, T):
     """Phase 21.  Returns (the launch counts of each pruning curve, by
     path; a function returning each kernel's checks at the curves' shapes,
@@ -4324,6 +4606,8 @@ def lm_phase(torch, T):
     with timed_phase("lm-moe-curve"):
         counts_moe, calls_moe, res_moe = lm_moe_curve_phase(torch, signal)
     zero_peaks = lm_zero_phase(torch, losses, moe_metrics, ck_d)
+    with timed_phase("lm-tp"):
+        lm_tp_phase(torch)
     with timed_phase("lm-minicpm3"):
         lm_mla_serve_phase(torch)
     with timed_phase("lm-deepseek-v2"):

@@ -31,6 +31,14 @@ of the batch, and these functions keep the reference's global values:
   (backward: a sum over 'model') and combine (forward: a sum over 'model',
   backward the identity).
 
+Tensor-parallel serving (the reference's ``tp_only`` dry-run layout) is
+the exception to gathering: ``serving_pspecs`` splits the parameters over
+'model' by the rules and replicates them over the data axes, each rank
+keeps its blocks, and the forward steps run on them between two
+forward-only boundary ops: ``tp_reduce`` (the partial sums of a
+row-parallel product, or of a vocab-parallel lookup, summed over 'model')
+and ``tp_gather`` (vocab-split logits joined along the vocabulary).
+
 Collectives are counted (``collective_counts``).
 """
 from __future__ import annotations
@@ -40,7 +48,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..models.common import CONSTRAINTS, P, is_desc, is_spec
+from ..models.common import (CONSTRAINTS, DEFAULT_RULES, P, is_desc, is_spec,
+                             tree_specs)
 from ..pytree import flatten, leaves, plain_structure, tree_map, unflatten
 
 
@@ -75,6 +84,17 @@ def batch_pspec(cfg, shape_name, mesh_shape, batch_size: int):
         "patches": P(bdim, None, None),
         "frames": P(bdim, None, None),
     }
+
+
+def serving_pspecs(cfg, mesh_shape):
+    """The parameters' ``P`` tree under the serving layout on a mesh of
+    ``mesh_shape`` (the reference dry run's ``tp_only`` specs):
+    ``DEFAULT_RULES`` with 'embed' unsplit, so the parameters are whole
+    over the data axes, split over 'model' only, and a forward step
+    gathers none of them."""
+    from ..models.model import param_descs
+    return tree_specs(param_descs(cfg), mesh_shape,
+                      dict(DEFAULT_RULES, embed=()))
 
 
 def _kv_cache_pspec(mesh_shape, batch, seq, kv_heads):
@@ -194,6 +214,18 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     _dist().all_reduce(out, group=group)
     _COUNTS["all_reduce"] += 1
     return out
+
+
+def tp_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The partial sums ``t`` of this rank's blocks summed over 'model'
+    (forward only: serving runs without autograd)."""
+    return all_reduce_sum(t.contiguous(), mesh, "model")
+
+
+def tp_gather(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The 'model' ranks' blocks of ``t`` joined along ``dim`` in block
+    order (forward only)."""
+    return _all_gather_dim(t, dim, mesh, "model")
 
 
 def _gather_list(t: torch.Tensor, group, n: int) -> list:

@@ -13,7 +13,10 @@ step's live bytes, plus what a training loop holds from the step before
 (its metrics), plus the library workspaces of the threads that run it), FLOPs and bytes, the collectives by kind (equal to
 ``distributed.sharding.collective_counts()``), the roofline terms on the
 H100 and the useful-FLOPs ratio.  Every cell runs in a process of its own:
-the fake world is that process's default group.
+the fake world is that process's default group.  Under ``tp_decode_bf16``
+(the serving layout, ``distributed.sharding.serving_pspecs``) a decode or
+prefill cell holds this rank's parameter blocks and its cache, and runs
+the steps with ``tp=True``.
 
 Usage::
 
@@ -89,13 +92,25 @@ VARIANTS = {
     "mb8_bf16opt": dict(microbatch=8, moment_dtype="bfloat16"),
 }
 
-#: knobs the port's steps lack, with the reason (``replicate_params`` is
-#: the port's decode and prefill layout already: every rank holds the
-#: whole tree)
-MISSING_KNOBS = {
-    "tp_only": "the port computes replicated along 'model' (ROADMAP item "
-               "49): there is no tensor-parallel decode step to shard",
-}
+def _tp_missing(cfg, kind):
+    """Why the port's steps cannot run ``tp_only`` for this cell, or
+    None."""
+    try:
+        model_lib.check_tp(cfg)
+    except NotImplementedError as e:
+        return str(e)
+    if kind == "train":
+        return ("tensor-parallel training (the backward through the "
+                "boundary ops) is ROADMAP item 61; the serving layout runs "
+                "the decode and prefill steps")
+    return None
+
+
+#: knobs the port's steps lack for some cells: each a function of (config,
+#: step kind) giving the reason, None where the port has the knob
+#: (``replicate_params`` is the port's decode and prefill layout already:
+#: every rank holds the whole tree)
+MISSING_KNOBS = {"tp_only": _tp_missing}
 
 
 def _mesh_name(multi_pod, mesh_shape):
@@ -128,12 +143,13 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 remat: str = "full", variant: str = "baseline",
                 extra_opts=None, mesh_shape=None, cfg=None, batch=None,
                 seq=None, compute_dtype=torch.bfloat16,
-                device=None) -> dict:
+                cache_dtype=torch.bfloat16, device=None) -> dict:
     """One cell on rank 0 of a fake world: the production mesh (data 16,
     model 16; with ``multi_pod`` pod 2 as well) or ``mesh_shape`` ({} for
     no mesh).  ``cfg`` replaces the registered config (a reduced one);
     ``batch`` / ``seq`` replace the shape's; ``compute_dtype`` is the
-    step builders' (``launch.train`` runs float32).  Initializes the fake
+    step builders' (``launch.train`` runs float32), ``cache_dtype`` the
+    decode cache's.  Initializes the fake
     world as the process's default group and destroys it after: call it
     in a process of its own (``run_cell``)."""
     from ..launch import train as train_mod
@@ -145,8 +161,10 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ok, why = shape_supported(cfg, shape_name)
     opts = dict(VARIANTS.get(variant, {}))
     opts.update(extra_opts or {})
-    missing = [MISSING_KNOBS[k] for k in opts if k in MISSING_KNOBS]
-    if opts.get("replicate_params") and SHAPES[shape_name][2] == "train":
+    kind = SHAPES[shape_name][2]
+    missing = [why for why in (MISSING_KNOBS[k](cfg, kind) for k in opts
+                               if k in MISSING_KNOBS) if why]
+    if opts.get("replicate_params") and kind == "train":
         missing.append("the port's train step holds ZeRO-3 blocks: "
                        "replicated parameters are its decode and prefill "
                        "steps' own layout")
@@ -163,15 +181,19 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                    else torch.float32)
     moment_dtype = (torch.bfloat16 if opts.get("moment_dtype") == "bfloat16"
                     else torch.float32)
+    tp = bool(opts.get("tp_only"))
     mode = ca.fake_mode()
     t0 = time.time()
     with fake_world(max(n_ranks, 1)):
         mesh = lm_mesh(mesh_shape) if n_ranks > 1 else None
-        spec = input_specs(cfg, shape_name, mesh_shape, mode=mode,
-                           device=dev, batch=batch, seq=seq)
-        kind = spec["kind"]
+        spec = input_specs(cfg, shape_name, mesh_shape, cache_dtype,
+                           mode=mode, device=dev, batch=batch, seq=seq,
+                           tp=tp)
         params = model_lib.abstract_params(cfg, param_dtype, mode=mode,
                                            device=dev)
+        if tp and mesh is not None:      # this rank's serving blocks
+            params = train_mod.local_params(params, sh.named(
+                mesh, sh.serving_pspecs(cfg, mesh.shape)))
         sh.reset_collective_counts()
         if kind == "train":
             if mesh is not None:
@@ -180,6 +202,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 params = train_mod.local_params(
                     params, sh.named(mesh, specs).params)
             state = adamw.abstract_state(params, moment_dtype)
+            param_bytes = _tree_bytes(state.params)
             resident = _tree_bytes(state) + _tree_bytes(spec["args"])
             step = make_train_step(cfg, mesh=mesh, remat=remat,
                                    compute_dtype=compute_dtype,
@@ -189,18 +212,20 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 state, metrics = step(state, spec["args"][0])
             carried = _storage_bytes(metrics.values())
         elif kind == "prefill":
-            resident = _tree_bytes(params) + _tree_bytes(spec["args"])
+            param_bytes = _tree_bytes(params)
+            resident = param_bytes + _tree_bytes(spec["args"])
             carried = 0
             step = make_prefill_step(cfg, mesh=mesh,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, tp=tp)
             with mode, ca.CostCounter() as c:
                 step(params, spec["args"][0])
         else:
             caches, tokens, pos = spec["args"]
-            resident = _tree_bytes(params) + _tree_bytes(spec["args"])
+            param_bytes = _tree_bytes(params)
+            resident = param_bytes + _tree_bytes(spec["args"])
             carried = 0
             step = make_serve_step(cfg, mesh=mesh,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, tp=tp)
             with mode, ca.CostCounter() as c:
                 step(params, caches, tokens, pos)
         tallies = sh.collective_counts()
@@ -224,7 +249,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 "step_peak_gb": c.peak / 1e9,
                 "workspace_gb": ws / 1e9,
                 "peak_gb": peak / 1e9,
-                "resident_bytes": resident, "step_peak_bytes": c.peak,
+                "resident_bytes": resident, "param_bytes": param_bytes,
+                "step_peak_bytes": c.peak,
                 "carried_bytes": carried, "workspace_bytes": ws,
                 "peak_bytes": peak},
         collectives={"counts": c.collective_counts(),

@@ -5,6 +5,12 @@
 ``input_specs(cfg, shape_name)`` returns (step kind, fake inputs, ``P``
 tree): fake tensors (``torch._subclasses.FakeTensorMode``) in place of the
 reference's ``ShapeDtypeStruct``s, for ``launch.dryrun``.
+
+The prefill and serve steps take ``tp=True`` for tensor-parallel serving
+(the reference dry run's ``tp_only`` layout; ``models.model.tp_layout``):
+the caller holds this rank's parameter blocks by ``distributed.sharding.
+serving_pspecs`` and, for decode, its cache; every rank returns the whole
+batch.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ def shape_supported(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
 
 def input_specs(cfg: ArchConfig, shape_name: str, mesh_shape=None,
                 cache_dtype=torch.bfloat16, *, mode=None, device=None,
-                batch: int = None, seq: int = None) -> dict:
+                batch: int = None, seq: int = None, tp: bool = False) -> dict:
     """``{kind, args, arg_pspecs, seq, batch}`` of one cell: ``args`` are
     fake tensors made in ``mode`` (a ``FakeTensorMode``; a new one by
     default) on ``device`` (the fake trace's, ``cost_analysis.
@@ -46,7 +52,9 @@ def input_specs(cfg: ArchConfig, shape_name: str, mesh_shape=None,
     ``args = (batch,)``; decode: ``(caches, tokens, pos)``, ``pos`` the
     last position (an int, as ``forward_decode`` takes it).  Tokens are
     int64, the port's index dtype.  ``batch`` / ``seq`` override the
-    shape's."""
+    shape's.  ``tp``: the caches are a rank's under tensor-parallel
+    serving on a mesh of ``mesh_shape`` (``arg_pspecs`` stay the
+    reference's)."""
     from .cost_analysis import fake_mode, trace_device
     from ..models.common import P
     mode = mode or fake_mode()
@@ -86,7 +94,8 @@ def input_specs(cfg: ArchConfig, shape_name: str, mesh_shape=None,
                     "seq": S, "batch": B}
         caches = tree_map(
             lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
-            model_lib.cache_shapes(cfg, B, S, cache_dtype))
+            model_lib.cache_shapes(cfg, B, S, cache_dtype,
+                                   mesh_shape if tp else None))
         tokens = tok((B, 1))
     return {"kind": "decode", "args": (caches, tokens, S - 1),
             "arg_pspecs": (sh.cache_pspecs(cfg, B, S, mesh_shape),
@@ -200,12 +209,14 @@ def make_train_step(cfg: ArchConfig, mesh=None, remat="full",
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None,
-                      compute_dtype=torch.bfloat16):
+                      compute_dtype=torch.bfloat16, tp: bool = False):
     """Full-sequence forward -> last-position logits.  batch: ``tokens``,
     and an enc-dec config's ``frames`` or a vision config's ``patches``.
     Under a mesh each rank runs its rows of the global batch (full
-    parameters) and every rank returns the whole batch's logits."""
+    parameters; with ``tp`` its blocks by ``sharding.serving_pspecs``)
+    and every rank returns the whole batch's logits."""
     model_lib.check_mesh(mesh)
+    layout = model_lib.tp_layout(cfg, mesh) if tp else None
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -217,28 +228,35 @@ def make_prefill_step(cfg: ArchConfig, mesh=None,
                 params, cfg, batch["frames"].to(compute_dtype),
                 batch["tokens"], mesh=m, remat="none")
         else:
-            x = model_lib.assemble_inputs(params, cfg, batch, compute_dtype)
+            x = model_lib.assemble_inputs(params, cfg, batch, compute_dtype,
+                                          layout)
             positions = torch.arange(x.shape[1], device=x.device)
             x, _, _ = model_lib.decoder_stack(params, x, positions, cfg,
-                                              mesh=m, remat="none")
+                                              mesh=m, remat="none",
+                                              layout=layout)
             y = model_lib.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = model_lib.logits_fn(params, cfg, y[:, -1:, :])
+        logits = model_lib.logits_fn(params, cfg, y[:, -1:, :], layout)
         return logits if m is None else sh.gather_rows(logits, m)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, mesh=None, compute_dtype=torch.bfloat16):
+def make_serve_step(cfg: ArchConfig, mesh=None, compute_dtype=torch.bfloat16,
+                    tp: bool = False):
     """``serve_step(params, caches, tokens, pos) -> (next tokens (B, 1),
     caches)``: greedy, the caches written in place.  Under a mesh every
-    rank decodes the whole batch (``forward_decode``)."""
+    rank decodes the whole batch (``forward_decode``); with ``tp``, each
+    data group its rows over this rank's blocks and cache, and every rank
+    returns the whole batch's tokens."""
     model_lib.check_mesh(mesh)
+    if tp:
+        model_lib.check_tp(cfg)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
         logits, new_caches = model_lib.forward_decode(
             params, cfg, caches, tokens, pos, mesh=mesh,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, tp=tp)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok[:, None], new_caches
 

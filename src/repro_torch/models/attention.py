@@ -15,6 +15,10 @@ MLA (``mla_forward``) runs the expanded form for train and prefill, through
 form for decode: ``W_uk`` folded into the query and ``W_uv`` into the
 output, so attention reads the latent cache ``(B, S, kv_lora_rank)`` plus
 ``(B, S, qk_rope_head_dim)`` and never expands it a head.
+
+Under tensor-parallel serving (``HeadSplit``) a GQA layer holds its 'model'
+rank's q heads and the kv heads they read, and its output projection is
+row-parallel: the partial outputs are summed over 'model'.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as sh
 from .common import ParamDesc, rms_norm, rope, softcap
 
 BLOCKED_THRESHOLD = 8192
@@ -189,9 +194,50 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def kv_block(H, KV, m, r, heads: bool, kv: bool) -> tuple:
+    """(first, count) of the kv heads that the q heads of 'model' rank
+    ``r`` of ``m`` read, global q head h reading kv head h // (H / KV).
+    ``heads`` / ``kv``: whether the layout splits the q / kv heads over
+    'model'.  Unsplit q heads read every kv head; split kv heads are the
+    rank's block; split q heads over unsplit kv heads (|model| does not
+    divide KV) read one kv head, when a rank's q heads fall in one group."""
+    if not heads:
+        return 0, KV
+    if kv:
+        return r * (KV // m), KV // m
+    local, rep = H // m, H // KV
+    if rep % local:
+        raise NotImplementedError(
+            f"{local} q heads a rank straddle kv groups of {rep}: a 'model' "
+            f"axis of {m}, neither a divisor nor a multiple of {KV} kv "
+            f"heads, is not served")
+    return r * local // rep, 1
+
+
+class HeadSplit(NamedTuple):
+    """A GQA layer's layout on one 'model' rank of tensor-parallel
+    serving: ``heads`` / ``kv``, whether its spec splits the q heads
+    (``wq``, ``wo``) / the kv heads (``wk``, ``wv``) over 'model'."""
+    mesh: object
+    heads: bool
+    kv: bool
+
+    @classmethod
+    def of(cls, specs, mesh) -> "HeadSplit":
+        """From the layer's spec tree (``wq`` (d, H, dh), ``wk``)."""
+        return cls(mesh, specs["wq"][1] == "model",
+                   specs["wk"][1] == "model")
+
+    def kv_heads(self, cfg) -> tuple:
+        """``kv_block`` of this rank."""
+        return kv_block(cfg.num_heads, cfg.num_kv_heads,
+                        self.mesh.axes_size("model"),
+                        self.mesh.block_index("model"), self.heads, self.kv)
+
+
 def gqa_forward(p, x, positions, cfg, *, window=None, rope_theta=None,
                 cache: Optional[KVCache] = None, cache_pos=None,
-                force_impl=None):
+                force_impl=None, tp: Optional[HeadSplit] = None):
     """x: (B, S, d).  Training/prefill when cache is None; decode otherwise.
 
     Decode contract: x is (B, 1, d), ``cache_pos`` the absolute position (an
@@ -200,14 +246,23 @@ def gqa_forward(p, x, positions, cfg, *, window=None, rope_theta=None,
     ``min(cache_len, window)`` slots as a ring; slot positions are rebuilt
     from ``cache_pos // S_cache``, unwritten slots get negative positions
     and are masked.
+
+    ``tp``: ``p`` holds this 'model' rank's blocks; with the q heads split
+    and the kv heads whole, the rank projects only the kv heads its q heads
+    read (``HeadSplit.kv_heads``), so the cache holds those, and the output
+    is summed over 'model'.  Forward only.
     """
     B, S, d = x.shape
     dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None and tp.heads and not tp.kv:
+        first, n = tp.kv_heads(cfg)
+        wk, wv = wk[:, first:first + n], wv[:, first:first + n]
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -237,13 +292,16 @@ def gqa_forward(p, x, positions, cfg, *, window=None, rope_theta=None,
     o = sdpa(q, kk, vv, q_pos, k_pos, window=window,
              scale=dh ** -0.5, cap=cfg.attn_softcap, force_impl=force_impl)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"].to(x.dtype))
+    if tp is not None and tp.heads:
+        out = sh.tp_reduce(out, tp.mesh)
     return out, new_cache
 
 
-def gqa_cache_shape(cfg, batch, cache_len, window=None):
-    """Shape of one layer's k (and v) cache."""
+def gqa_cache_shape(cfg, batch, cache_len, window=None, kv_heads=None):
+    """Shape of one layer's k (and v) cache (``kv_heads``: a rank's count
+    under tensor-parallel serving, else all of them)."""
     S = min(cache_len, window) if window is not None else cache_len
-    return (batch, S, cfg.num_kv_heads, cfg.head_dim)
+    return (batch, S, kv_heads or cfg.num_kv_heads, cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------

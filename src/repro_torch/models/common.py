@@ -163,27 +163,31 @@ def _desc_flatten(descs):
 
 
 def tree_init(descs, generator: torch.Generator,
-              param_dtype=torch.float32) -> ParamTree:
+              param_dtype=torch.float32, local=None) -> ParamTree:
     """The reference's init rule on the device of ``generator``: a leaf of
     two or more dims draws N(0, 1) * scale / sqrt(prod(shape[:-1])) (the
     stack axis counts in the fan-in), a 1-D leaf is 0 when its scale is 0,
     else 1.  Leaves draw from ``generator`` one after another in the
-    reference's order; the values are the port's own."""
+    reference's order; the values are the port's own.  ``local``: one
+    function a leaf, in that order, applied to each leaf as it is drawn
+    (a rank keeping its block)."""
     descs_flat, td = _desc_flatten(descs)
     dev = generator.device
     out = []
-    for d in descs_flat:
+    for i, d in enumerate(descs_flat):
         dt = d.dtype or param_dtype
         if len(d.shape) >= 2:
             fan_in = int(np.prod(d.shape[:-1]))
             std = d.scale / np.sqrt(max(fan_in, 1))
             w = torch.randn(d.shape, generator=generator, device=dev,
                             dtype=dt)
-            out.append(w.mul_(torch.tensor(std, dtype=dt, device=dev)))
+            w = w.mul_(torch.tensor(std, dtype=dt, device=dev))
         elif d.scale == 0.0:
-            out.append(torch.zeros(d.shape, dtype=dt, device=dev))
+            w = torch.zeros(d.shape, dtype=dt, device=dev)
         else:
-            out.append(torch.ones(d.shape, dtype=dt, device=dev))
+            w = torch.ones(d.shape, dtype=dt, device=dev)
+        out.append(w if local is None else local[i](w))
+        del w
     return unflatten(td, out)
 
 

@@ -36,6 +36,15 @@ reported on every rank is that sum.  ``seq_shard`` keeps S / |model| rows
 of the residual stream a rank between the period's layers.  Another kind
 of mesh raises ``TypeError``.
 
+Tensor-parallel serving (``forward_decode(tp=True)``, the prefill step's
+``tp``; the dense GQA family, ``check_tp``) keeps each rank's blocks of
+the parameters by ``distributed.sharding.serving_pspecs`` (a ``TPLayout``)
+and its rows of the batch: the embedding is a vocab-parallel lookup, each
+block runs its rank's heads and channels with the rows summed over 'model'
+after the row-parallel ``wo`` and ``w_out``, and the head's vocab-split
+logits are gathered.  Each rank's cache holds its rows and the kv heads
+its q heads read (``cache_shapes(tp_mesh_shape=...)``).
+
 The decode cache is a nested dict, a leaf tree a layer of the period
 stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
 ``KVCache`` (under MLA ``MLACache``) for attention, ``{"mamba":
@@ -60,9 +69,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.groups import resolve_device
 from ..distributed import sharding as sh
-from ..pytree import flatten, plain_structure, tree_map, unflatten
-from .common import (ParamDesc, constrain, constraint_spec, rms_norm,
-                     softcap, tree_init, tree_specs)
+from ..pytree import flatten, leaves, plain_structure, tree_map, unflatten
+from .common import (P, ParamDesc, constrain, constraint_spec, is_spec,
+                     rms_norm, softcap, tree_init, tree_specs)
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
@@ -81,6 +90,52 @@ def check_supported(cfg: ArchConfig) -> None:
     if parts:
         raise NotImplementedError(f"{cfg.name}: block kind {parts[0]!r} is "
                                   f"not ported")
+
+
+#: tensor-parallel serving of the families outside the dense GQA slice:
+#: the ROADMAP item that covers each
+TP_ITEMS = {"mla": "item 57 (MLA)", "moe": "item 58 (the MoE's attention "
+            "beside expert parallelism)", "ssm": "item 59 (the xLSTM heads)",
+            "hybrid": "item 59 (the Mamba2 heads)", "encdec": "item 60 (the "
+            "enc-dec backbone)", "vlm": "item 60 (the vision backbone)"}
+
+
+def check_tp(cfg: ArchConfig) -> None:
+    """Tensor-parallel serving covers the dense GQA family; another
+    config raises ``NotImplementedError`` naming the ROADMAP items that
+    cover it."""
+    parts = ([TP_ITEMS["mla"]] if cfg.mla else []) + (
+        [TP_ITEMS[cfg.family]] if cfg.family != "dense" else [])
+    if parts:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving covers the dense GQA "
+            f"family; this config is ROADMAP " + " and ".join(parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """Tensor-parallel serving on ``mesh``: every parameter is this rank's
+    block by ``specs`` (``sharding.serving_pspecs``).  ``embed_split`` /
+    ``head_split``: the embedding's rows / the head's columns are split
+    over 'model' (a tied head is the embedding)."""
+    mesh: Any
+    specs: Any
+    embed_split: bool
+    head_split: bool
+
+
+def tp_layout(cfg: ArchConfig, mesh) -> "TPLayout | None":
+    """The serving layout of ``cfg`` on ``mesh`` (``None`` without a mesh:
+    nothing is split).  Raises for a config outside the slice
+    (``check_tp``)."""
+    check_tp(cfg)
+    check_mesh(mesh)
+    if mesh is None:
+        return None
+    specs = sh.serving_pspecs(cfg, mesh.shape)
+    embed = specs["embed"][0] == "model"
+    head = embed if cfg.tie_embeddings else specs["lm_head"][1] == "model"
+    return TPLayout(mesh, specs, embed, head)
 
 
 def check_mesh(mesh) -> None:
@@ -164,9 +219,16 @@ def abstract_params(cfg, param_dtype=torch.float32, *, mode=None,
     return unflatten(td, out)
 
 
-def init_params(cfg, generator: torch.Generator, param_dtype=torch.float32):
-    """A ``ParamTree`` on the device of ``generator``."""
-    return tree_init(param_descs(cfg), generator, param_dtype)
+def init_params(cfg, generator: torch.Generator, param_dtype=torch.float32,
+                shardings=None):
+    """A ``ParamTree`` on the device of ``generator``.  With ``shardings``
+    (the parameters' tree of ``NamedSharding``) each leaf is this rank's
+    block: drawn whole in the same order, then cut, so its values are those
+    of the unsplit draw and the peak is the blocks plus one leaf."""
+    local = None
+    if shardings is not None:
+        local = [s.local for s in leaves(shardings, is_leaf=sh.is_sharding)]
+    return tree_init(param_descs(cfg), generator, param_dtype, local)
 
 
 def param_pspecs(cfg, mesh_shape):
@@ -184,12 +246,19 @@ def param_count(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
-                    cache_pos=None, mesh=None, capacity_factor=1.25):
+                    cache_pos=None, mesh=None, capacity_factor=1.25,
+                    tp_specs=None):
     """Returns (x, aux); aux is the MoE's load-balancing loss, 0 for dense
-    layers.  A decode ``cache`` is written in place."""
+    layers.  A decode ``cache`` is written in place.  ``tp_specs``: the
+    block's serving spec tree (``p`` holds this rank's blocks by it), whose
+    'model' entries say which dims ``mesh`` splits."""
     window = cfg.window_size if kind == "local" else None
     theta = (cfg.rope_theta_local if kind == "local" and cfg.rope_theta_local
              else cfg.rope_theta)
+    heads = mlp_mesh = None
+    if tp_specs is not None:
+        heads = attn.HeadSplit.of(tp_specs["attn"], mesh)
+        mlp_mesh = mesh if tp_specs["ffn"]["w_out"][0] == "model" else None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
         a_out, _ = attn.mla_forward(p["attn"], h, positions, cfg,
@@ -197,14 +266,15 @@ def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
     else:
         a_out, _ = attn.gqa_forward(p["attn"], h, positions, cfg,
                                     window=window, rope_theta=theta,
-                                    cache=cache, cache_pos=cache_pos)
+                                    cache=cache, cache_pos=cache_pos,
+                                    tp=heads)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
         f_out, aux = moe_mod.moe_forward(p["ffn"], h, cfg, mesh=mesh,
                                          capacity_factor=capacity_factor)
     else:
-        f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg)
+        f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg, tp_mesh=mlp_mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f_out, aux
 
@@ -217,15 +287,18 @@ def _write(cache, new):
 
 
 def _block_forward(kind, p, x, positions, cfg, *, cache=None, cache_pos=None,
-                   mesh=None, shared=None, capacity_factor=1.25):
+                   mesh=None, shared=None, capacity_factor=1.25,
+                   tp_specs=None):
     """One layer of ``kind``; a decode ``cache`` is written in place.
     ``shared``: the ``shared_attn`` block a ``mamba+shared_attn`` layer
     applies after its Mamba2 (the layer's cache holds its own KV cache).
+    ``tp_specs``: the layer's serving spec tree (attention kinds only).
     Returns (x, aux)."""
     if kind in ATTN_KINDS:
         return _attn_ffn_block(p, x, positions, cfg, kind, cache=cache,
                                cache_pos=cache_pos, mesh=mesh,
-                               capacity_factor=capacity_factor)
+                               capacity_factor=capacity_factor,
+                               tp_specs=tp_specs)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if kind in MAMBA_KINDS:
@@ -309,18 +382,29 @@ def _unbind(stacked, n):
             for r in range(n)]
 
 
+def _unstacked(specs):
+    """A stacked leaf tree's specs without the stack dim."""
+    return tree_map(lambda s: P(*s[1:]), specs, is_leaf=is_spec)
+
+
 def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
                   cache_pos=None, mesh=None, remat="full",
-                  capacity_factor=1.25, seq_shard=False):
+                  capacity_factor=1.25, seq_shard=False, layout=None):
     """x: (B, S, d), this rank's rows under a mesh.  caches: None
     (train/prefill) or the tree of ``init_cache``, written in place.
     ``capacity_factor``: the MoE's (None: lossless).  ``seq_shard``: where
     |model| divides S, each 'model' rank keeps S / |model| rows of the
     residual stream between periods; each period gathers them first, under
     its checkpoint, so the tensor a checkpoint keeps is the rank's rows.
-    Returns (x, caches, aux)."""
+    ``layout``: a ``TPLayout`` (``params`` are this rank's blocks by it;
+    each layer gets its spec tree).  Returns (x, caches, aux)."""
     check_supported(cfg)
     check_mesh(mesh)
+    layer_specs = lambda key, stacked: None
+    if layout is not None:
+        layer_specs = lambda key, stacked: (
+            _unstacked(layout.specs["blocks"][key]) if stacked
+            else layout.specs[key])
     act_seq = "model" if seq_shard else None
     x = constrain(x, mesh, ("pod", "data"), act_seq, None)
     split = (mesh is not None and caches is None and seq_shard
@@ -333,12 +417,15 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
                          else None)
         x, a = _block_forward(kind, params[f"pro{i}"], x, positions, cfg,
                               cache=c, cache_pos=cache_pos, mesh=mesh,
-                              capacity_factor=capacity_factor)
+                              capacity_factor=capacity_factor,
+                              tp_specs=layer_specs(f"pro{i}", False))
         aux_total = aux_total + a
     block_caches = caches["blocks"] if caches is not None else None
     per_r = _unbind(params["blocks"], cfg.repeats)
     shared = _unbind(params["shared_attn"], 2) \
         if "shared_attn" in params else None
+    period_specs = {f"l{i}": layer_specs(f"l{i}", True)
+                    for i in range(len(cfg.block_pattern))}
 
     def period_body(x, r):
         if split:
@@ -350,7 +437,8 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
             x, a = _block_forward(kind, per_r[r][f"l{i}"], x, positions, cfg,
                                   cache=c, cache_pos=cache_pos, mesh=mesh,
                                   shared=shared[r % 2] if shared else None,
-                                  capacity_factor=capacity_factor)
+                                  capacity_factor=capacity_factor,
+                                  tp_specs=period_specs[f"l{i}"])
             x = constrain(x, mesh, ("pod", "data"), act_seq, None)
             aux = aux + a
         return (sh.split_seq(x, mesh) if split else x), aux
@@ -373,9 +461,19 @@ def decoder_stack(params, x, positions, cfg: ArchConfig, *, caches=None,
 LOSS_CHUNK = 1024
 
 
-def embed_tokens(params, cfg, tokens, compute_dtype):
+def embed_tokens(params, cfg, tokens, compute_dtype, layout=None):
+    """``layout``: a ``TPLayout`` whose embedding rows are split: a
+    vocab-parallel lookup, each rank's rows for the tokens of its block and
+    0 for the others, summed over 'model'."""
     emb = params["embed"].to(compute_dtype)
-    x = torch.nn.functional.embedding(tokens, emb)
+    if layout is not None and layout.embed_split:
+        n = emb.shape[0]
+        local = tokens - layout.mesh.block_index("model") * n
+        outside = (local < 0) | (local >= n)
+        x = torch.nn.functional.embedding(local.masked_fill(outside, 0), emb)
+        x = sh.tp_reduce(x.masked_fill(outside[..., None], 0), layout.mesh)
+    else:
+        x = torch.nn.functional.embedding(tokens, emb)
     return x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype,
                             device=x.device)
 
@@ -386,9 +484,14 @@ def _head_matrix(params, cfg, compute_dtype):
     return params["lm_head"].to(compute_dtype)
 
 
-def logits_fn(params, cfg, x):
+def logits_fn(params, cfg, x, layout=None):
+    """``layout``: a ``TPLayout`` whose head columns are split: this rank's
+    vocabulary slice of the logits, gathered over 'model' before the
+    cap."""
     w = _head_matrix(params, cfg, x.dtype)
     logits = (x @ w).to(torch.float32)
+    if layout is not None and layout.head_split:
+        logits = sh.tp_gather(logits, -1, layout.mesh)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
@@ -530,8 +633,23 @@ class TensorSpec:
     fill: float = 0.0
 
 
+def _tp_cache_dims(cfg, batch, mesh_shape) -> tuple:
+    """(rows, kv heads) of a rank's KV cache under the serving layout on a
+    mesh of ``mesh_shape``: its rows of the batch where the data axes divide
+    it (``sharding.local_rows``), and the kv heads its q heads read."""
+    check_tp(cfg)
+    a = _unstacked(sh.serving_pspecs(cfg, mesh_shape)["blocks"]["l0"])["attn"]
+    _, kv = attn.kv_block(cfg.num_heads, cfg.num_kv_heads,
+                          mesh_shape.get("model", 1), 0,
+                          a["wq"][1] == "model", a["wk"][1] == "model")
+    dp = sh.dp_axes(mesh_shape)
+    if sh.divisible(batch, mesh_shape, dp):
+        batch //= int(np.prod([mesh_shape[ax] for ax in dp]))
+    return batch, kv
+
+
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, tp_mesh_shape=None):
     """The decode cache's ``TensorSpec`` tree, one leaf tree a layer of the
     period stacked over ``repeats`` and one a prologue layer, unstacked:
     a ``KVCache`` (under MLA an ``MLACache``; local layers
@@ -541,9 +659,14 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
     states float32, the xLSTM's ``m`` filled with -1e30.  The enc-dec
     cache is the decoder's self-attention ``KVCache`` stacked over
     ``dec_layers`` and ``enc_out`` (B, cache_len, d): the encoder's length
-    is the cache's, as in the reference."""
+    is the cache's, as in the reference.  ``tp_mesh_shape``: a rank's cache
+    under tensor-parallel serving on a mesh of that shape (its rows and
+    the kv heads its q heads read; the dense GQA family only)."""
     check_supported(cfg)
     f32 = torch.float32
+    kv_heads = None
+    if tp_mesh_shape is not None:
+        batch, kv_heads = _tp_cache_dims(cfg, batch, tp_mesh_shape)
     if cfg.family == "encdec":
         kv = (cfg.dec_layers,) + attn.gqa_cache_shape(cfg, batch, cache_len)
         return {"decoder": {"self": attn.KVCache(TensorSpec(kv, dtype),
@@ -575,7 +698,7 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
             shapes = attn.mla_cache_shape(cfg, batch, cache_len)
             return attn.MLACache(*(spec(s) for s in shapes))
         window = cfg.window_size if kind == "local" else None
-        shp = attn.gqa_cache_shape(cfg, batch, cache_len, window)
+        shp = attn.gqa_cache_shape(cfg, batch, cache_len, window, kv_heads)
         return attn.KVCache(spec(shp), spec(shp))
 
     return {"blocks": {f"l{i}": layer(kind, (cfg.repeats,))
@@ -583,25 +706,28 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
             "prologue": [layer(kind) for kind in cfg.prologue]}
 
 
-def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
+def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None,
+               tp_mesh_shape=None):
     """``cache_shapes`` filled (zeros, the xLSTM's ``m`` -1e30);
     ``device=None`` is the card."""
     dev = resolve_device(device)
     return tree_map(lambda s: torch.full(s.shape, s.fill, dtype=s.dtype,
                                          device=dev),
-                    cache_shapes(cfg, batch, cache_len, dtype))
+                    cache_shapes(cfg, batch, cache_len, dtype,
+                                 tp_mesh_shape))
 
 
 # ---------------------------------------------------------------------------
 # public steps
 # ---------------------------------------------------------------------------
 
-def assemble_inputs(params, cfg, batch, compute_dtype):
+def assemble_inputs(params, cfg, batch, compute_dtype, layout=None):
     """tokens (+ the vision prefix) -> (B, S, d) input states: a vision
     config's ``patches`` (B, num_patches, d), cast to the compute dtype,
-    come before the token embeddings."""
+    come before the token embeddings.  ``layout``: see
+    ``embed_tokens``."""
     check_supported(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"], compute_dtype)
+    x = embed_tokens(params, cfg, batch["tokens"], compute_dtype, layout)
     if cfg.frontend == "vision" and "patches" in batch:
         x = torch.cat([batch["patches"].to(compute_dtype), x], dim=1)
     return x
@@ -679,14 +805,24 @@ def _global_loss(mesh, tot, n, aux=None):
 
 
 def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
-                   mesh=None, compute_dtype=torch.bfloat16):
+                   mesh=None, compute_dtype=torch.bfloat16, tp=False):
     """One decode step.  tokens: (B, 1) int64; pos: the absolute position
     (an int).  Returns (logits (B, 1, V) float32, caches), the caches
     written in place (an enc-dec cache's ``enc_out`` is read, never
     written).  Under a mesh every rank decodes the whole batch (caches and
-    tokens replicated, as the reference's loop commits them)."""
+    tokens replicated, as the reference's loop commits them).
+
+    ``tp``: tensor-parallel serving (``tp_layout``): ``params`` are this
+    rank's blocks by ``sharding.serving_pspecs``, ``caches`` its cache
+    (``init_cache(tp_mesh_shape=mesh.shape)``), ``tokens`` the global
+    batch; each data group decodes its rows and every rank returns the
+    whole batch's logits."""
     check_mesh(mesh)
-    if mesh is not None:
+    layout = tp_layout(cfg, mesh) if tp else None
+    if layout is not None:
+        rows, mesh = sh.local_rows({"tokens": tokens}, mesh)
+        tokens = rows["tokens"]
+    elif mesh is not None:
         mesh = mesh.replicated_batch()
     if cfg.family == "encdec":
         y, _, _ = encdec_forward(
@@ -694,10 +830,12 @@ def forward_decode(params, cfg: ArchConfig, caches, tokens, pos, *,
             cache_pos=pos, enc_out=caches["enc_out"].to(compute_dtype),
             compute_dtype=compute_dtype)
         return logits_fn(params, cfg, y), caches
-    x = embed_tokens(params, cfg, tokens, compute_dtype)
+    x = embed_tokens(params, cfg, tokens, compute_dtype, layout)
     positions = torch.full((1,), int(pos), device=x.device)
     x, caches, _ = decoder_stack(params, x, positions, cfg, caches=caches,
                                  cache_pos=pos, mesh=mesh, remat="none",
-                                 capacity_factor=None)
+                                 capacity_factor=None, layout=layout)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, cfg, x), caches
+    logits = logits_fn(params, cfg, x, layout)
+    return (logits if layout is None else sh.gather_rows(logits, mesh)), \
+        caches
