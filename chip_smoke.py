@@ -6,10 +6,10 @@
 Phases (each fails loudly, with a non-zero exit).  After phase 2 four
 worker processes (``Workers``; ``python3 chip_smoke.py --worker NAME
 OUT``, one group of ``WORKERS`` each) run beside this one on the same
-card: ``cv`` phases 6, 7, 12 and 24, ``selection`` 9, 10, 13 and 15,
-``serving`` 11 and 16-18, ``lm`` 21 and 22, while this process runs 3-5,
-8, 14, 19 and 20 with the audits.  Each worker's output is printed when it
-ends.  Every kernel timing runs alone on the card: the ``cv`` worker's
+card: ``cv`` phases 6, 7, 12 and 24, ``selection`` 9, 10, 13, 15 and
+21's part (x), ``serving`` 11 and 16-18, ``lm`` 21 and 22, while this
+process runs 3-5, 8, 14, 19 and 20 with the audits.  Each worker's
+output is printed when it ends.  Every kernel timing runs alone on the card: the ``cv`` worker's
 checks at the examples' inputs and the ``lm`` worker's curve checks, one
 after the other, once the other processes are idle, then phase 19's
 sharded checks and phase 23 here after every worker has ended.  Other times
@@ -292,6 +292,22 @@ printed by phases 3-22 are taken with the other processes running.
     all-reduces a layer, one for the embedding and one all-gather of the
     logits a step; each rank's peaks beside the dry run's predicted peak
     and its p50 beside the twin's, with the card's name and power limit.
+    Part (x), in the ``selection`` worker after phase 15 (the group that
+    ends first; its peak, about 17 GB for (x3)'s twin, then two ranks of
+    about 8 GB, sits beside the ``lm`` worker's 47 GiB): (w)'s harness and
+    bars for the MLA and MoE configs, each at its published width: (x1)
+    ``minicpm3-4b`` with bf16 parameters (MLA, its heads split), (x2)
+    ``granite-moe-1b-a400m`` in float32 (GQA, 16 experts a rank) and (x3)
+    ``deepseek-v2-236b`` with bf16 parameters, cut to its dense prologue
+    layer and one MoE layer (5.36 B parameters; MLA over 64 heads a rank,
+    80 routed experts a rank, the shared experts' channels split; its 60
+    layers, 472 GB in bf16, fit no card).  The
+    collectives a step are ``tp_collectives``' count from the config's
+    dims (a MoE layer's routed and shared partials share one all-reduce;
+    granite's odd vocabulary stays whole, so it has no embedding
+    all-reduce and no all-gather).  A MoE part's twin prefills at the
+    ranks' per-shard capacity (``_shard_capacity_moe``), the reference's
+    ``shard_map`` window.
     Then ``xtv``, ``screen_norms`` and ``sgl_prox`` against their plain
     versions at each curve's shapes (X G x G, C (32, G) with n_max 1, the
     busiest prox bucket).  Every phase and part prints its seconds beside
@@ -3944,12 +3960,12 @@ EP_FACTORS = (1.25, 0.05)   # (s)'s capacity factors: the training one, and
 def _zero_expert_layer(torch, out, dev):
     """(s) on this rank: granite's first MoE layer (the init of (r)) on
     ``lm_mesh({"data": 1, "model": 2})``, B 4, S 256, at each capacity
-    factor of ``EP_FACTORS``, against the emulation (the port's
-    ``moe_ffn_local`` over each model shard's expert slice at the
-    per-shard capacity, summed) run here on the full expert set with no
-    mesh; the pairs each dispatch keeps, counted inside ``moe_ffn_local``
-    (``moe.log_kept``): this rank's layer, the emulation's shard of this
-    rank and the unsharded layer's."""
+    factor of ``EP_FACTORS``, against the emulation
+    (``_shard_capacity_moe``: the port's ``moe_ffn_local`` over each
+    model shard's expert slice at the per-shard capacity, summed) run here
+    on the full expert set with no mesh; the pairs each dispatch keeps,
+    counted inside ``moe_ffn_local`` (``moe.log_kept``): this rank's
+    layer, the emulation's shard of this rank and the unsharded layer's."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as model_lib
@@ -3974,21 +3990,13 @@ def _zero_expert_layer(torch, out, dev):
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     es = slice(mi * n_local, (mi + 1) * n_local)
     out["s"] = {}
+    shards = _shard_capacity_moe(M)
     for cf in EP_FACTORS:
-        cap = max(min(int(np.ceil(T_ * k / M * cf)), T_ * k), 8)
+        cap = moe_mod.shard_capacity(T_, k, M, cf)
 
         def emulation(x, w_in, router):
-            q = dict(p, w_in=w_in, router=router)
-            idx, gw, aux = moe_mod.router_topk(q, x, cfg)
-            acc = 0.0
-            for m in range(M):
-                sl = slice(m * n_local, (m + 1) * n_local)
-                acc = acc + moe_mod.moe_ffn_local(
-                    x.reshape(T_, d), idx.reshape(T_, k), gw.reshape(T_, k),
-                    w_in[sl], q["w_gate"][sl], q["w_out"][sl],
-                    e_lo=m * n_local, n_local=n_local, capacity=cap,
-                    act=cfg.mlp_act)
-            return acc.reshape(B, S, d), aux
+            return shards(dict(p, w_in=w_in, router=router), x, cfg,
+                          capacity_factor=cf)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with moe_mod.log_kept() as kept:
@@ -4321,15 +4329,49 @@ def lm_compression_phase(torch, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 21 (w): tensor-parallel serving over 'model'
+# phase 21 (w) and (x): tensor-parallel serving over 'model'
 # ---------------------------------------------------------------------------
 
 TP_SHAPE = {"data": 1, "model": 2}
-#: (part, config, parameter dtype, init seed); compute is float32
-TP_PARTS = (("w1", "gemma2-2b", "float32", 27),
-            ("w2", "gemma3-12b", "bfloat16", 28))
+#: (part, config, parameter dtype, init seed, layers: None for the
+#: config's depth); every part at its published width, compute float32
+TP_PARTS = (("w1", "gemma2-2b", "float32", 27, None),
+            ("w2", "gemma3-12b", "bfloat16", 28, None))
+#: part (x), the MLA and MoE configs: deepseek-v2-236b's 60 layers (472 GB
+#: in bf16) fit no card, so it keeps its dense prologue and one MoE layer
+#: (5.36 B parameters, 10.7 GB in bf16)
+TPX_PARTS = (("x1", "minicpm3-4b", "bfloat16", 29, None),
+             ("x2", "granite-moe-1b-a400m", "float32", 30, None),
+             ("x3", "deepseek-v2-236b", "bfloat16", 31, 2))
 TP_B, TP_PROMPT, TP_GEN, TP_CACHE = 4, 16, 32, 128
 TP_STEPS = TP_PROMPT + TP_GEN - 1       # the prompt's, then the greedy ones
+
+
+def _tp_config(arch, layers):
+    """The config at its published width, cut to its first ``layers``
+    layers where that is given."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def tp_collectives(cfg, m):
+    """The collectives of a tensor-parallel step on (data 1, model ``m``),
+    from the config's dims: each layer one all-reduce after ``wo`` where
+    'model' divides the heads, one after its FFN where it splits the MLP's
+    channels (a MoE layer: its experts or its shared channels, one
+    all-reduce for both), one for the embedding where it divides the
+    vocabulary, and one all-gather of the logits where it splits the
+    head."""
+    div = lambda n: n % m == 0
+    shared = cfg.moe_d_ff * cfg.num_shared_experts
+    kinds = list(cfg.prologue) + list(cfg.block_pattern) * cfg.repeats
+    ffn = sum(div(cfg.num_experts) or (shared > 0 and div(shared))
+              if kind == "moe" else div(cfg.d_ff) for kind in kinds)
+    embed = div(cfg.vocab_size)      # the head's columns split alike
+    return {"all_gather": int(embed), "reduce_scatter": 0,
+            "all_reduce": len(kinds) * div(cfg.num_heads) + ffn + embed}
 
 
 def card_line():
@@ -4387,8 +4429,8 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev):
-    """One rank of (w): each part's config at full width on
+def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev, parts):
+    """One rank of (w) or (x): each part's config on
     ``lm_mesh(TP_SHAPE)``, its blocks drawn by ``init_params(shardings=)``,
     the twin's tokens decoded and prefilled under the serving layout; each
     step's logits against the twin's, the bytes and peaks."""
@@ -4396,7 +4438,6 @@ def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev):
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.base import get_config
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.cost_analysis import alloc_bytes
@@ -4411,9 +4452,9 @@ def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev):
     out = {"rank": rank}
     try:
         mesh = mesh_mod.lm_mesh(TP_SHAPE)
-        for part, arch, dtype, seed in TP_PARTS:
+        for part, arch, dtype, seed, layers in parts:
             t_part = time.perf_counter()
-            cfg = get_config(arch)
+            cfg = _tp_config(arch, layers)
             shardings = sh.named(mesh, sh.serving_pspecs(cfg, mesh.shape))
             gc.collect()
             torch.cuda.empty_cache()
@@ -4451,15 +4492,45 @@ def _rank_lm_tp(rank, world, init_file, out_dir, twin_dir, dev):
         dist.destroy_process_group()
 
 
-def _tp_twin(torch, part, arch, dtype, seed, twin_dir, dev):
+def _shard_capacity_moe(n_model):
+    """``moe_forward`` as expert parallelism over a 'model' axis of
+    ``n_model`` computes it, in one process: the router on the whole
+    input, each shard's E / n_model experts at the per-shard capacity
+    (``moe.shard_capacity``), the shards' outputs summed, then the shared
+    experts (the reference's ``shard_map`` order)."""
+    from repro_torch.models import moe as moe_mod
+
+    def forward(p, x, cfg, *, mesh=None, capacity_factor=1.25, tp=None):
+        B, S, d = x.shape
+        E, k = cfg.num_experts, cfg.experts_per_token
+        n_local = E // n_model
+        idx, gw, aux = moe_mod.router_topk(p, x, cfg)
+        cap = moe_mod.shard_capacity(B * S, k, n_model, capacity_factor)
+        out = 0
+        for mi in range(n_model):
+            es = slice(mi * n_local, (mi + 1) * n_local)
+            out = out + moe_mod.moe_ffn_local(
+                x.reshape(-1, d), idx.reshape(-1, k), gw.reshape(-1, k),
+                p["w_in"][es], p["w_gate"][es] if "w_gate" in p else None,
+                p["w_out"][es], e_lo=mi * n_local, n_local=n_local,
+                capacity=cap, act=cfg.mlp_act).to(x.dtype)
+        out = out.reshape(B, S, d)
+        if cfg.num_shared_experts:
+            out = out + moe_mod.shared_ffn(p, x, cfg.mlp_act)
+        return out.to(x.dtype), aux
+    return forward
+
+
+def _tp_twin(torch, part, arch, dtype, seed, layers, twin_dir, dev):
     """The twin of a part in this process: the full parameters (the same
     draws), the prompt teacher-forced then ``TP_GEN`` greedy tokens, and
-    the prefill; its tokens and logits saved for the ranks."""
-    from repro_torch.configs.base import get_config
+    the prefill (a MoE config's at the ranks' per-shard capacity); its
+    tokens and logits saved for the ranks."""
+    from unittest import mock
     from repro_torch.launch.cost_analysis import alloc_bytes
     from repro_torch.models import model as model_lib
     from repro_torch.pytree import leaves
-    cfg = get_config(arch)
+    cfg = _tp_config(arch, layers)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     params = model_lib.init_params(
@@ -4469,7 +4540,9 @@ def _tp_twin(torch, part, arch, dtype, seed, twin_dir, dev):
     toks[:, :TP_PROMPT] = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TP_B, TP_PROMPT)), device=dev)
     logits, times, _ = _tp_steps(torch, cfg, params, toks, dev, greedy=True)
-    pre, _ = _tp_prefill(torch, cfg, params, toks)
+    with mock.patch.object(model_lib.moe_mod, "moe_forward",
+                           _shard_capacity_moe(TP_SHAPE["model"])):
+        pre, _ = _tp_prefill(torch, cfg, params, toks)
     torch.save({"toks": toks.cpu(), "logits": logits, "prefill": pre},
                f"{twin_dir}/{part}.pt")
     peak = torch.cuda.max_memory_allocated()
@@ -4478,7 +4551,8 @@ def _tp_twin(torch, part, arch, dtype, seed, twin_dir, dev):
     del params, logits
     _free(torch)
     return dict(step_s=times, peak=peak, param_count=model_lib.param_count(
-        cfg), layers=cfg.num_layers, max_leaf_bytes=max_leaf)
+        cfg), layers=cfg.num_layers, max_leaf_bytes=max_leaf,
+        collectives=tp_collectives(cfg, TP_SHAPE["model"]))
 
 
 def _tp_dry(torch, parts):
@@ -4487,59 +4561,61 @@ def _tp_dry(torch, parts):
     the parameters in the part's dtype."""
     from repro_torch.launch import dryrun
     out = {}
-    for part, arch, dtype, _ in parts:
+    for part, arch, dtype, _, layers in parts:
         out[part] = dryrun.run_cell(
             arch=arch, shape_name="decode_32k", variant="tp_decode_bf16",
             extra_opts={"param_dtype": dtype}, mesh_shape=dict(TP_SHAPE),
-            batch=TP_B, seq=TP_CACHE, compute_dtype=torch.float32,
-            cache_dtype=torch.float32)
+            cfg=_tp_config(arch, layers), batch=TP_B, seq=TP_CACHE,
+            compute_dtype=torch.float32, cache_dtype=torch.float32)
     return out
 
 
-def lm_tp_phase(torch, dev="cuda"):
-    """Part (w): each part's twin here, one after the other; then one spawn
-    of two ``gloo`` ranks on (data 1, model 2) runs (w1) and (w2), while
-    their dry runs run in a thread here."""
+def lm_tp_phase(torch, parts, label, dev="cuda"):
+    """Part (w) or (x): each part's twin here, one after the other; then
+    one spawn of two ``gloo`` ranks on (data 1, model 2) runs the parts,
+    while their dry runs run in a thread here."""
     import concurrent.futures
     import tempfile
     card = card_line()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as twin_dir:
         twins = {}
-        for part, arch, dtype, seed in TP_PARTS:
+        for part, *spec in parts:
             t0 = time.perf_counter()
-            twins[part] = _tp_twin(torch, part, arch, dtype, seed, twin_dir,
-                                   dev)
+            twins[part] = _tp_twin(torch, part, *spec, twin_dir, dev)
             note_wall(time.perf_counter() - t0)
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            dry = pool.submit(_tp_dry, torch, TP_PARTS)
+            dry = pool.submit(_tp_dry, torch, parts)
             ranks, wall = run_ranks(
-                _rank_lm_tp, 2, (twin_dir, dev),
+                _rank_lm_tp, 2, (twin_dir, dev, parts),
                 lambda d, r: json.load(open(f"{d}/rank{r}.json")),
-                "lm-tp", timeout=600.0)
+                label, timeout=600.0)
             dry = dry.result()
-    say(f"[lm-tp] one spawn of 2 ranks for (w1) and (w2): {wall:.3f} s "
-        f"with start-up; parts by rank " + json.dumps(
-            {r["rank"]: {p: round(r[p]["seconds"], 3) for p, *_ in TP_PARTS}
+    names = [p[0] for p in parts]
+    say(f"[{label}] one spawn of 2 ranks for {', '.join(names)}: {wall:.3f}"
+        f" s with start-up; parts by rank " + json.dumps(
+            {r["rank"]: {p: round(r[p]["seconds"], 3) for p in names}
              for r in ranks}) + f" ({card})")
-    lm_tp_checks(ranks, twins, dry, card)
+    lm_tp_checks(ranks, twins, dry, card, parts, label)
 
 
-def lm_tp_checks(ranks, twins, dry, card):
-    """(w)'s bars on each rank: every step's logits and the prefill's
-    within 1e-4 x max|logits| of the twin's, the parameter bytes equal to
-    the dry run's, the blocks drawn within one leaf above them, the
-    collectives of every step 2 all-reduces a layer plus the embedding's
-    and one all-gather of the logits."""
-    for part, arch, dtype, _ in TP_PARTS:
+def lm_tp_checks(ranks, twins, dry, card, parts, label):
+    """(w)'s and (x)'s bars on each rank: every step's logits and the
+    prefill's within 1e-4 x max|logits| of the twin's, the parameter bytes
+    equal to the dry run's, the blocks drawn within one leaf above them,
+    the collectives of every step and of the prefill ``tp_collectives``'
+    count."""
+    for part, arch, dtype, _, layers in parts:
         tw, d = twins[part], dry[part]
-        require(d["status"] == "ok", f"lm-tp-{part}: the dry run: "
+        tag = f"{label}-{part}"
+        require(d["status"] == "ok", f"{tag}: the dry run: "
                 f"{d.get('error') or d.get('reason')}")
         m = d["memory"]
-        want = {"all_gather": 1, "reduce_scatter": 0,
-                "all_reduce": 2 * tw["layers"] + 1}
+        want = tw["collectives"]
+        width = "at full width" + ("" if layers is None else
+                                   f", its first {layers} layers")
         twin_ms = np.asarray(tw["step_s"][TP_PROMPT:]) * 1e3
-        say(f"[lm-tp-{part}] twin: {arch} at full width, {tw['param_count']}"
+        say(f"[{tag}] twin: {arch} {width}, {tw['param_count']}"
             f" parameters in {dtype}, float32 compute, one process: B "
             f"{TP_B}, prompt {TP_PROMPT}, gen {TP_GEN}, cache {TP_CACHE}: "
             f"p50 {np.percentile(twin_ms, 50):.3f} ms a step (first "
@@ -4549,7 +4625,7 @@ def lm_tp_checks(ranks, twins, dry, card):
             w = r[part]
             ms = np.asarray(w["step_s"][TP_PROMPT:]) * 1e3
             err = max(w["errs"])
-            say(f"[lm-tp-{part}] rank {r['rank']} on (data 1, model 2): "
+            say(f"[{tag}] rank {r['rank']} on (data 1, model 2): "
                 f"parameter bytes {w['param_bytes']} (its blocks' storages "
                 f"at the allocator's 512-byte grain; the dry run's "
                 f"{m['param_bytes']}; the allocator's count after the draw "
@@ -4564,24 +4640,25 @@ def lm_tp_checks(ranks, twins, dry, card):
                 f"within {err:.3e} x max|logits| of the twin's, the "
                 f"prefill's within {w['prefill_err']:.3e} (bar 1e-4); "
                 f"collectives a step {json.dumps(w['counts'][0])} "
-                f"(prefill {json.dumps(w['prefill_counts'])}; the dry "
-                f"run's {json.dumps(d['collectives']['counts'])}); p50 "
+                f"(prefill {json.dumps(w['prefill_counts'])}; the formula's "
+                f"{json.dumps(want)}; the dry run's "
+                f"{json.dumps(d['collectives']['counts'])}); p50 "
                 f"{np.percentile(ms, 50):.3f} ms a step (first "
                 f"{1e3 * w['step_s'][0]:.3f}) beside the twin's "
                 f"{np.percentile(twin_ms, 50):.3f} ({card})")
             require(err <= 1e-4 and w["prefill_err"] <= 1e-4,
-                    f"lm-tp-{part}: rank {r['rank']}'s logits differ from "
-                    f"the twin's")
+                    f"{tag}: rank {r['rank']}'s logits differ from the "
+                    f"twin's")
             require(w["param_bytes"] == m["param_bytes"],
-                    f"lm-tp-{part}: rank {r['rank']}'s parameter bytes are "
-                    f"not the dry run's")
+                    f"{tag}: rank {r['rank']}'s parameter bytes are not "
+                    f"the dry run's")
             require(all(c == want for c in w["counts"])
                     and w["prefill_counts"] == want,
-                    f"lm-tp-{part}: rank {r['rank']}'s collectives are not "
+                    f"{tag}: rank {r['rank']}'s collectives are not "
                     f"{want} a step")
             require(w["init_peak"] <= w["allocated"] + tw["max_leaf_bytes"],
-                    f"lm-tp-{part}: rank {r['rank']}'s draw held more than "
-                    f"its blocks and one leaf")
+                    f"{tag}: rank {r['rank']}'s draw held more than its "
+                    f"blocks and one leaf")
 
 
 def lm_phase(torch, T):
@@ -4607,7 +4684,7 @@ def lm_phase(torch, T):
         counts_moe, calls_moe, res_moe = lm_moe_curve_phase(torch, signal)
     zero_peaks = lm_zero_phase(torch, losses, moe_metrics, ck_d)
     with timed_phase("lm-tp"):
-        lm_tp_phase(torch)
+        lm_tp_phase(torch, TP_PARTS, "lm-tp")
     with timed_phase("lm-minicpm3"):
         lm_mla_serve_phase(torch)
     with timed_phase("lm-deepseek-v2"):
@@ -5572,7 +5649,7 @@ def cv_group(torch, T):
 
 
 def selection_group(torch, T):
-    """Phases 9, 10, 13 and 15."""
+    """Phases 9, 10, 13 and 15, then phase 21's part (x)."""
     paths = {}
     with timed_phase("weights"):
         for label, c in weights_phase(torch, T).items():
@@ -5584,6 +5661,8 @@ def selection_group(torch, T):
     with timed_phase("refine"):
         for label, c in refine_phase(torch, T).items():
             paths[f"session-{label}"] = c
+    with timed_phase("lm-tpx"):
+        lm_tp_phase(torch, TPX_PARTS, "lm-tpx")
     return dict(paths=paths)
 
 

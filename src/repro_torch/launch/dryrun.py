@@ -356,6 +356,7 @@ def main(argv=None) -> int:
                     r = rec["roofline"]
                     print(f"{tag} OK  ranks={rec['n_ranks']} "
                           f"trace={rec['trace_s']:.1f}s "
+                          f"param_bytes={rec['memory']['param_bytes']} "
                           f"peak={rec['memory']['peak_gb']:.2f}GB "
                           f"collectives={rec['collectives']['counts']} "
                           f"tC={r['t_compute']:.3e} tM={r['t_memory']:.3e} "

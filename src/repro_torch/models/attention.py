@@ -17,8 +17,12 @@ output, so attention reads the latent cache ``(B, S, kv_lora_rank)`` plus
 ``(B, S, qk_rope_head_dim)`` and never expands it a head.
 
 Under tensor-parallel serving (``HeadSplit``) a GQA layer holds its 'model'
-rank's q heads and the kv heads they read, and its output projection is
-row-parallel: the partial outputs are summed over 'model'.
+rank's q heads and the kv heads they read, an MLA layer its heads of
+``wq_b`` (or ``wq``), ``wk_b``, ``wv_b`` and ``wo`` beside the whole latent
+and rope projections, and the output projection is row-parallel: the
+partial outputs are summed over 'model'.  MLA's latent cache is whole on
+every 'model' rank (the reference's ``cache_pspecs``), each rank writing
+its own copy.
 """
 from __future__ import annotations
 
@@ -215,24 +219,34 @@ def kv_block(H, KV, m, r, heads: bool, kv: bool) -> tuple:
 
 
 class HeadSplit(NamedTuple):
-    """A GQA layer's layout on one 'model' rank of tensor-parallel
+    """An attention layer's layout on one 'model' rank of tensor-parallel
     serving: ``heads`` / ``kv``, whether its spec splits the q heads
-    (``wq``, ``wo``) / the kv heads (``wk``, ``wv``) over 'model'."""
+    (``wo``, and GQA's ``wq`` or MLA's ``wq_b`` / ``wq``, ``wk_b``,
+    ``wv_b``) / GQA's kv heads (``wk``, ``wv``) over 'model'."""
     mesh: object
     heads: bool
     kv: bool
 
     @classmethod
     def of(cls, specs, mesh) -> "HeadSplit":
-        """From the layer's spec tree (``wq`` (d, H, dh), ``wk``)."""
-        return cls(mesh, specs["wq"][1] == "model",
-                   specs["wk"][1] == "model")
+        """From the layer's spec tree: the heads from ``wo`` (H, dh, d) in
+        both families, the kv heads from ``wk`` (d, KV, dh) where the
+        layer has one (MLA has none)."""
+        return cls(mesh, specs["wo"][0] == "model",
+                   "wk" in specs and specs["wk"][1] == "model")
 
     def kv_heads(self, cfg) -> tuple:
         """``kv_block`` of this rank."""
         return kv_block(cfg.num_heads, cfg.num_kv_heads,
                         self.mesh.axes_size("model"),
                         self.mesh.block_index("model"), self.heads, self.kv)
+
+
+def _tp_sum(out, tp: Optional[HeadSplit]):
+    """A row-parallel ``wo``'s partial output summed over 'model' where the
+    heads are split; ``out`` itself otherwise."""
+    return sh.tp_reduce(out, tp.mesh) if tp is not None and tp.heads \
+        else out
 
 
 def gqa_forward(p, x, positions, cfg, *, window=None, rope_theta=None,
@@ -292,9 +306,7 @@ def gqa_forward(p, x, positions, cfg, *, window=None, rope_theta=None,
     o = sdpa(q, kk, vv, q_pos, k_pos, window=window,
              scale=dh ** -0.5, cap=cfg.attn_softcap, force_impl=force_impl)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"].to(x.dtype))
-    if tp is not None and tp.heads:
-        out = sh.tp_reduce(out, tp.mesh)
-    return out, new_cache
+    return _tp_sum(out, tp), new_cache
 
 
 def gqa_cache_shape(cfg, batch, cache_len, window=None, kv_heads=None):
@@ -314,12 +326,18 @@ class MLACache(NamedTuple):
 
 
 def mla_forward(p, x, positions, cfg, *, cache: Optional[MLACache] = None,
-                cache_pos=None, force_impl=None):
+                cache_pos=None, force_impl=None,
+                tp: Optional[HeadSplit] = None):
     """x: (B, S, d).  Training/prefill (the expanded form) when cache is
     None; decode (the absorbed form) otherwise, with the contract of
     ``gqa_forward``: one token a step, ``cache_pos`` an int, the step's
     latent and rope key written into the cache in place.  Slots past
-    ``cache_pos`` are masked (no ring)."""
+    ``cache_pos`` are masked (no ring).
+
+    ``tp``: ``p`` holds this 'model' rank's heads of the per-head weights
+    (the latent and rope projections whole), both forms run over those
+    heads alone, and the output is summed over 'model' where the heads are
+    split.  The latent cache is the whole latent.  Forward only."""
     B, S, d = x.shape
     nope, rp = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     kvr = cfg.kv_lora_rank
@@ -349,7 +367,7 @@ def mla_forward(p, x, positions, cfg, *, cache: Optional[MLACache] = None,
         o = sdpa(qq, k, val, positions, positions, window=None, scale=scale,
                  cap=cfg.attn_softcap, force_impl=force_impl)
         out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), w("wo"))
-        return out, None
+        return _tp_sum(out, tp), None
 
     # the absorbed decode:
     #   score_h(t) = <W_uk_h^T q_nope_h, c_t> + <q_rope_h, k_rope_t>
@@ -372,7 +390,7 @@ def mla_forward(p, x, positions, cfg, *, cache: Optional[MLACache] = None,
     o_lat = torch.einsum("bhst,btr->bshr", prob, ckv_all)
     o = torch.einsum("bshr,rhv->bshv", o_lat, w("wv_b"))
     out = torch.einsum("bshv,hvd->bsd", o, w("wo"))
-    return out, cache
+    return _tp_sum(out, tp), cache
 
 
 def mla_cache_shape(cfg, batch, cache_len):

@@ -37,13 +37,15 @@ of the residual stream a rank between the period's layers.  Another kind
 of mesh raises ``TypeError``.
 
 Tensor-parallel serving (``forward_decode(tp=True)``, the prefill step's
-``tp``; the dense GQA family, ``check_tp``) keeps each rank's blocks of
-the parameters by ``distributed.sharding.serving_pspecs`` (a ``TPLayout``)
-and its rows of the batch: the embedding is a vocab-parallel lookup, each
-block runs its rank's heads and channels with the rows summed over 'model'
-after the row-parallel ``wo`` and ``w_out``, and the head's vocab-split
-logits are gathered.  Each rank's cache holds its rows and the kv heads
-its q heads read (``cache_shapes(tp_mesh_shape=...)``).
+``tp``; the attention-only families, ``check_tp``) keeps each rank's
+blocks of the parameters by ``distributed.sharding.serving_pspecs`` (a
+``TPLayout``) and its rows of the batch: the embedding is a vocab-parallel
+lookup, each block runs its rank's heads and channels with the rows summed
+over 'model' after the row-parallel ``wo`` and ``w_out``, a MoE layer its
+experts and shared-expert channels with one sum for both
+(``moe.ExpertSplit``), and the head's vocab-split logits are gathered.
+Each rank's cache holds its rows and the kv heads its q heads read, or
+under MLA the whole latent (``cache_shapes(tp_mesh_shape=...)``).
 
 The decode cache is a nested dict, a leaf tree a layer of the period
 stacked over ``repeats`` plus a ``prologue`` list of unstacked ones:
@@ -92,24 +94,21 @@ def check_supported(cfg: ArchConfig) -> None:
                                   f"not ported")
 
 
-#: tensor-parallel serving of the families outside the dense GQA slice:
-#: the ROADMAP item that covers each
-TP_ITEMS = {"mla": "item 57 (MLA)", "moe": "item 58 (the MoE's attention "
-            "beside expert parallelism)", "ssm": "item 59 (the xLSTM heads)",
+#: tensor-parallel serving of the families it does not cover yet: the
+#: ROADMAP item that covers each
+TP_ITEMS = {"ssm": "item 59 (the xLSTM heads)",
             "hybrid": "item 59 (the Mamba2 heads)", "encdec": "item 60 (the "
             "enc-dec backbone)", "vlm": "item 60 (the vision backbone)"}
 
 
 def check_tp(cfg: ArchConfig) -> None:
-    """Tensor-parallel serving covers the dense GQA family; another
-    config raises ``NotImplementedError`` naming the ROADMAP items that
-    cover it."""
-    parts = ([TP_ITEMS["mla"]] if cfg.mla else []) + (
-        [TP_ITEMS[cfg.family]] if cfg.family != "dense" else [])
-    if parts:
+    """Tensor-parallel serving covers the attention-only families (dense
+    and MoE, GQA and MLA); another config raises ``NotImplementedError``
+    naming the ROADMAP item that covers it."""
+    if cfg.family in TP_ITEMS:
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving covers the dense GQA "
-            f"family; this config is ROADMAP " + " and ".join(parts))
+            f"{cfg.name}: tensor-parallel serving covers the dense and MoE "
+            f"families; this config is ROADMAP {TP_ITEMS[cfg.family]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,14 +254,18 @@ def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
     window = cfg.window_size if kind == "local" else None
     theta = (cfg.rope_theta_local if kind == "local" and cfg.rope_theta_local
              else cfg.rope_theta)
-    heads = mlp_mesh = None
+    heads = mlp_mesh = experts = None
     if tp_specs is not None:
         heads = attn.HeadSplit.of(tp_specs["attn"], mesh)
-        mlp_mesh = mesh if tp_specs["ffn"]["w_out"][0] == "model" else None
+        if kind == "moe":
+            experts = moe_mod.ExpertSplit.of(tp_specs["ffn"])
+        elif tp_specs["ffn"]["w_out"][0] == "model":
+            mlp_mesh = mesh
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
         a_out, _ = attn.mla_forward(p["attn"], h, positions, cfg,
-                                    cache=cache, cache_pos=cache_pos)
+                                    cache=cache, cache_pos=cache_pos,
+                                    tp=heads)
     else:
         a_out, _ = attn.gqa_forward(p["attn"], h, positions, cfg,
                                     window=window, rope_theta=theta,
@@ -272,7 +275,8 @@ def _attn_ffn_block(p, x, positions, cfg, kind, *, cache=None,
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
         f_out, aux = moe_mod.moe_forward(p["ffn"], h, cfg, mesh=mesh,
-                                         capacity_factor=capacity_factor)
+                                         capacity_factor=capacity_factor,
+                                         tp=experts)
     else:
         f_out = mlp_mod.mlp_forward(p["ffn"], h, cfg, tp_mesh=mlp_mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -636,12 +640,16 @@ class TensorSpec:
 def _tp_cache_dims(cfg, batch, mesh_shape) -> tuple:
     """(rows, kv heads) of a rank's KV cache under the serving layout on a
     mesh of ``mesh_shape``: its rows of the batch where the data axes divide
-    it (``sharding.local_rows``), and the kv heads its q heads read."""
+    it (``sharding.local_rows``), and the kv heads its q heads read (None
+    under MLA, whose latent cache is whole on every 'model' rank)."""
     check_tp(cfg)
-    a = _unstacked(sh.serving_pspecs(cfg, mesh_shape)["blocks"]["l0"])["attn"]
-    _, kv = attn.kv_block(cfg.num_heads, cfg.num_kv_heads,
-                          mesh_shape.get("model", 1), 0,
-                          a["wq"][1] == "model", a["wk"][1] == "model")
+    kv = None
+    if not cfg.mla:
+        a = _unstacked(sh.serving_pspecs(cfg, mesh_shape)["blocks"]["l0"])
+        split = attn.HeadSplit.of(a["attn"], None)
+        _, kv = attn.kv_block(cfg.num_heads, cfg.num_kv_heads,
+                              mesh_shape.get("model", 1), 0, split.heads,
+                              split.kv)
     dp = sh.dp_axes(mesh_shape)
     if sh.divisible(batch, mesh_shape, dp):
         batch //= int(np.prod([mesh_shape[ax] for ax in dp]))
@@ -661,7 +669,8 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int,
     ``dec_layers`` and ``enc_out`` (B, cache_len, d): the encoder's length
     is the cache's, as in the reference.  ``tp_mesh_shape``: a rank's cache
     under tensor-parallel serving on a mesh of that shape (its rows and
-    the kv heads its q heads read; the dense GQA family only)."""
+    the kv heads its q heads read, or MLA's whole latent; the families of
+    ``check_tp``)."""
     check_supported(cfg)
     f32 = torch.float32
     kv_heads = None

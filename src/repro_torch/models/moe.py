@@ -32,10 +32,20 @@ keep the reference's values:
 The load-balancing auxiliary uses the global token count and expert
 fractions (one all-reduce), so the ranks' values sum to the reference's.
 ``log_kept`` records the pairs each dispatch keeps.
+
+Under tensor-parallel serving (``ExpertSplit``: the rank holds its blocks
+by the serving specs) the routed experts run expert-parallel as above, and
+the shared experts' channels are split over 'model' too (``shared_in`` /
+``shared_gate`` column-parallel, ``shared_out`` row-parallel): the rank's
+shared partial is added to its routed partial before the one all-reduce
+over 'model', where the reference adds the whole shared output after its
+``psum`` (the same sum in another order).  The auxiliary is then the
+rank's own rows' (serving reads none), so no other collective runs.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -190,11 +200,51 @@ def capacity_of(T: int, k: int, E: int, capacity_factor) -> int:
     return max(min(int(np.ceil(T * k / E * capacity_factor)), T * k), 8)
 
 
-def moe_forward(p, x, cfg, *, mesh=None, capacity_factor: float = 1.25):
+class ExpertSplit(NamedTuple):
+    """A MoE layer's layout on one 'model' rank of tensor-parallel
+    serving: ``shared``, whether its spec splits the shared experts'
+    channels (``shared_out`` (fs, d)) over 'model'.  The routed experts
+    split wherever |model| divides E, as under expert parallelism."""
+    shared: bool
+
+    @classmethod
+    def of(cls, specs) -> "ExpertSplit":
+        """From the layer's FFN spec tree."""
+        return cls("shared_out" in specs
+                   and specs["shared_out"][0] == "model")
+
+
+def shared_ffn(p, x, act):
+    """The shared experts' FFN (this rank's channels of it under
+    tensor-parallel serving, a partial sum)."""
+    h = x @ p["shared_in"].to(x.dtype)
+    if is_glu(act):
+        h = activation(act, h, x @ p["shared_gate"].to(x.dtype))
+    else:
+        h = activation(act, h)
+    return h @ p["shared_out"].to(x.dtype)
+
+
+def shard_capacity(T: int, k: int, n_model: int, capacity_factor) -> int:
+    """The per-shard capacity of expert parallelism over a 'model' axis of
+    ``n_model`` for ``T`` local tokens (the reference's ``cap_of``): every
+    pair when ``capacity_factor`` is None, else ``ceil(T k / n_model *
+    factor)`` capped at T k, and at least 8."""
+    if capacity_factor is None:
+        return T * k
+    return max(min(int(np.ceil(T * k / n_model * capacity_factor)), T * k),
+               8)
+
+
+def moe_forward(p, x, cfg, *, mesh=None, capacity_factor: float = 1.25,
+                tp: Optional[ExpertSplit] = None):
     """x: (B, S, d), this rank's rows under a mesh -> ((B, S, d), aux
     loss).  ``capacity_factor=None`` is lossless dispatch (decode).  Under
     expert parallelism ``w_in`` / ``w_gate`` / ``w_out`` may hold every
-    expert (the rank's are taken) or the rank's E / |model|."""
+    expert (the rank's are taken) or the rank's E / |model|.  ``tp``:
+    tensor-parallel serving on ``mesh`` (``p`` holds the rank's blocks):
+    the split parts' partial sums go through one all-reduce over 'model',
+    and aux is the rank's rows' own.  Forward only."""
     from .model import check_mesh
     check_mesh(mesh)
     B, S, d = x.shape
@@ -205,37 +255,42 @@ def moe_forward(p, x, cfg, *, mesh=None, capacity_factor: float = 1.25):
     dp = sh.dp_axes(mesh.shape) if mesh is not None else ()
     split_rows = (mesh is not None and not mesh.batch_replicated
                   and mesh.group(dp) is not None)
-    expert_idx, gate_w, aux = router_topk(p, x, cfg,
-                                          mesh if split_rows else None)
+    ep = n_model > 1 and E % n_model == 0
+    expert_idx, gate_w, aux = router_topk(
+        p, x, cfg, mesh if split_rows and tp is None else None)
     w_gate = p["w_gate"] if "w_gate" in p else None
 
-    if n_model > 1 and E % n_model == 0:
+    if ep:
         out = _expert_parallel(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
-                               capacity_factor)
-    elif split_rows:
+                               capacity_factor, reduce=tp is None)
+    elif split_rows and (tp is None or capacity_factor is not None):
         out = _global_dispatch(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
                                capacity_factor)
-    else:
+    else:   # a lossless dispatch under tp needs only the rank's own rows
         out = moe_ffn_local(
             x.reshape(Tl, d), expert_idx.reshape(Tl, k),
             gate_w.reshape(Tl, k), p["w_in"], w_gate, p["w_out"], e_lo=0,
             n_local=E, capacity=capacity_of(Tl, k, E, capacity_factor),
             act=act).reshape(B, S, d)
 
-    if cfg.num_shared_experts:
-        h = x @ p["shared_in"].to(x.dtype)
-        if is_glu(act):
-            h = activation(act, h, x @ p["shared_gate"].to(x.dtype))
-        else:
-            h = activation(act, h)
-        out = out + h @ p["shared_out"].to(x.dtype)
+    shared = shared_ffn(p, x, act) if cfg.num_shared_experts else None
+    if tp is not None and shared is not None and tp.shared:
+        # the rank's shared partial joins the routed one's all-reduce
+        out = (sh.tp_reduce(out + shared, mesh) if ep
+               else out + sh.tp_reduce(shared, mesh))
+    else:
+        if tp is not None and ep:
+            out = sh.tp_reduce(out, mesh)
+        if shared is not None:
+            out = out + shared
     return out.to(x.dtype), aux
 
 
 def _expert_parallel(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
-                     capacity_factor):
+                     capacity_factor, reduce=True):
     """The 'model' rank's experts over its data block's tokens, the partial
-    outputs summed over 'model' (the reference's ``shard_map`` body)."""
+    outputs summed over 'model' (the reference's ``shard_map`` body;
+    ``reduce=False``: the rank's partial, in ``x``'s dtype)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     n_model = mesh.shape["model"]
@@ -251,19 +306,17 @@ def _expert_parallel(p, x, expert_idx, gate_w, w_gate, cfg, mesh,
     experts = lambda w: w if w is None or w.shape[0] == n_local \
         else w[mi * n_local:(mi + 1) * n_local]
     Tl = B * S
-    if capacity_factor is None:
-        cap = Tl * k
-    else:
-        cap = max(min(int(np.ceil(Tl * k / n_model * capacity_factor)),
-                      Tl * k), 8)
+    cap = shard_capacity(Tl, k, n_model, capacity_factor)
     xe = sh.copy_to_group(x, mesh, ("model",))
     we = sh.copy_to_group(gate_w, mesh, ("model",))
     out = moe_ffn_local(
         xe.reshape(Tl, d), expert_idx.reshape(Tl, k), we.reshape(Tl, k),
         experts(p["w_in"]), experts(w_gate), experts(p["w_out"]),
-        e_lo=mi * n_local, n_local=n_local, capacity=cap, act=cfg.mlp_act)
-    return sh.reduce_from_group(out.to(x.dtype), mesh,
-                                ("model",)).reshape(B, S, d)
+        e_lo=mi * n_local, n_local=n_local, capacity=cap,
+        act=cfg.mlp_act).to(x.dtype)
+    if reduce:
+        out = sh.reduce_from_group(out, mesh, ("model",))
+    return out.reshape(B, S, d)
 
 
 def _global_dispatch(p, x, expert_idx, gate_w, w_gate, cfg, mesh,

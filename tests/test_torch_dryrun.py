@@ -145,23 +145,31 @@ def test_abstract_params_and_state_equal_reference(arch):
 
 
 def test_missing_knob_and_unsupported_shape_are_skipped():
-    rec = dryrun.dryrun_cell("minicpm3-4b", "decode_32k",
+    rec = dryrun.dryrun_cell("zamba2-2.7b", "decode_32k",
                              variant="tp_decode_bf16")
-    assert rec["status"] == "skipped" and "item 57" in rec["reason"]
+    assert rec["status"] == "skipped" and "item 59" in rec["reason"]
     rec = dryrun.dryrun_cell("granite-moe-1b-a400m", "long_500k")
     assert rec["status"] == "skipped" and "500k" in rec["reason"]
 
 
 # -- the serving layout (``tp_decode_bf16``) ---------------------------------
 
-TP_ARCHS = ("gemma2-2b", "gemma3-12b", "nemotron-4-340b")
+TP_ARCHS = ("gemma2-2b", "gemma3-12b", "nemotron-4-340b", "minicpm3-4b",
+            "granite-moe-1b-a400m", "deepseek-v2-236b")
+#: a rank's parameters under the serving layout, in billions: the MLA and
+#: MoE configs at the meshes their decode cells run on
+RANK_PARAMS_B = {("deepseek-v2-236b", "data16xmodel16"): 15.388,
+                 ("minicpm3-4b", "data1xmodel2"): 2.215,
+                 ("granite-moe-1b-a400m", "data1xmodel2"): 0.693}
 
 
 @pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
                                   if a not in TP_ARCHS])
 def test_tp_variant_is_skipped_outside_the_dense_gqa_slice(arch):
     rec = dryrun.dryrun_cell(arch, "prefill_32k", variant="tp_decode_bf16")
-    assert rec["status"] == "skipped" and "ROADMAP item" in rec["reason"]
+    item = 59 if arch in ("zamba2-2.7b", "xlstm-350m") else 60
+    assert rec["status"] == "skipped"
+    assert f"ROADMAP item {item}" in rec["reason"]
 
 
 def test_tp_variant_does_not_train():
@@ -172,8 +180,8 @@ def test_tp_variant_does_not_train():
 
 def _block_bytes(cfg, mesh_shape, dtype_bytes=2):
     """Allocator bytes of one rank's serving blocks (rank 0; every rank's
-    blocks have the same shapes), and the full and blocks' element counts
-    of the leaves that the layout splits."""
+    blocks have the same shapes), the full and blocks' element counts of
+    the leaves that the layout splits, and the blocks' element count."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import LMMesh
     from repro_torch.models.common import is_desc
@@ -181,33 +189,41 @@ def _block_bytes(cfg, mesh_shape, dtype_bytes=2):
     names = tuple(mesh_shape)
     mesh = LMMesh(names, mesh_shape, range(int(np.prod(list(
         mesh_shape.values())))), dict.fromkeys(names, 0), {})
-    total, split_full, split_local = 0, 0, 0
+    total, split_full, split_local, numel = 0, 0, 0, 0
     for d, s in zip(leaves(model_lib.param_descs(cfg), is_leaf=is_desc),
                     leaves(sh.named(mesh, sh.serving_pspecs(
                         cfg, mesh_shape)), is_leaf=sh.is_sharding)):
         local = int(np.prod(s.local_shape(d.shape)))
         total += ca.alloc_bytes(local * dtype_bytes)
+        numel += local
         if local < int(np.prod(d.shape)):
             split_full += int(np.prod(d.shape))
             split_local += local
-    return total, split_full, split_local
+    return total, split_full, split_local, numel
 
 
 @pytest.mark.parametrize("arch, mesh_shape", [
     ("gemma2-2b", {"data": 1, "model": 2}),
-    ("gemma2-2b", None), ("gemma3-12b", None), ("nemotron-4-340b", None)])
+    ("gemma2-2b", None), ("gemma3-12b", None), ("nemotron-4-340b", None),
+    ("deepseek-v2-236b", None), ("minicpm3-4b", {"data": 1, "model": 2}),
+    ("granite-moe-1b-a400m", {"data": 1, "model": 2})])
 def test_tp_decode_cell_holds_a_ranks_blocks(arch, mesh_shape):
     """``tp_decode_bf16`` at decode_32k on a fake (data 1, model 2) world
     and on the production (data 16, model 16) mesh: ok, its resident
     parameter bytes the sum of the rank's bf16 blocks (the split leaves
-    at 1 / |model|), the collectives equal to the tallies."""
+    at 1 / |model|; the MLA and MoE configs' blocks ``RANK_PARAMS_B``),
+    the collectives equal to the tallies."""
     rec = dryrun.run_cell(arch=arch, shape_name="decode_32k",
                           variant="tp_decode_bf16", mesh_shape=mesh_shape,
                           device=CPU)
     assert rec["status"] == "ok", rec.get("traceback")
     shape = mesh_shape or {"data": 16, "model": 16}
-    want, split_full, split_local = _block_bytes(get_config(arch), shape)
+    want, split_full, split_local, numel = _block_bytes(get_config(arch),
+                                                        shape)
     assert rec["memory"]["param_bytes"] == want
+    key = (arch, "x".join(f"{a}{n}" for a, n in shape.items()))
+    if key in RANK_PARAMS_B:
+        assert round(numel / 1e9, 3) == RANK_PARAMS_B[key]
     assert split_local * shape["model"] == split_full
     assert rec["memory"]["resident_bytes"] > want
     assert rec["collectives"]["match_tallies"]
@@ -304,3 +320,14 @@ def test_cli_skips_and_writes_under_out(tmp_path, capsys):
     import json
     (rec,) = json.loads(out.read_text())
     assert rec["status"] == "skipped"
+
+
+def test_run_cell_takes_another_mesh():
+    """``run_cell(mesh_shape={"data": 1, "model": 2})`` runs the cell on
+    that mesh: the record carries its name (a family outside
+    tensor-parallel serving skips)."""
+    rec = dryrun.run_cell(arch="zamba2-2.7b", shape_name="decode_32k",
+                          variant="tp_decode_bf16",
+                          mesh_shape={"data": 1, "model": 2}, device=CPU)
+    assert rec["mesh"] == "data1xmodel2" and rec["status"] == "skipped"
+    assert "item 59" in rec["reason"]

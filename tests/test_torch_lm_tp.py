@@ -18,7 +18,9 @@ max|logits| of the port's single-process decode; the prefill step's last
 logits the same against ``repro.launch.steps.make_prefill_step`` and the
 port's.  Every step runs 2 all-reduces a layer (after ``wo`` and after
 ``w_out``), one for the embedding and one all-gather of the logits (and
-one of the rows where the data axis splits the batch).
+one of the rows where the data axis splits the batch).  The MLA and MoE
+configs are held the same way in ``tests/test_torch_lm_tp_mla_moe.py``;
+the families outside tensor-parallel serving raise, naming their items.
 
 The parent computes the single-process runs while the ranks work.  A
 rank's spawned process imports this module, so the JAX imports stay inside
@@ -38,8 +40,9 @@ MESHES = {2: ({"data": 1, "model": 2},),
           4: ({"data": 1, "model": 4}, {"data": 2, "model": 2})}
 CASES = [(w, i) for w in MESHES for i in range(len(MESHES[w]))]
 B, T, CACHE, PROMPT = 4, 48, 64, 16
-OUTSIDE = ("minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-236b",
-           "zamba2-2.7b", "xlstm-350m", "seamless-m4t-medium",
+#: the MLA and MoE configs (``tests/test_torch_lm_tp_mla_moe.py``)
+MLA_MOE = ("minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-236b")
+OUTSIDE = ("zamba2-2.7b", "xlstm-350m", "seamless-m4t-medium",
            "llava-next-mistral-7b")
 SPEC_MESHES = ({"data": 16, "model": 16}, {"pod": 2, "data": 16,
                                            "model": 16},
@@ -309,7 +312,7 @@ def test_a_family_outside_the_slice_raises(arch):
     from repro_torch.launch import steps
     from repro_torch.models import model as TM
     cfg = _cfg(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item (59|60)"):
         steps.make_serve_step(cfg, tp=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         steps.make_prefill_step(cfg, tp=True)
@@ -319,7 +322,7 @@ def test_a_family_outside_the_slice_raises(arch):
         TM.cache_shapes(cfg, 4, 64, tp_mesh_shape={"data": 1, "model": 2})
 
 
-@pytest.mark.parametrize("arch", ARCHS + OUTSIDE)
+@pytest.mark.parametrize("arch", ARCHS + MLA_MOE + OUTSIDE)
 def test_serving_pspecs_equal_the_references_tp_only_specs(arch):
     from repro.configs.base import get_config as jget
     from repro.models import common as JC
@@ -354,6 +357,32 @@ def test_kv_block_maps_q_heads_to_their_kv_heads(H, KV, m, heads, kv, want):
         for r, (first, n) in enumerate(got):
             hs = range(r * H // m, (r + 1) * H // m)
             assert all(first <= h // (H // KV) < first + n for h in hs)
+
+
+@pytest.mark.parametrize("arch, m, heads, kv", [
+    ("gemma3-12b", 2, True, True),
+    ("gemma3-12b", 16, True, False),
+    ("minicpm3-4b", 2, True, False),        # MLA: no wq, no wk
+    ("minicpm3-4b", 16, False, False),      # 40 heads stay whole at 16
+    ("deepseek-v2-236b", 16, True, False),
+])
+def test_head_split_reads_the_heads_from_wo(arch, m, heads, kv):
+    """``HeadSplit.of`` reads the q heads from ``wo`` (both families) and
+    the kv heads from ``wk`` where the layer has one; an MLA spec tree
+    under a q LoRA has neither ``wq`` nor ``wk``, and its per-head
+    weights split with ``wo``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.attention import HeadSplit
+    cfg = get_config(arch)
+    a = sh.serving_pspecs(cfg, {"data": 1, "model": m})["blocks"]["l0"][
+        "attn"]
+    a = {k: v[1:] for k, v in a.items()}            # the stack's dim off
+    assert ("wq" in a, "wk" in a) == ((False, False) if cfg.mla
+                                      else (True, True))
+    assert tuple(HeadSplit.of(a, None))[1:] == (heads, kv)
+    for name in ("wq_b", "wk_b", "wv_b") if cfg.mla else ("wq",):
+        assert (a[name][1] == "model") == heads
 
 
 def test_kv_block_refuses_heads_that_straddle_groups():
